@@ -1,0 +1,98 @@
+"""Counter-based RNG for rendering, bit-exact with the reference's keys.
+
+Counterpart of ``pathtracer_gaussiansplatting_tpu/core/rng.py``
+(``r2_sequence``, ``frame_key``, ``dim_key``, ``subpixel_jitter``). The
+reference draws from ``jax.random`` with the threefry2x32 generator in its
+partitionable bit layout; this module
+reimplements that hash, ``fold_in`` and float32 ``uniform`` so every
+jitter and uniform matches the reference bit for bit.
+
+A key is a (2,) int64 tensor holding two uint32 words; it is passed in
+explicitly and lives on the host. Arithmetic runs in int64 masked to 32
+bits, because torch has no uint32 shifts on every device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+FRAME_MIX = 719393
+R2_A1 = 0.75487766624669276
+R2_A2 = 0.56984029099805327
+
+_M32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k1: int, k2: int, x1, x2):
+    """Threefry-2x32 (20 rounds) of counter words (x1, x2) under key
+    (k1, k2). Words are Python ints or int64 tensors holding uint32
+    values; returns the two output words the same way."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def prng_key(seed: int) -> torch.Tensor:
+    """The key ``jax.random.PRNGKey(seed)`` holds, for a 64-bit seed."""
+    seed &= (1 << 64) - 1
+    return torch.tensor([seed >> 32, seed & _M32], dtype=torch.int64)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: a new key from ``key`` and a uint32."""
+    k1, k2 = (int(v) for v in key.tolist())
+    y1, y2 = threefry2x32(k1, k2, 0, int(data) & _M32)
+    return torch.tensor([y1, y2], dtype=torch.int64)
+
+
+def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` in [0, 1), on ``device``.
+
+    Partitionable layout: element i hashes the counter (i >> 32, i & M32)
+    and takes the XOR of the two output words; the top 23 bits become the
+    mantissa of a float in [1, 2), minus 1.
+    """
+    k1, k2 = (int(v) for v in key.tolist())
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    y1, y2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
+    bits = ((y1 ^ y2) >> 9) | 0x3F800000
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(floats, 0.0).reshape(shape)
+
+
+def r2_sequence(i: int, device=None) -> torch.Tensor:
+    """Fractional part of the 2D R2 quasirandom sequence at index i, (2,)."""
+    i = torch.tensor(float(i), dtype=torch.float32, device=device)
+    a = torch.tensor([R2_A1, R2_A2], dtype=torch.float32, device=device)
+    return torch.fmod(i * a, 1.0)
+
+
+def frame_key(base_key: torch.Tensor, frame: int) -> torch.Tensor:
+    """Key for one accumulation frame (``frame`` a Python int)."""
+    return fold_in(base_key, frame * FRAME_MIX % (2 ** 31 - 1))
+
+
+def dim_key(key: torch.Tensor, dimension: int) -> torch.Tensor:
+    """Key for one random dimension of the estimator (jitter, lobe, ...)."""
+    return fold_in(key, dimension)
+
+
+def subpixel_jitter(key: torch.Tensor, height: int, width: int, frame: int,
+                    device=None) -> torch.Tensor:
+    """(H, W, 2) subpixel jitter for ``frame``: pixel-uniform random jitter
+    shifted by the frame's R2 offset, modulo 1."""
+    u = uniform(dim_key(frame_key(key, frame), 0), (height, width, 2), device)
+    return torch.fmod(u + r2_sequence(frame, device), 1.0)

@@ -1,0 +1,230 @@
+"""Fused per-tile ray-Gaussian compositing: packets, kernel wrapper, plain
+version.
+
+Counterpart of ``pathtracer_gaussiansplatting_tpu/kernels/tile_composite.py``:
+``build_tile_packets`` (its ``build_tile_packets``), ``tile_composite`` (its
+``tile_composite`` over ``_fwd_kernel``), ``tile_composite_plain`` (its
+``_composite_math`` / ``_tile_composite_xla``). For a tile of P pixels and
+K depth-sorted Gaussian slots,
+
+    a = d^T Q d,  b = d^T Q (o - mu),  c = (o - mu)^T Q (o - mu)
+    t = clip(-b / a, t_min, t_max),  alpha = opac * exp(-q(t) / 2)
+
+with Q the world-space inverse covariance, composited front to back into
+(out (T, P, F), alpha_acc (T, P), depth (T, P)).
+
+``tile_composite`` launches the CUDA kernel ``csrc/tile_composite_fwd.cu``
+for CUDA tensors and counts each launch in ``LAUNCHES``; for CPU tensors it
+runs ``tile_composite_plain``. There is no fallback from the card to the
+plain version: a CUDA input either launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+    GaussianScene, RenderSettings,
+)
+from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import rotmat_cols
+
+# Geometry packet rows (geom (T, 16, K)): Q upper triangle
+# [q00, q11, q22, 2q01, 2q02, 2q12], Q (o - mu), c, opacity (0 where masked);
+# rows 11-15 are zero.
+ROW_C = 9
+ROW_OPAC = 10
+GEOM_ROWS = 16
+FEATURE_DIM = 14  # the packet features of render.tiled._packet_features
+
+LAUNCHES = 0  # kernel launches by tile_composite; read by chip_smoke.py
+PLAIN_CHUNK_ELEMS = 1 << 24  # (tiles, P, K) elements per plain-version chunk
+
+
+def build_tile_packets(scene: GaussianScene, feats_all: torch.Tensor,
+                       origin: torch.Tensor, tile_idx: torch.Tensor,
+                       tile_mask: torch.Tensor):
+    """Gather per-tile Gaussian packets for the compositor.
+
+    Args:
+      scene: the full scene; feats_all: (N, F) per-Gaussian features;
+      origin: (3,) camera position; tile_idx / tile_mask: (T, K) binning
+      tables.
+
+    Returns dict: geom (T, 16, K), featsT (T, F, K) and count (T,) float32,
+    1 + the index of the tile's last valid slot.
+    """
+    r00, r01, r02, r10, r11, r12, r20, r21, r22 = rotmat_cols(scene.quats)
+    d0 = torch.exp(-2.0 * scene.log_scales[:, 0])
+    d1 = torch.exp(-2.0 * scene.log_scales[:, 1])
+    d2 = torch.exp(-2.0 * scene.log_scales[:, 2])
+    q00 = r00 * r00 * d0 + r01 * r01 * d1 + r02 * r02 * d2
+    q11 = r10 * r10 * d0 + r11 * r11 * d1 + r12 * r12 * d2
+    q22 = r20 * r20 * d0 + r21 * r21 * d1 + r22 * r22 * d2
+    q01 = r00 * r10 * d0 + r01 * r11 * d1 + r02 * r12 * d2
+    q02 = r00 * r20 * d0 + r01 * r21 * d1 + r02 * r22 * d2
+    q12 = r10 * r20 * d0 + r11 * r21 * d1 + r12 * r22 * d2
+    ogx = origin[0] - scene.means[:, 0]
+    ogy = origin[1] - scene.means[:, 1]
+    ogz = origin[2] - scene.means[:, 2]
+    wb0 = q00 * ogx + q01 * ogy + q02 * ogz
+    wb1 = q01 * ogx + q11 * ogy + q12 * ogz
+    wb2 = q02 * ogx + q12 * ogy + q22 * ogz
+    c_all = wb0 * ogx + wb1 * ogy + wb2 * ogz
+
+    # One (N, 11 + F) table and one row gather.
+    cols = [q00, q11, q22, 2.0 * q01, 2.0 * q02, 2.0 * q12,
+            wb0, wb1, wb2, c_all, scene.opacities]
+    table = torch.cat([torch.stack(cols, dim=-1), feats_all], dim=-1)
+    rows = table[tile_idx.long()]                          # (T, K, 11 + F)
+    t_total, k = tile_idx.shape
+    geom = rows.new_zeros((t_total, GEOM_ROWS, k))
+    geom[:, :ROW_OPAC] = rows[..., :ROW_OPAC].transpose(1, 2)
+    geom[:, ROW_OPAC] = torch.where(tile_mask, rows[..., ROW_OPAC],
+                                    torch.zeros_like(rows[..., ROW_OPAC]))
+    featsT = rows[..., ROW_OPAC + 1:].transpose(1, 2).contiguous()
+    slot1 = torch.arange(1, k + 1, dtype=torch.float32,
+                         device=tile_idx.device)
+    count = torch.amax(torch.where(tile_mask, slot1, torch.zeros_like(slot1)),
+                       dim=-1)
+    return dict(geom=geom, featsT=featsT, count=count)
+
+
+def _chunk_size(k: int) -> int:
+    """K-chunk size: 128 slots when K divides evenly, else one chunk."""
+    return 128 if k % 128 == 0 else k
+
+
+def _cumprod_excl(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive cumprod along the last axis by Hillis-Steele doubling (the
+    reference's expansion, kept for identical rounding)."""
+    k = x.shape[-1]
+    ones = torch.ones_like(x[..., :1])
+    y = torch.cat([ones, x[..., :-1]], dim=-1)
+    shift = 1
+    while shift < k:
+        y = y * torch.cat([ones.expand(*x.shape[:-1], shift), y[..., :-shift]],
+                          dim=-1)
+        shift *= 2
+    return y
+
+
+def _composite_math(dirs: torch.Tensor, geom: torch.Tensor,
+                    featsT: torch.Tensor, settings: RenderSettings):
+    """Full-K composite (no chunking, no early exit) of a batch of tiles:
+    dirs (B, P, 3), geom (B, 16, K), featsT (B, F, K)."""
+    dx, dy, dz = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]  # (B, P, 1)
+    g = geom[:, :, None, :]                                  # (B, 16, 1, K)
+    a = (dx * dx * g[:, 0] + dy * dy * g[:, 1] + dz * dz * g[:, 2]
+         + dx * dy * g[:, 3] + dx * dz * g[:, 4] + dy * dz * g[:, 5])
+    a = torch.clamp_min(a, 1e-12)
+    b = dx * g[:, 6] + dy * g[:, 7] + dz * g[:, 8]
+    t = torch.clamp(-b / a, settings.t_min, settings.t_max)
+    qv = (a * t + 2.0 * b) * t + g[:, ROW_C]
+    gval = torch.exp(-0.5 * torch.clamp_min(qv, 0.0))
+    alpha0 = g[:, ROW_OPAC] * gval
+    cut = math.exp(-0.5 * settings.sigma_cut * settings.sigma_cut)
+    live = (gval >= cut) & (alpha0 >= settings.alpha_min)
+    alpha = torch.where(live, torch.clamp_max(alpha0, settings.alpha_max),
+                        torch.zeros_like(alpha0))
+    om = 1.0 - alpha
+    excl = _cumprod_excl(om)
+    w = excl * alpha
+    out = torch.matmul(w, featsT.transpose(1, 2))               # (B, P, F)
+    alpha_acc = 1.0 - excl[..., -1] * om[..., -1]
+    depth = torch.sum(w * t, dim=-1) / torch.clamp_min(alpha_acc, 1e-8)
+    return out, alpha_acc, depth
+
+
+def tile_composite_plain(packets, dirs: torch.Tensor,
+                         settings: RenderSettings):
+    """Plain PyTorch version of the fused composite, the reference's
+    ``_tile_composite_xla`` semantics (full K, no chunk skipping), batched
+    over tiles in chunks of about ``PLAIN_CHUNK_ELEMS`` (tiles, P, K)
+    elements to bound its temporaries.
+
+    Returns (out (T, P, F), alpha_acc (T, P), depth (T, P)).
+    """
+    geom, featsT = packets["geom"], packets["featsT"]
+    t_total, p, _ = dirs.shape
+    k = geom.shape[-1]
+    step = max(1, PLAIN_CHUNK_ELEMS // max(p * k, 1))
+    parts = [_composite_math(dirs[s:s + step], geom[s:s + step],
+                             featsT[s:s + step], settings)
+             for s in range(0, t_total, step)]
+    return tuple(torch.cat(x, dim=0) for x in zip(*parts))
+
+
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+             + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+
+
+def _kernel_fn():
+    from pathtracer_gaussiansplatting_tpu_torch.csrc import build
+
+    fn = build.load().ptgs_tile_composite_fwd
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def tile_composite(packets, dirs: torch.Tensor, settings: RenderSettings):
+    """Fused tile compositing.
+
+    Args:
+      packets: dict from :func:`build_tile_packets`: geom (T, 16, K),
+        featsT (T, F, K), count (T,).
+      dirs: (T, P, 3) per-tile pixel ray directions.
+
+    Returns (out (T, P, F), alpha_acc (T, P), depth (T, P)). CPU tensors go
+    through :func:`tile_composite_plain`; CUDA tensors launch the kernel.
+    """
+    global LAUNCHES
+    geom, featsT, count = packets["geom"], packets["featsT"], packets["count"]
+    tensors = (dirs, geom, featsT, count)
+    if all(x.device.type == "cpu" for x in tensors):
+        return tile_composite_plain(packets, dirs, settings)
+    dev = dirs.device
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError("tile_composite: inputs must all be on the CPU or "
+                         f"all on one CUDA device, got "
+                         f"{[str(x.device) for x in tensors]}")
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        raise RuntimeError("tile_composite: the kernel is built for sm_90a "
+                           f"(Hopper); {torch.cuda.get_device_name(dev)} "
+                           "is not")
+    t_total, p, _ = dirs.shape
+    k = geom.shape[-1]
+    f = featsT.shape[1]
+    expect = {"dirs": (t_total, p, 3), "geom": (t_total, GEOM_ROWS, k),
+              "featsT": (t_total, FEATURE_DIM, k), "count": (t_total,)}
+    for name, x in zip(expect, tensors):
+        if tuple(x.shape) != expect[name] or x.dtype != torch.float32 \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"tile_composite: {name} must be a contiguous float32 tensor "
+                f"of shape {expect[name]}, got {x.dtype} {tuple(x.shape)} "
+                f"contiguous={x.is_contiguous()}")
+    if p % 32 != 0 or p > 256:
+        raise ValueError(f"tile_composite: P={p} must be a multiple of 32 "
+                         "and at most 256 (tile_size 16 or less)")
+    out = torch.empty((t_total, p, f), dtype=torch.float32, device=dev)
+    alpha_acc = torch.empty((t_total, p), dtype=torch.float32, device=dev)
+    depth = torch.empty((t_total, p), dtype=torch.float32, device=dev)
+    if t_total == 0:
+        return out, alpha_acc, depth
+    cut = math.exp(-0.5 * settings.sigma_cut * settings.sigma_cut)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn()(
+            count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
+            featsT.data_ptr(), out.data_ptr(), alpha_acc.data_ptr(),
+            depth.data_ptr(), t_total, p, k, f, _chunk_size(k),
+            settings.t_min, settings.t_max, settings.alpha_min,
+            settings.alpha_max, cut, settings.transmittance_min, stream)
+    if err != 0:
+        raise RuntimeError(f"tile_composite: kernel launch failed with CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return out, alpha_acc, depth

@@ -1,0 +1,157 @@
+"""Procedural benchmark scenes.
+
+Counterpart of ``pathtracer_gaussiansplatting_tpu/models/scene.py``
+(``random_cloud``, ``surface_scene``). Both draw from numpy's seeded
+generator exactly as the reference does, so one seed gives the same scene
+in both packages; the result is built on ``device``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+    GaussianScene, make_scene,
+)
+from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import (
+    rotmat_to_quat,
+)
+
+
+def surface_scene(n: int, seed: int = 13, half=(2.0, 1.5, 2.0),
+                  overlap: float = 0.7, flatness: float = 0.1,
+                  light_intensity: float = 6.0,
+                  device=None) -> GaussianScene:
+    """Surface-structured benchmark scene: a Cornell-style room with a
+    mirror, a diffuse and a glass sphere and an emissive ceiling panel,
+    Gaussians sampled on the surfaces with trained-3DGS-like statistics
+    (tangent sigma ``overlap`` x the mean sample spacing, normal sigma
+    ``flatness`` x tangent, smallest axis along the normal)."""
+    rng = np.random.default_rng(seed)
+    hx, hy, hz = (float(h) for h in half)
+
+    def rect(center, tu, tv, m):
+        u = rng.uniform(-1, 1, (m, 1))
+        v = rng.uniform(-1, 1, (m, 1))
+        c = np.asarray(center, np.float64)[None]
+        nrm = np.cross(tu, tv)
+        nrm = nrm / np.linalg.norm(nrm)
+        pts = c + u * np.asarray(tu)[None] + v * np.asarray(tv)[None]
+        return pts, np.tile(nrm, (m, 1))
+
+    def sphere(center, radius, m):
+        d = rng.normal(size=(m, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        return np.asarray(center)[None] + radius * d, d
+
+    white, gray = (0.85, 0.85, 0.85), (0.6, 0.6, 0.6)
+    # (sampler, area, color, metallic, roughness, transmission, emission)
+    panel_em = np.asarray((1.0, 1.0, 0.9)) * light_intensity
+    surfaces = [
+        (lambda m: rect((0, -hy, 0), (hx, 0, 0), (0, 0, hz), m),
+         4 * hx * hz, white, 0.0, 0.85, 0.0, None),                 # floor
+        (lambda m: rect((0, hy, 0), (hx, 0, 0), (0, 0, -hz), m),
+         4 * hx * hz, white, 0.0, 0.9, 0.0, None),                  # ceiling
+        (lambda m: rect((0, 0, -hz), (hx, 0, 0), (0, hy, 0), m),
+         4 * hx * hy, white, 0.0, 0.8, 0.0, None),                  # back
+        (lambda m: rect((0, 0, hz), (-hx, 0, 0), (0, hy, 0), m),
+         4 * hx * hy, gray, 0.0, 0.8, 0.0, None),                   # front
+        (lambda m: rect((-hx, 0, 0), (0, 0, hz), (0, hy, 0), m),
+         4 * hz * hy, (0.8, 0.15, 0.15), 0.0, 0.8, 0.0, None),      # left
+        (lambda m: rect((hx, 0, 0), (0, 0, -hz), (0, hy, 0), m),
+         4 * hz * hy, (0.15, 0.8, 0.15), 0.0, 0.8, 0.0, None),      # right
+        (lambda m: sphere((-0.9, -hy + 0.6, -0.6), 0.6, m),
+         4 * np.pi * 0.36, (0.95, 0.95, 0.95), 1.0, 0.15, 0.0,
+         None),                                                     # mirror
+        (lambda m: sphere((0.9, -hy + 0.5, 0.3), 0.5, m),
+         np.pi, (0.2, 0.3, 0.8), 0.0, 0.6, 0.0, None),              # diffuse
+        (lambda m: sphere((0.0, -hy + 0.45, 0.9), 0.45, m),
+         4 * np.pi * 0.2, (0.98, 0.98, 0.98), 0.0, 0.05, 1.0,
+         None),                                                     # glass
+        (lambda m: rect((0, hy - 0.02, 0), (0.6, 0, 0), (0, 0, -0.6), m),
+         1.44, (1.0, 1.0, 0.9), 0.0, 0.9, 0.0, panel_em),           # light
+    ]
+    total_area = sum(s[1] for s in surfaces)
+    s_tan = overlap * np.sqrt(total_area / n)
+
+    counts = [max(1, int(round(n * a / total_area)))
+              for _, a, *_ in surfaces]
+    counts[0] += n - sum(counts)
+
+    pts_l, nrm_l, col_l, met_l, rgh_l, trn_l, emi_l = \
+        [], [], [], [], [], [], []
+    for (sampler, _a, color, met, rough, trans, emi), m in zip(surfaces,
+                                                               counts):
+        p, nv = sampler(m)
+        pts_l.append(p)
+        nrm_l.append(nv)
+        col = np.asarray(color, np.float64)[None] \
+            * rng.uniform(0.9, 1.1, (m, 1))
+        col_l.append(np.clip(col, 0, 1))
+        met_l.append(np.full(m, met))
+        rgh_l.append(np.clip(rng.normal(rough, 0.05, m), 0.02, 1.0))
+        trn_l.append(np.full(m, trans))
+        emi_l.append(np.tile(emi if emi is not None else (0.0, 0.0, 0.0),
+                             (m, 1)))
+    pts = np.concatenate(pts_l)
+    nrm = np.concatenate(nrm_l)
+    m_total = len(pts)
+
+    # Tangent frame per splat with a random in-plane rotation.
+    a = np.where(np.abs(nrm[:, 2:3]) < 0.9, [[0.0, 0.0, 1.0]],
+                 [[1.0, 0.0, 0.0]])
+    t1 = np.cross(nrm, a)
+    t1 /= np.linalg.norm(t1, axis=-1, keepdims=True)
+    t2 = np.cross(nrm, t1)
+    phi = rng.uniform(0, 2 * np.pi, (m_total, 1))
+    u1 = np.cos(phi) * t1 + np.sin(phi) * t2
+    u2 = -np.sin(phi) * t1 + np.cos(phi) * t2
+    frames = np.stack([u1, u2, nrm], axis=-1)        # columns = axes
+    quats = rotmat_to_quat(torch.as_tensor(frames.astype(np.float32)))
+
+    jitter = rng.normal(0.0, 0.15, (m_total, 2))
+    log_t = np.log(s_tan) + jitter
+    log_scales = np.stack(
+        [log_t[:, 0], log_t[:, 1],
+         np.log(flatness * s_tan) + rng.normal(0, 0.1, m_total)], -1)
+    return make_scene(
+        means=pts.astype(np.float32),
+        log_scales=log_scales.astype(np.float32),
+        quats=quats.numpy(),
+        opacity_logits=rng.normal(2.5, 0.5, m_total).astype(np.float32),
+        colors=np.concatenate(col_l).astype(np.float32),
+        emission=np.concatenate(emi_l).astype(np.float32),
+        metallic=np.concatenate(met_l).astype(np.float32),
+        roughness=np.concatenate(rgh_l).astype(np.float32),
+        transmission=np.concatenate(trn_l).astype(np.float32),
+        device=device,
+    )
+
+
+def random_cloud(n: int, seed: int = 13, spread: float = 1.0,
+                 sh_degree: int = 0, emissive_frac: float = 0.0,
+                 scale_range=(-3.0, -1.5), device=None) -> GaussianScene:
+    """Random anisotropic Gaussian cloud in [-spread, spread]^3."""
+    rng = np.random.default_rng(seed)
+    means = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
+    log_scales = rng.uniform(*scale_range, (n, 3)).astype(np.float32)
+    log_scales += np.log(max(spread, 1e-6))
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    k = (sh_degree + 1) ** 2
+    sh = np.zeros((n, k, 3), np.float32)
+    sh[:, 0] = rng.uniform(-1.0, 1.0, (n, 3))
+    if k > 1:
+        sh[:, 1:] = rng.normal(0, 0.08, (n, k - 1, 3))
+    emission = np.zeros((n, 3), np.float32)
+    if emissive_frac > 0:
+        ne = max(1, int(n * emissive_frac))
+        emission[:ne] = rng.uniform(2.0, 8.0, (ne, 3))
+    return make_scene(
+        means=means, log_scales=log_scales, quats=quats,
+        opacity_logits=rng.uniform(-1, 2, (n,)).astype(np.float32),
+        sh_coeffs=sh, emission=emission,
+        metallic=rng.uniform(0, 1, (n,)).astype(np.float32),
+        roughness=rng.uniform(0.2, 1, (n,)).astype(np.float32),
+        device=device,
+    )

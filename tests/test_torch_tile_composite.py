@@ -1,0 +1,179 @@
+"""The port's fused tile composite vs the JAX package (CPU), and the CUDA
+kernel vs its plain version (on a CUDA card only)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pathtracer_gaussiansplatting_tpu.core.types import (
+    RenderSettings as JRenderSettings,
+)
+from pathtracer_gaussiansplatting_tpu.kernels import tile_composite as jtc
+from pathtracer_gaussiansplatting_tpu.models.scene import (
+    random_cloud as j_random_cloud,
+)
+from pathtracer_gaussiansplatting_tpu.ops import binning as jb
+from pathtracer_gaussiansplatting_tpu.ops import gaussians as jgauss
+from pathtracer_gaussiansplatting_tpu.render import tiled as jtiled
+from pathtracer_gaussiansplatting_tpu_torch.core.types import RenderSettings
+from pathtracer_gaussiansplatting_tpu_torch.kernels import tile_composite as tc
+from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as tgauss
+from pathtracer_gaussiansplatting_tpu_torch.render import tiled
+
+from utils import random_scene
+from torch_parity import (
+    TORCH_THREADS, assert_close, cameras, np_of, to_torch_packets,
+    to_torch_scene,
+)
+
+torch.set_num_threads(TORCH_THREADS)
+
+BG = (0.1, 0.2, 0.3)
+
+
+def _pose_packets(n, spread, k, seed=21, eye=(0.0, 0.5, 4.0),
+                  scale_range=(-2.5, -1.0)):
+    """JAX packets and jittered tile dirs of one small pose, and their
+    torch copies."""
+    scene = j_random_cloud(n, seed=seed, spread=spread,
+                           scale_range=scale_range)
+    jcam, _ = cameras(eye=eye)
+    cfg = jb.BinningConfig(max_per_tile=k)
+    settings = JRenderSettings(background=BG)
+    packets = jtiled.prepare_tiles(scene, jcam, settings, cfg)
+    jit = np.random.default_rng(seed).uniform(0, 1, (48, 64, 2))
+    dirs, _ = jtiled._tile_dirs(jcam, cfg, jnp.asarray(jit, jnp.float32))
+    return (packets, dirs, to_torch_packets(packets),
+            torch.from_numpy(np.array(dirs)))
+
+
+@pytest.mark.parametrize("k", [64, 128])
+def test_plain_matches_xla(k, monkeypatch):
+    """tile_composite_plain vs the reference's own oracle semantics, in
+    chunks of 5 tiles."""
+    monkeypatch.setattr(tc, "PLAIN_CHUNK_ELEMS", 5 * 256 * k)
+    packets, dirs, tpk, tdirs = _pose_packets(250, 1.2, k)
+    want = jtc._tile_composite_xla(packets, dirs, JRenderSettings())
+    got = tc.tile_composite_plain(tpk, tdirs, RenderSettings())
+    for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
+        assert_close(g, w, 2e-4, 2e-5, err_msg=name)
+
+
+def test_plain_matches_pallas_interpret():
+    """tile_composite_plain vs the Pallas kernel in interpret mode at K=256:
+    two 128-slot chunks, with the second skipped on saturated tiles."""
+    packets, dirs, tpk, tdirs = _pose_packets(
+        600, 1.0, 256, eye=(0.0, 0.0, 1.5), scale_range=(-2.0, -1.0))
+    settings = JRenderSettings()
+    count = np.asarray(packets["count"])
+    # The kernel's skip must really happen: tiles past 128 slots whose
+    # transmittance after the first chunk is at or below the threshold.
+    first = dict(packets, geom=packets["geom"][..., :128],
+                 featsT=packets["featsT"][..., :128])
+    trans1 = 1.0 - np.asarray(jtc._tile_composite_xla(first, dirs,
+                                                      settings)[1])
+    skipped = (count > 128) & (trans1.max(-1) <= settings.transmittance_min)
+    assert skipped.any() and (~skipped & (count > 128)).any()
+    want = jtc.tile_composite(packets, dirs, settings, interpret=True)
+    got = tc.tile_composite_plain(tpk, tdirs, RenderSettings())
+    for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
+        assert_close(g, w, 1e-3, 3e-4, err_msg=name)
+
+
+# The per-tile oracle forms q = c - b^2/a from M = diag(1/s) R^T, the packet
+# path from Q = M^T M; with the camera far from small splats c reaches ~2e3,
+# and the cancellation costs each form ~3e-4 in q (against a float64
+# evaluation) whatever the framework. Oracle comparisons are therefore held
+# to the kernel tolerance, rtol 1e-3 / atol 3e-4.
+ORACLE_RTOL, ORACLE_ATOL = 1e-3, 3e-4
+
+
+def test_reference_oracle_matches():
+    """The per-tile oracle tile_composite_reference in both packages."""
+    rng = np.random.default_rng(5)
+    scene = j_random_cloud(40, seed=5, spread=1.0)
+    origin = np.array([0.0, 0.0, 4.0], np.float32)
+    d = rng.normal(size=(3, 32, 3))
+    d[..., 2] = -np.abs(d[..., 2]) - 1.0
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    feats = rng.uniform(size=(40, 14)).astype(np.float32)
+    idx = np.stack([rng.permutation(40) for _ in range(3)])
+    mask = rng.uniform(size=(3, 40)) > 0.2
+    m = jgauss.canonical_transforms(scene.log_scales, scene.quats)
+    settings = JRenderSettings()
+    want = [jtiled.tile_composite_reference(
+        jnp.asarray(origin), jnp.asarray(d[i]), scene.means[idx[i]],
+        m[idx[i]], scene.opacities[idx[i]], jnp.asarray(feats)[idx[i]],
+        jnp.asarray(mask[i]), settings) for i in range(3)]
+    ts = to_torch_scene(scene)
+    tm = tgauss.canonical_transforms(ts.log_scales, ts.quats)
+    ti = torch.from_numpy(idx).long()
+    got = tiled.tile_composite_reference(
+        torch.from_numpy(origin), torch.from_numpy(d), ts.means[ti], tm[ti],
+        ts.opacities[ti], torch.from_numpy(feats)[ti],
+        torch.from_numpy(mask), RenderSettings())
+    for j, name in enumerate(("out", "alpha_acc", "depth")):
+        assert_close(got[j], np.stack([np.asarray(w[j]) for w in want]),
+                     ORACLE_RTOL, ORACLE_ATOL, err_msg=name)
+
+
+def test_plain_matches_oracle(rng):
+    """The port's plain composite vs its per-tile oracle, on the inputs of
+    the reference's own check of its kernel math (TestKernelMath in
+    tests/test_pallas_kernels.py)."""
+    scene = to_torch_scene(random_scene(32, rng, spread=1.0))
+    origin = torch.tensor([0.0, 0.0, 4.0])
+    d = rng.normal(size=(64, 3))
+    d[:, 2] = -np.abs(d[:, 2]) - 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dirs = torch.from_numpy(d.astype(np.float32))
+    feats = torch.from_numpy(rng.normal(size=(32, 5)).astype(np.float32))
+    mask = torch.ones(32, dtype=torch.bool)
+    m = tgauss.canonical_transforms(scene.log_scales, scene.quats)
+    ref_out, ref_acc, ref_depth = tiled.tile_composite_reference(
+        origin, dirs, scene.means, m, scene.opacities, feats, mask,
+        RenderSettings())
+    packets = tc.build_tile_packets(scene, feats, origin,
+                                    torch.arange(32, dtype=torch.int32)[None],
+                                    mask[None])
+    out, acc, depth = tc.tile_composite_plain(packets, dirs[None],
+                                              RenderSettings())
+    assert_close(out[0], ref_out, ORACLE_RTOL, ORACLE_ATOL)
+    assert_close(acc[0], ref_acc, ORACLE_RTOL, ORACLE_ATOL)
+    hit = np_of(ref_acc) > 1e-3
+    np.testing.assert_allclose(np_of(depth[0])[hit], np_of(ref_depth)[hit],
+                               rtol=1e-3)
+
+
+def test_dispatch_cpu_and_no_fallback():
+    """CPU tensors take the plain version; any other device must launch the
+    kernel or raise, never fall back."""
+    _, _, tpk, tdirs = _pose_packets(120, 1.0, 64)
+    settings = RenderSettings()
+    before = tc.LAUNCHES
+    got = tc.tile_composite(tpk, tdirs, settings)
+    want = tc.tile_composite_plain(tpk, tdirs, settings)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tc.LAUNCHES == before
+    meta = {k: v.to("meta") for k, v in tpk.items()}
+    with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
+        tc.tile_composite(meta, tdirs.to("meta"), settings)
+    with pytest.raises(ValueError):
+        tc.tile_composite(meta, tdirs, settings)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
+    _, _, tpk, tdirs = _pose_packets(2000, 0.8, 256)
+    dev = torch.device("cuda", 0)
+    packets = {k: v.to(dev) for k, v in tpk.items()}
+    settings = RenderSettings()
+    before = tc.LAUNCHES
+    got = tc.tile_composite(packets, tdirs.to(dev), settings)
+    torch.cuda.synchronize()
+    assert tc.LAUNCHES == before + 1
+    want = tc.tile_composite_plain(packets, tdirs.to(dev), settings)
+    for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
+        assert_close(g, w, 1e-3, 3e-4, err_msg=name)

@@ -1,0 +1,53 @@
+"""Helpers for the port's parity tests: move the JAX package's scenes and
+cameras into the PyTorch port and compare results as numpy arrays."""
+import dataclasses
+
+import numpy as np
+import torch
+
+from pathtracer_gaussiansplatting_tpu.core.camera import Camera as JCamera
+from pathtracer_gaussiansplatting_tpu.core.camera import look_at as j_look_at
+from pathtracer_gaussiansplatting_tpu_torch.core.camera import Camera, look_at
+from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+    SCENE_FIELDS, GaussianScene, scene_from_numpy,
+)
+
+# tier-1 runs several pytest workers; keep each one's torch pool small
+TORCH_THREADS = 2
+
+
+def np_of(x) -> np.ndarray:
+    """numpy view of a jax array or a torch tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def to_torch_scene(scene, device="cpu") -> GaussianScene:
+    """The port's GaussianScene with the JAX scene's exact parameters."""
+    return scene_from_numpy({f: np.asarray(getattr(scene, f))
+                             for f in SCENE_FIELDS}, device)
+
+
+def cameras(eye=(0.0, 0.5, 4.0), target=(0.0, 0.0, 0.0), fov=50.0,
+            width=64, height=48):
+    """The same pinhole camera in both packages: (jax_camera, camera)."""
+    return (JCamera(c2w=j_look_at(eye, target), fov_y_deg=fov, width=width,
+                    height=height),
+            Camera(c2w=look_at(eye, target), fov_y_deg=fov, width=width,
+                   height=height))
+
+
+def to_torch_packets(packets) -> dict:
+    """JAX packets (geom, featsT, count) as CPU tensors."""
+    return {k: torch.from_numpy(np.array(packets[k]))
+            for k in ("geom", "featsT", "count")}
+
+
+def assert_close(got, want, rtol, atol, err_msg=""):
+    np.testing.assert_allclose(np_of(got), np_of(want), rtol=rtol, atol=atol,
+                               err_msg=err_msg)
+
+
+def dataclass_defaults(cls) -> dict:
+    return {f.name: f.default for f in dataclasses.fields(cls)}
