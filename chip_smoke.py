@@ -5,13 +5,14 @@ Run from the repository root, on a machine with one CUDA card:
 
     python3 chip_smoke.py    # build, check, render; exit 0 on success
 
-The port's hot kernel (the fused forward tile composite,
-``pathtracer_gaussiansplatting_tpu_torch/csrc/tile_composite_fwd.cu``) is
-built from the checkout at first use. Then:
+The port's kernels (the fused tile composite forward and backward,
+``pathtracer_gaussiansplatting_tpu_torch/csrc/tile_composite_{fwd,bwd}.cu``)
+are built from the checkout at first use. Then:
 
-  phase 1  the kernel against its plain PyTorch version on the card, at the
-           headline pose's packets (T=2500 tiles, K=256) with jittered rays,
-           and the whole slice on the card against the CPU at a small size;
+  phase 1  the forward kernel against its plain PyTorch version on the card,
+           at the headline pose's packets (T=2500 tiles, K=256) with
+           jittered rays, and the whole slice on the card against the CPU
+           at a small size;
   phase 2  the headline slice: random_cloud(1M, seed 13, spread 1.5),
            800x800, K=256 — one prepare_tiles, then 16 jittered samples of
            render_prepared, each accumulated; then one sample and one
@@ -21,7 +22,15 @@ built from the checkout at first use. Then:
            surface_scene(500k, seed 13), 1920x1080, K=512 — the kernel
            against its plain version at these shapes, then one
            prepare_tiles and 4 jittered samples; the image is written to
-           chiprun_out/chip_smoke/, and one sample is profiled.
+           chiprun_out/chip_smoke/, and one sample is profiled;
+  phase 4  training: (a) the backward kernel against its plain version at
+           the packets of phases 2 and 3, with no transmittance cutoff
+           everywhere and, at the default cutoff, exact zeros on the chunks
+           it skips; (b) fit_scene_tiled on the headline cloud, 800x800,
+           K=256, 8 steps over two poses (timed, one step profiled), and a
+           color-only fit at the same size that must learn; (c) the
+           training step on the card against the CPU at phase 1's small
+           size.
 
 Every failure (a build error, a launch error, a tolerance miss, a
 non-finite image, a kernel the main path never launched) raises and ends
@@ -31,6 +40,7 @@ CUDA the script exits with code 2 at once. The last line printed is
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -47,7 +57,15 @@ KERNEL_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
                  "tile_composite_fwd.cu")
 KERNEL_REPLACES = ("pathtracer_gaussiansplatting_tpu/kernels/"
                    "tile_composite.py:244")
+BWD_KERNEL_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
+                     "tile_composite_bwd.cu")
+BWD_KERNEL_REPLACES = ("pathtracer_gaussiansplatting_tpu/kernels/"
+                       "tile_composite.py:281")
 RTOL, ATOL = 1e-3, 3e-4  # the reference's kernel-vs-oracle tolerances
+# The reference's tolerance for its analytic backward against autodiff
+# (tests/test_pallas_kernels.py, TestAnalyticBackward).
+BWD_RTOL, BWD_ATOL = 2e-3, 2e-4
+DIRS_MASS_RTOL = 1e-5  # d_dirs: allowance per unit L1 mass of its terms
 
 
 def check(cond: bool, msg: str) -> None:
@@ -59,17 +77,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def compare(got, want, name: str, mask=None) -> float:
-    """Max abs error of got vs want (rtol/atol as above); raises on a miss."""
+def compare(got, want, name: str, mask=None, rtol=RTOL, atol=ATOL,
+            extra=None) -> float:
+    """Max abs error of got vs want; raises on a miss of atol + rtol |want|
+    (+ extra, a tensor of per-entry allowances, where given)."""
     g, w = got.double(), want.double()
     if mask is not None:
         g, w = g[mask], w[mask]
     err = (g - w).abs()
     check(bool(torch.isfinite(g).all()), f"{name}: non-finite values")
-    bad = err > ATOL + RTOL * w.abs()
+    bad = err > atol + rtol * w.abs() + (0.0 if extra is None else extra)
     check(not bool(bad.any()),
           f"{name}: {int(bad.sum())} of {bad.numel()} values outside "
-          f"rtol {RTOL} / atol {ATOL} (max abs err {float(err.max()):.3e})")
+          f"rtol {rtol} / atol {atol}{'' if extra is None else ' + extra'} "
+          f"(max abs err {float(err.max()):.3e})")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -135,6 +156,292 @@ def card_line() -> str:
     return res.stdout.strip()
 
 
+def chunk_schedule(tc, packets, dirs, settings):
+    """Which chunks the kernels skip on transmittance, from the plain
+    forward's T at each chunk entry, with a 10% margin around
+    transmittance_min: (tiles where every chunk under count surely ran,
+    first chunk surely skipped per tile (n_chunks for none), kc). A tile
+    whose T sits within the margin is in neither set."""
+    count, geom, featsT = packets["count"], packets["geom"], packets["featsT"]
+    k = geom.shape[-1]
+    kc = tc._chunk_size(k)
+    tmin = settings.transmittance_min
+    no_skip = count > 0
+    skip_from = torch.full_like(count, k // kc, dtype=torch.long)
+    for ci in range(1, k // kc):
+        s = ci * kc
+        head = dict(geom=geom[..., :s].contiguous(),
+                    featsT=featsT[..., :s].contiguous())
+        tmax = (1.0 - tc.tile_composite_plain(head, dirs, settings)[1]
+                ).amax(-1)
+        live = no_skip & (count > s)
+        skip_from[live & (tmax <= 0.9 * tmin)] = ci
+        no_skip &= ~(live & ~(tmax > 1.1 * tmin))
+    return no_skip, skip_from, kc
+
+
+def dirs_term_mass(tc, packets, dirs, cot, settings):
+    """Per pixel (T, P, 1): the L1 mass of the terms that d_dirs sums,
+    sum_k |d_a| sum_r |q6_r| + |d_b| sum_r |Q(o-mu)_r|. For thin splats
+    q6 ~ 1/sigma^2 reaches ~1e6 and the terms cancel, so float32 d_dirs
+    carries errors of ~eps32 times this mass in any implementation."""
+    geom, featsT = packets["geom"], packets["featsT"]
+    t_total, p, _ = dirs.shape
+    step = max(1, tc.PLAIN_CHUNK_ELEMS // (p * geom.shape[-1]))
+    parts = []
+    for s in range(0, t_total, step):
+        g, c = geom[s:s + step], tuple(x[s:s + step] for x in cot)
+        a, b = (x.requires_grad_() for x in tc._quadratic_ab(dirs[s:s + step],
+                                                             g))
+        with torch.enable_grad():
+            outs = tc._composite_from_ab(a, b, g, featsT[s:s + step],
+                                         settings)
+            d_a, d_b = torch.autograd.grad(outs, (a, b), c)
+        parts.append(
+            torch.einsum("bpk,bk->bp", d_a.abs(), g[:, :6].abs().sum(1))
+            + torch.einsum("bpk,bk->bp", d_b.abs(), g[:, 6:9].abs().sum(1)))
+    return torch.cat(parts)[..., None]
+
+
+def bwd_check(tc, packets, dirs, settings, name: str, card: str) -> dict:
+    """The backward kernel against tile_composite_bwd_plain on a seeded
+    cotangent (the depth cotangent masked where alpha_acc <= 1e-3): at
+    transmittance_min=0 everywhere; at the given settings, exact zeros on
+    the chunks the kernel skips and a match on tiles with none skipped."""
+    t_total, p, _ = dirs.shape
+    k = packets["geom"].shape[-1]
+    rng = np.random.default_rng(17)
+    dev = dirs.device
+
+    def normal(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    alpha_acc = tc.tile_composite_plain(packets, dirs, settings)[1]
+    cot = (normal(t_total, p, tc.FEATURE_DIM), normal(t_total, p),
+           normal(t_total, p) * (alpha_acc > 1e-3))
+    names = ("d_geom", "d_featsT", "d_dirs")
+    # The plain version has no chunk skip, so one run serves both checks.
+    want = tc.tile_composite_bwd_plain(packets, dirs, cot, settings)
+    full = dataclasses.replace(settings, transmittance_min=0.0)
+    got = tc.tile_composite_bwd(packets, dirs, cot, full)
+    torch.cuda.synchronize()
+    err = max(compare(g, w, f"{name} {n}, transmittance_min=0",
+                      rtol=BWD_RTOL, atol=BWD_ATOL)
+              for g, w, n in zip(got[:2], want[:2], names))
+    # d_dirs sums terms that cancel: beside the tolerance above, allow
+    # DIRS_MASS_RTOL of their L1 mass (~84 float32 ulps of it).
+    mass = dirs_term_mass(tc, packets, dirs, cot, full)
+    dirs_err = compare(got[2], want[2], f"{name} d_dirs, transmittance_min=0",
+                       rtol=BWD_RTOL, atol=BWD_ATOL,
+                       extra=DIRS_MASS_RTOL * mass.double())
+    dirs_rel = float(((got[2] - want[2]).abs() / mass.clamp_min(1e-30)).max())
+
+    got = tc.tile_composite_bwd(packets, dirs, cot, settings)
+    torch.cuda.synchronize()
+    no_skip, skip_from, kc = chunk_schedule(tc, packets, dirs, settings)
+    for g, w, n in zip(got, want, names):
+        compare(g[no_skip], w[no_skip], f"{name} {n}, tiles with no skipped "
+                "chunk", rtol=BWD_RTOL, atol=BWD_ATOL,
+                extra=DIRS_MASS_RTOL * mass[no_skip].double()
+                if n == "d_dirs" else None)
+    slot_chunk = torch.arange(k, device=dev) // kc            # (K,)
+    dead = slot_chunk[None, :] >= skip_from[:, None]          # (T, K)
+    n_dead = int(dead.sum())
+    for g, n in zip(got[:2], names):
+        check(bool((g.masked_select(dead[:, None, :]) == 0).all()),
+              f"{name} {n}: a slot of a skipped chunk is not exactly 0")
+    check(bool(torch.isfinite(got[2]).all()), f"{name} d_dirs not finite")
+
+    ms = cuda_ms(lambda: tc.tile_composite_bwd(packets, dirs, cot, settings),
+                 10)
+    plain_ms = cuda_ms(
+        lambda: tc.tile_composite_bwd_plain(packets, dirs, cot, settings), 2)
+    log(f"phase 4a {name}: T={t_total}, K={k}: backward kernel vs plain at "
+        f"transmittance_min=0: d_geom, d_featsT max abs err {err:.3e} (rtol "
+        f"{BWD_RTOL}, atol {BWD_ATOL}); d_dirs max abs err {dirs_err:.3e}, "
+        f"max err / term mass {dirs_rel:.3e} (allowed {DIRS_MASS_RTOL}, term "
+        f"mass up to {float(mass.max()):.3e}); default settings: "
+        f"{int(no_skip.sum())} tiles with no "
+        f"skipped chunk match, {int((skip_from < k // kc).sum())} tiles skip "
+        f"chunks ({n_dead} slots, all exactly 0); kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms (CUDA events; {card})")
+    return dict(max_abs_err=max(err, dirs_err), ms=ms, plain_ms=plain_ms)
+
+
+def noised_start(scene, noise: float, seed: int = 5):
+    """The scene with sh_coeffs + noise * N(0, 1) (numpy-seeded)."""
+    z = np.random.default_rng(seed).normal(size=scene.sh_coeffs.shape)
+    return scene.replace(sh_coeffs=scene.sh_coeffs + torch.from_numpy(
+        (noise * z).astype(np.float32)).to(scene.sh_coeffs.device))
+
+
+def fit_run(tc, scene, cams, settings, cfg, steps: int, lr: float,
+            noise: float) -> dict:
+    """fit_scene_tiled (every leaf trained) on the card from a noised start
+    toward targets the port renders from the true scene; the launch counts
+    after each step, the step times and the metrics."""
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import train
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        render_tiled_fused,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.utils import metrics
+
+    with torch.no_grad():
+        targets = [render_tiled_fused(scene, c, settings, cfg)["color"]
+                   for c in cams]
+        start = noised_start(scene, noise)
+        psnr0 = float(metrics.psnr(render_tiled_fused(
+            start, cams[0], settings, cfg)["color"], targets[0]))
+    marks = []
+
+    def progress(i, loss):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), tc.LAUNCHES, tc.BWD_LAUNCHES))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc.LAUNCHES = tc.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    _, losses, final = train.fit_scene_tiled(
+        start, cams, targets, settings, steps=steps, lr=lr, config=cfg,
+        progress=progress)
+    torch.cuda.synchronize()
+    step_ms = [(b[0] - a[0]) * 1e3 for a, b in zip([(t0,)] + marks, marks)]
+    return dict(losses=losses, psnr0=psnr0, final=final, step_ms=step_ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                counts=[m[1:] for m in marks], targets=targets, start=start,
+                steps=steps, lr=lr, noise=noise)
+
+
+def check_fit_ran(tr: dict) -> None:
+    """One forward and one backward kernel launch per step, finite
+    losses."""
+    check(tr["counts"] == [(i + 1, i + 1) for i in range(tr["steps"])],
+          f"training launches per step (fwd, bwd) {tr['counts']}, not one "
+          "each")
+    check(bool(np.isfinite(tr["losses"]).all()),
+          f"non-finite losses {tr['losses']}")
+
+
+def check_learned(losses, psnr0: float, psnr1: float, n_poses: int,
+                  name: str) -> None:
+    """Each pose's last loss below its first, and the PSNR on pose 0 up."""
+    for p in range(n_poses):
+        check(losses[p::n_poses][-1] < losses[p],
+              f"{name}: pose {p} loss did not fall: {losses[p::n_poses]}")
+    check(psnr1 > psnr0,
+          f"{name}: PSNR did not rise: {psnr0:.3f} -> {psnr1:.3f} dB")
+
+
+def sh_run(scene, cams, settings, cfg, steps: int, lr: float,
+           noise: float) -> dict:
+    """make_tiled_train_step with Adam on sh_coeffs alone (the geometry
+    held), from sh_coeffs + noise * N(0, 1)."""
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        SceneParams,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import train
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        render_tiled_fused,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.utils import metrics
+
+    with torch.no_grad():
+        targets = [render_tiled_fused(scene, c, settings, cfg)["color"]
+                   for c in cams]
+    params = SceneParams.from_scene(noised_start(scene, noise))
+    opt = train.make_optimizer(lr)
+    opt_state = opt([params.sh_coeffs])
+    step = train.make_tiled_train_step(settings, opt, config=cfg)
+
+    def psnr():
+        with torch.no_grad():
+            return float(metrics.psnr(render_tiled_fused(
+                params.scene(), cams[0], settings, cfg)["color"], targets[0]))
+
+    psnr0 = psnr()
+    losses = [float(step(params, opt_state, cams[i % len(cams)],
+                         targets[i % len(cams)])[2]) for i in range(steps)]
+    return dict(losses=losses, psnr0=psnr0, psnr1=psnr())
+
+
+def log_fit(tag: str, tr: dict, res: int, card: str) -> float:
+    """Logs a fit_run; returns the median ms of its later pose-0 steps
+    (steps 3, 5, ...: the two poses' steps differ in cost)."""
+    med = statistics.median(tr["step_ms"][1:])
+    pose0 = statistics.median(tr["step_ms"][2::2])
+    pose1 = statistics.median(tr["step_ms"][1::2])
+    log(f"{tag}: fit_scene_tiled, 1M Gaussians, {res}x{res}, K=256, "
+        f"sh noise {tr['noise']}, {tr['steps']} steps, lr {tr['lr']}, every "
+        f"leaf trained: losses "
+        f"{', '.join(f'{x:.6f}' for x in tr['losses'])}; PSNR pose 0 "
+        f"{tr['psnr0']:.3f} -> {tr['final']['psnr']:.3f} dB, SSIM "
+        f"{tr['final']['ssim']:.4f}; launches (fwd, bwd) after the last "
+        f"step {tr['counts'][-1]} ({card})")
+    log(f"{tag}: step ms {', '.join(f'{m:.2f}' for m in tr['step_ms'])} "
+        f"(median of 2-{tr['steps']} {med:.2f}; pose 0 {pose0:.2f}, pose 1 "
+        f"{pose1:.2f}); fwd+bwd {res * res / (med * 1e-3):.4e} rays/s; peak "
+        f"memory {tr['peak_gib']:.2f} GiB ({card})")
+    return pose0
+
+
+def small_train_check(scene, cam_kw, cfg, settings, dev) -> dict:
+    """Three fit steps of the small scene on the card and on the CPU at
+    transmittance_min=0: step-0 scene gradients within 1e-3 of each leaf's
+    max |g| (plus rtol 2e-3), losses within rtol 1e-3 (Adam's first step
+    is ~lr sign(g), so a near-zero gradient that differs in sign between
+    the two moves its parameter by 2 lr)."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        SCENE_FIELDS,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        SceneParams,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import train
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        render_tiled_fused,
+    )
+
+    settings = dataclasses.replace(settings, transmittance_min=0.0)
+    cpu = torch.device("cpu")
+    cams = {d: [Camera(**{**cam_kw, "c2w": look_at(eye, (0.0, 0.0, 0.0),
+                                                   device=d)})
+                for eye in ((0.0, 0.5, 4.0), (2.5, 0.5, 2.5))]
+            for d in (dev, cpu)}
+    with torch.no_grad():
+        targets = [render_tiled_fused(scene, c, settings, cfg)["color"]
+                   for c in cams[cpu]]
+    start = noised_start(scene, 0.15, seed=6)
+    grads, losses = {}, {}
+    for d in (dev, cpu):
+        params = SceneParams.from_scene(start.to(d))
+        opt = train.make_optimizer(2e-2)
+        step = train.make_tiled_train_step(settings, opt, config=cfg)
+        step(params, opt(params.parameters()), cams[d][0], targets[0].to(d))
+        grads[d] = {f: getattr(params.grad_scene(), f).cpu()
+                    for f in SCENE_FIELDS}
+        losses[d] = train.fit_scene_tiled(
+            start.to(d), cams[d], [t.to(d) for t in targets], settings,
+            steps=3, lr=2e-2, config=cfg)[1]
+    grad_err = 0.0
+    for f in SCENE_FIELDS:
+        scale = float(grads[cpu][f].abs().max())
+        if scale > 0:
+            grad_err = max(grad_err, compare(
+                grads[dev][f], grads[cpu][f], f"small step-0 grad {f}",
+                rtol=2e-3, atol=1e-3 * scale) / scale)
+        else:
+            check(bool((grads[dev][f] == 0).all()),
+                  f"small step-0 grad {f}: nonzero on the card, 0 on the CPU")
+    loss_err = compare(torch.tensor(losses[dev]), torch.tensor(losses[cpu]),
+                       "small fit losses", rtol=1e-3, atol=0.0)
+    return dict(grad=grad_err, loss=loss_err / max(losses[cpu]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -154,11 +461,12 @@ def main() -> int:
         tile_composite as tc,
     )
     from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
-        random_cloud, surface_scene,
+        SceneParams, random_cloud, surface_scene,
     )
     from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
         BinningConfig,
     )
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import train
     from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
         accumulate,
     )
@@ -292,7 +600,6 @@ def main() -> int:
     profile_once("phase2_prepare",
                  lambda: prepare_tiles(scene, cam, settings, cfg), prep2_ms,
                  card)
-    del packets, scene
 
     # ---- phase 3: the primary stage at the path-trace bench's size ----
     pt_scene = surface_scene(500_000, seed=13, device=dev)
@@ -317,7 +624,7 @@ def main() -> int:
     log(f"phase 3: kernel vs plain at T={pt_dirs.shape[0]}, K=512: max abs "
         f"err {pt_err:.3e}; kernel {pt_kernel_ms:.3f} ms, plain "
         f"{pt_plain_ms:.3f} ms (CUDA events; {card})")
-    del pt_packets, pt_dirs, got, want
+    del got, want
 
     tc.LAUNCHES = 0
     pt_packets, pt_prep_ms = host_ms(
@@ -357,13 +664,62 @@ def main() -> int:
             jitter=rng.subpixel_jitter(key, 1080, 1920, 99, device=dev)
         )["color"], 99), statistics.median(pt_ms[1:]), card)
 
+    # ---- phase 4: training -------------------------------------------
+    # (a) the backward kernel against its plain version at both sizes.
+    bwd = bwd_check(tc, packets, dirs_t, settings, "headline", card)
+    bwd_pt = bwd_check(tc, pt_packets, pt_dirs, pt_settings, "1080p", card)
+    del packets, pt_packets, pt_dirs, pt_scene
+
+    # (b) training at full width: 1M Gaussians, 800x800, K=256, two poses.
+    train_steps = 8
+    cams = [cam, Camera(c2w=look_at((2.5, 0.5, 2.5), (0.0, 0.0, 0.0),
+                                    device=dev),
+                        fov_y_deg=50.0, width=res, height=res)]
+    # fit_scene_tiled as the reference's fit test runs it (every leaf,
+    # sh_coeffs + 0.15 noise, lr 2e-2): the main path and its timing.
+    tr = fit_run(tc, scene, cams, settings, cfg, train_steps, 2e-2, 0.15)
+    pose0_ms = log_fit("phase 4b", tr, res, card)
+    check_fit_ran(tr)
+    launches_p4 = tr["counts"][-1]
+    params = SceneParams.from_scene(tr["start"])
+    opt = train.make_optimizer(2e-2)
+    opt_state = opt(params.parameters())
+    step = train.make_tiled_train_step(settings, opt, config=cfg)
+    profile_once("phase4_train_step", lambda: step(
+        params, opt_state, cams[0], tr["targets"][0]), pose0_ms, card)
+    del params, opt_state, tr
+    # On this cloud a step of Adam on every leaf raises the loss: it moves
+    # each mean by ~lr, which reorders the depth-sorted composite. The
+    # colors alone, with the geometry held, must learn at full width.
+    sh = sh_run(scene, cams, settings, cfg, train_steps, 2e-2, 1.0)
+    log(f"phase 4b: make_tiled_train_step, Adam on sh_coeffs alone, sh "
+        f"noise 1.0, lr 2e-2, {train_steps} steps: losses "
+        f"{', '.join(f'{x:.6f}' for x in sh['losses'])}; PSNR pose 0 "
+        f"{sh['psnr0']:.3f} -> {sh['psnr1']:.3f} dB ({card})")
+    check_learned(sh["losses"], sh["psnr0"], sh["psnr1"], 2,
+                  "full-width color fit")
+    del scene
+
+    # (c) the step on the card against the CPU at phase 1's small size,
+    # with no chunk skip (transmittance_min=0).
+    small_fit = small_train_check(small, small_cam, small_cfg, settings, dev)
+    log(f"phase 4c: small fit (2000 Gaussians, 96x64, K=512) card vs CPU: "
+        f"step-0 gradients max err {small_fit['grad']:.3e} of the leaf's "
+        f"max |g|, 3 losses max rel err {small_fit['loss']:.3e}")
+
     check("jax" not in sys.modules, "jax was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "tile_composite_fwd", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches_p2 + launches_p3,
+        "launches": launches_p2 + launches_p3 + launches_p4[0],
         "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
+    }, {
+        "name": "tile_composite_bwd", "route": "cuda",
+        "source": BWD_KERNEL_SOURCE, "replaces": BWD_KERNEL_REPLACES,
+        "launches": launches_p4[1],
+        "max_abs_err": max(bwd["max_abs_err"], bwd_pt["max_abs_err"]),
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ Counterpart of ``pathtracer_gaussiansplatting_tpu/core/types.py``
 (``GaussianScene``, ``make_scene``, ``Rays``, ``RenderSettings``).
 ``GaussianScene`` is a frozen dataclass of float32 tensors (struct of
 arrays over N Gaussians); ``scene_from_numpy`` builds it from the JAX
-scene's leaves so both packages compute on identical parameters.
+scene's leaves so both packages compute on identical parameters, and
+``scene_to_numpy`` takes them back out.
 """
 from __future__ import annotations
 
@@ -113,6 +114,12 @@ def scene_from_numpy(d: Mapping[str, np.ndarray],
     (for example ``{f: np.asarray(getattr(jax_scene, f)) for f in
     SCENE_FIELDS}``)."""
     return GaussianScene(**{f: _f32(d[f], device) for f in SCENE_FIELDS})
+
+
+def scene_to_numpy(scene: GaussianScene) -> dict:
+    """The scene's leaves as float32 numpy arrays, the inverse of
+    :func:`scene_from_numpy` (also for a scene of gradients)."""
+    return {f: getattr(scene, f).detach().cpu().numpy() for f in SCENE_FIELDS}
 
 
 @dataclasses.dataclass(frozen=True)

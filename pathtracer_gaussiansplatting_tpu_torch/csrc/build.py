@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/csrc/build.py`` (which
-builds the reference's host-side C++ helpers). Here ``nvcc`` compiles every
-``csrc/*.cu`` file, each with a plain C entry point, into one shared library
-for Hopper (``sm_90a``), and ``ctypes`` loads it. Nothing includes
-PyTorch's headers, so a build takes seconds.
+builds the reference's host-side C++ helpers). Here one ``nvcc`` per
+``csrc/*.cu`` file, all started together, compiles each (with its plain C
+entry point) for Hopper (``sm_90a``); one more links the objects into a
+shared library, and ``ctypes`` loads it. Nothing includes PyTorch's
+headers, so a build takes seconds.
 
 The library goes to ``csrc/_build/`` (listed in ``.gitignore``) under a name
 hashed from the sources and flags: the first call in a fresh checkout
@@ -23,13 +24,17 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB = None
 
 
 def sources() -> list:
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def headers() -> list:
+    return sorted(CSRC_DIR.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -46,10 +51,19 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libptgs_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds, env) -> list:
+    """Start every command at once; (returncode, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for c in cmds]
+    outs = [pr.communicate()[0] for pr in procs]
+    return [(pr.returncode, out) for pr, out in zip(procs, outs)]
 
 
 def build() -> Path:
@@ -58,19 +72,29 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources())]
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    nvcc = nvcc_path()
     # nvcc's intermediate files stay inside the build directory.
     env = dict(os.environ, TMPDIR=str(BUILD_DIR))
-    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                         check=False)
-    lib.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for src, o in zip(sources(), objs)]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+            *(str(o) for o in objs)]
+    steps = list(zip(compiles, _run_all(compiles, env)))
+    if all(rc == 0 for _, (rc, _) in steps):
+        steps += list(zip([link], _run_all([link], env)))
+    lib.with_suffix(".log").write_text("".join(
+        " ".join(cmd) + "\n" + out for cmd, (_, out) in steps))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(cmd, rc, out) for cmd, (rc, out) in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{res.stderr[-4000:]}")
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed with code {rc} on "
+                           f"{Path(cmd[-1]).name}:\n{out[-4000:]}")
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a file
     return lib
 

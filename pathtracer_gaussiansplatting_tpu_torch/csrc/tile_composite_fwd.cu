@@ -33,31 +33,15 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_composite_common.cuh"
+
 namespace {
 
-constexpr int kGeomRows = 16;  // rows of the geom packet
-constexpr int kGeomUsed = 11;  // q6 (0-5), Q(o-mu) (6-8), c (9), opac (10)
-constexpr int kMaxPixels = 256;  // one 16x16 tile per block
-
-struct Params {
-  float t_min, t_max, alpha_min, alpha_max, gval_cut, transmittance_min;
-};
-
-// Block-wide max of v, returned to every thread. blockDim.x is a
-// multiple of 32; red holds one float per warp.
-__device__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  __syncthreads();  // red may still be read from the previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float m = red[0];
-  const int n_warps = blockDim.x >> 5;
-  for (int i = 1; i < n_warps; ++i) m = fmaxf(m, red[i]);
-  return m;
-}
+using ptgs::block_max;
+using ptgs::kGeomRows;
+using ptgs::kGeomUsed;
+using ptgs::kMaxPixels;
+using ptgs::Params;
 
 template <int F>
 __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
@@ -72,10 +56,8 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
 
   const int tile = blockIdx.x;
   const int pix = threadIdx.x;
-  const float* d = dirs + (static_cast<size_t>(tile) * p + pix) * 3;
-  const float dx = d[0], dy = d[1], dz = d[2];
-  const float dd0 = dx * dx, dd1 = dy * dy, dd2 = dz * dz;
-  const float dd3 = dx * dy, dd4 = dx * dz, dd5 = dy * dz;
+  const ptgs::PixelDir pd =
+      ptgs::load_dir(dirs + (static_cast<size_t>(tile) * p + pix) * 3);
 
   float trans = 1.0f, s_depth = 0.0f;
   float acc[F];
@@ -104,31 +86,11 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
     // them out changes nothing.
     const int n = min(kc, static_cast<int>(ceilf(cnt)) - start);
     for (int j = 0; j < n; ++j) {
-      // alpha steps at the sigma_cut and alpha_min cutoffs, where one ulp
-      // can switch a ~1% contribution on or off. So a, b, t, q, exp and
-      // alpha round op by op (no FMA contraction), in the plain version's
-      // order, and come out bit-equal to it.
-      float a = __fmul_rn(dd0, sg[0 * kc + j]);
-      a = __fadd_rn(a, __fmul_rn(dd1, sg[1 * kc + j]));
-      a = __fadd_rn(a, __fmul_rn(dd2, sg[2 * kc + j]));
-      a = __fadd_rn(a, __fmul_rn(dd3, sg[3 * kc + j]));
-      a = __fadd_rn(a, __fmul_rn(dd4, sg[4 * kc + j]));
-      a = __fadd_rn(a, __fmul_rn(dd5, sg[5 * kc + j]));
-      a = fmaxf(a, 1e-12f);
-      float b = __fadd_rn(__fmul_rn(dx, sg[6 * kc + j]),
-                          __fmul_rn(dy, sg[7 * kc + j]));
-      b = __fadd_rn(b, __fmul_rn(dz, sg[8 * kc + j]));
-      const float t = fminf(fmaxf(__fdiv_rn(-b, a), prm.t_min), prm.t_max);
-      const float qv = __fadd_rn(
-          __fmul_rn(__fadd_rn(__fmul_rn(a, t), __fmul_rn(2.0f, b)), t),
-          sg[9 * kc + j]);
-      const float gval = expf(__fmul_rn(-0.5f, fmaxf(qv, 0.0f)));
-      const float alpha0 = __fmul_rn(sg[10 * kc + j], gval);
-      const bool live = (gval >= prm.gval_cut) && (alpha0 >= prm.alpha_min);
-      const float alpha = live ? fminf(alpha0, prm.alpha_max) : 0.0f;
-      const float w = trans * alpha;
-      trans *= 1.0f - alpha;
-      s_depth += w * t;
+      // alpha is bit-equal to the plain version's (see the shared header).
+      const ptgs::SlotEval e = ptgs::eval_slot(pd, sg, kc, j, prm);
+      const float w = trans * e.alpha;
+      trans = ptgs::trans_after(trans, e.alpha);
+      s_depth += w * e.t;
 #pragma unroll
       for (int f = 0; f < F; ++f) acc[f] += w * sf[f * kc + j];
     }

@@ -3,9 +3,11 @@ version.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/kernels/tile_composite.py``:
 ``build_tile_packets`` (its ``build_tile_packets``), ``tile_composite`` (its
-``tile_composite`` over ``_fwd_kernel``), ``tile_composite_plain`` (its
-``_composite_math`` / ``_tile_composite_xla``). For a tile of P pixels and
-K depth-sorted Gaussian slots,
+``tile_composite``: ``_fwd_kernel`` with ``_bwd_kernel`` as the custom VJP,
+here the ``TileComposite`` autograd Function), ``tile_composite_plain`` (its
+``_composite_math`` / ``_tile_composite_xla``) and
+``tile_composite_bwd_plain`` (its ``jax.vjp`` of ``_tile_composite_xla``).
+For a tile of P pixels and K depth-sorted Gaussian slots,
 
     a = d^T Q d,  b = d^T Q (o - mu),  c = (o - mu)^T Q (o - mu)
     t = clip(-b / a, t_min, t_max),  alpha = opac * exp(-q(t) / 2)
@@ -13,10 +15,12 @@ K depth-sorted Gaussian slots,
 with Q the world-space inverse covariance, composited front to back into
 (out (T, P, F), alpha_acc (T, P), depth (T, P)).
 
-``tile_composite`` launches the CUDA kernel ``csrc/tile_composite_fwd.cu``
-for CUDA tensors and counts each launch in ``LAUNCHES``; for CPU tensors it
-runs ``tile_composite_plain``. There is no fallback from the card to the
-plain version: a CUDA input either launches the kernel or raises.
+For CUDA tensors ``tile_composite`` launches the CUDA kernel
+``csrc/tile_composite_fwd.cu`` (counted in ``LAUNCHES``) and its backward
+launches ``csrc/tile_composite_bwd.cu`` (counted in ``BWD_LAUNCHES``); for
+CPU tensors they run ``tile_composite_plain`` and
+``tile_composite_bwd_plain``. There is no fallback from the card to the
+plain versions: a CUDA input either launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ ROW_OPAC = 10
 GEOM_ROWS = 16
 FEATURE_DIM = 14  # the packet features of render.tiled._packet_features
 
-LAUNCHES = 0  # kernel launches by tile_composite; read by chip_smoke.py
+LAUNCHES = 0  # forward kernel launches; read by chip_smoke.py
+BWD_LAUNCHES = 0  # backward kernel launches; read by chip_smoke.py
 PLAIN_CHUNK_ELEMS = 1 << 24  # (tiles, P, K) elements per plain-version chunk
 
 
@@ -110,16 +115,23 @@ def _cumprod_excl(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _composite_math(dirs: torch.Tensor, geom: torch.Tensor,
-                    featsT: torch.Tensor, settings: RenderSettings):
-    """Full-K composite (no chunking, no early exit) of a batch of tiles:
-    dirs (B, P, 3), geom (B, 16, K), featsT (B, F, K)."""
+def _quadratic_ab(dirs: torch.Tensor, geom: torch.Tensor):
+    """a = d^T Q d (before its clamp) and b = d^T Q (o - mu), (B, P, K),
+    for dirs (B, P, 3) and geom (B, 16, K)."""
     dx, dy, dz = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]  # (B, P, 1)
     g = geom[:, :, None, :]                                  # (B, 16, 1, K)
     a = (dx * dx * g[:, 0] + dy * dy * g[:, 1] + dz * dz * g[:, 2]
          + dx * dy * g[:, 3] + dx * dz * g[:, 4] + dy * dz * g[:, 5])
-    a = torch.clamp_min(a, 1e-12)
     b = dx * g[:, 6] + dy * g[:, 7] + dz * g[:, 8]
+    return a, b
+
+
+def _composite_from_ab(a: torch.Tensor, b: torch.Tensor, geom: torch.Tensor,
+                       featsT: torch.Tensor, settings: RenderSettings):
+    """Full-K composite (no chunking, no early exit) of a batch of tiles
+    from their quadratic forms (:func:`_quadratic_ab`)."""
+    g = geom[:, :, None, :]
+    a = torch.clamp_min(a, 1e-12)
     t = torch.clamp(-b / a, settings.t_min, settings.t_max)
     qv = (a * t + 2.0 * b) * t + g[:, ROW_C]
     gval = torch.exp(-0.5 * torch.clamp_min(qv, 0.0))
@@ -135,6 +147,14 @@ def _composite_math(dirs: torch.Tensor, geom: torch.Tensor,
     alpha_acc = 1.0 - excl[..., -1] * om[..., -1]
     depth = torch.sum(w * t, dim=-1) / torch.clamp_min(alpha_acc, 1e-8)
     return out, alpha_acc, depth
+
+
+def _composite_math(dirs: torch.Tensor, geom: torch.Tensor,
+                    featsT: torch.Tensor, settings: RenderSettings):
+    """Full-K composite (no chunking, no early exit) of a batch of tiles:
+    dirs (B, P, 3), geom (B, 16, K), featsT (B, F, K)."""
+    return _composite_from_ab(*_quadratic_ab(dirs, geom), geom, featsT,
+                              settings)
 
 
 def tile_composite_plain(packets, dirs: torch.Tensor,
@@ -156,21 +176,192 @@ def tile_composite_plain(packets, dirs: torch.Tensor,
     return tuple(torch.cat(x, dim=0) for x in zip(*parts))
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-             + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+def tile_composite_bwd_plain(packets, dirs: torch.Tensor, cot,
+                             settings: RenderSettings):
+    """Plain PyTorch version of the backward: the VJP of
+    :func:`tile_composite_plain` (full K, no chunk skipping), by autograd
+    through :func:`_composite_math` recomputed chunk by chunk of tiles (the
+    same ``PLAIN_CHUNK_ELEMS`` bound; tiles are independent).
+
+    Args:
+      packets: geom (T, 16, K), featsT (T, F, K); dirs: (T, P, 3);
+      cot: cotangents (g_out (T, P, F), g_alpha (T, P), g_depth (T, P)).
+
+    Returns (d_geom (T, 16, K), d_featsT (T, F, K), d_dirs (T, P, 3)).
+    """
+    geom, featsT = packets["geom"], packets["featsT"]
+    t_total, p, _ = dirs.shape
+    k = geom.shape[-1]
+    step = max(1, PLAIN_CHUNK_ELEMS // max(p * k, 1))
+    parts = []
+    for s in range(0, t_total, step):
+        ins = tuple(x[s:s + step].detach().requires_grad_()
+                    for x in (geom, featsT, dirs))
+        with torch.enable_grad():
+            outs = _composite_math(ins[2], ins[0], ins[1], settings)
+            parts.append(torch.autograd.grad(
+                outs, ins, tuple(c[s:s + step] for c in cot)))
+    return tuple(torch.cat(x, dim=0) for x in zip(*parts))
 
 
-def _kernel_fn():
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+
+
+def _kernel_fn(name: str, argtypes):
     from pathtracer_gaussiansplatting_tpu_torch.csrc import build
 
-    fn = build.load().ptgs_tile_composite_fwd
-    fn.argtypes = _ARGTYPES
+    fn = getattr(build.load(), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
+def _on_cpu(name: str, tensors) -> bool:
+    """True for inputs all on the CPU, False for inputs all on one Hopper
+    CUDA device; raises on anything else."""
+    if all(x.device.type == "cpu" for x in tensors.values()):
+        return True
+    dev = next(iter(tensors.values())).device
+    if dev.type != "cuda" or any(x.device != dev for x in tensors.values()):
+        raise ValueError(f"{name}: inputs must all be on the CPU or all on "
+                         f"one CUDA device, got "
+                         f"{[str(x.device) for x in tensors.values()]}")
+    if torch.cuda.get_device_capability(dev) != (9, 0):
+        raise RuntimeError(f"{name}: the kernel is built for sm_90a "
+                           f"(Hopper); {torch.cuda.get_device_name(dev)} "
+                           "is not")
+    return False
+
+
+def _check_shapes(name: str, tensors, expect) -> None:
+    for key, x in tensors.items():
+        if tuple(x.shape) != expect[key] or x.dtype != torch.float32 \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"{name}: {key} must be a contiguous float32 tensor of shape "
+                f"{expect[key]}, got {x.dtype} {tuple(x.shape)} "
+                f"contiguous={x.is_contiguous()}")
+    p = tensors["dirs"].shape[1]
+    if p % 32 != 0 or p > 256:
+        raise ValueError(f"{name}: P={p} must be a multiple of 32 and at "
+                         "most 256 (tile_size 16 or less)")
+
+
+def _kernel_settings(settings: RenderSettings):
+    cut = math.exp(-0.5 * settings.sigma_cut * settings.sigma_cut)
+    return (settings.t_min, settings.t_max, settings.alpha_min,
+            settings.alpha_max, cut, settings.transmittance_min)
+
+
+def _fwd(geom, featsT, dirs, count, settings: RenderSettings):
+    """Forward dispatch: the plain version on the CPU, the kernel on the
+    card."""
+    global LAUNCHES
+    tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count)
+    if _on_cpu("tile_composite", tensors):
+        return tile_composite_plain(dict(geom=geom, featsT=featsT), dirs,
+                                    settings)
+    t_total, p, _ = dirs.shape
+    k = geom.shape[-1]
+    _check_shapes("tile_composite", tensors, {
+        "dirs": (t_total, p, 3), "geom": (t_total, GEOM_ROWS, k),
+        "featsT": (t_total, FEATURE_DIM, k), "count": (t_total,)})
+    dev = dirs.device
+    out = torch.empty((t_total, p, FEATURE_DIM), dtype=torch.float32,
+                      device=dev)
+    alpha_acc = torch.empty((t_total, p), dtype=torch.float32, device=dev)
+    depth = torch.empty((t_total, p), dtype=torch.float32, device=dev)
+    if t_total == 0:
+        return out, alpha_acc, depth
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn("ptgs_tile_composite_fwd", _FWD_ARGTYPES)(
+            count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
+            featsT.data_ptr(), out.data_ptr(), alpha_acc.data_ptr(),
+            depth.data_ptr(), t_total, p, k, FEATURE_DIM, _chunk_size(k),
+            *_kernel_settings(settings), stream)
+    if err != 0:
+        raise RuntimeError(f"tile_composite: kernel launch failed with CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return out, alpha_acc, depth
+
+
+def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
+                       settings: RenderSettings):
+    """Analytic VJP of :func:`tile_composite`.
+
+    Args:
+      packets: geom (T, 16, K), featsT (T, F, K), count (T,);
+      dirs: (T, P, 3); cot: (g_out (T, P, F), g_alpha (T, P),
+        g_depth (T, P)).
+
+    Returns (d_geom, d_featsT, d_dirs). CPU tensors go through
+    :func:`tile_composite_bwd_plain` (full K); CUDA tensors launch the
+    kernel, which follows the forward kernel's chunk schedule: slots of the
+    chunks it skipped get exactly zero.
+    """
+    global BWD_LAUNCHES
+    geom, featsT, count = packets["geom"], packets["featsT"], packets["count"]
+    g_out, g_alpha, g_depth = cot
+    tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count,
+                   g_out=g_out, g_alpha=g_alpha, g_depth=g_depth)
+    if _on_cpu("tile_composite_bwd", tensors):
+        return tile_composite_bwd_plain(packets, dirs, cot, settings)
+    t_total, p, _ = dirs.shape
+    k = geom.shape[-1]
+    _check_shapes("tile_composite_bwd", tensors, {
+        "dirs": (t_total, p, 3), "geom": (t_total, GEOM_ROWS, k),
+        "featsT": (t_total, FEATURE_DIM, k), "count": (t_total,),
+        "g_out": (t_total, p, FEATURE_DIM), "g_alpha": (t_total, p),
+        "g_depth": (t_total, p)})
+    dev = dirs.device
+    d_geom = torch.zeros_like(geom)
+    d_featsT = torch.zeros_like(featsT)
+    d_dirs = torch.empty_like(dirs)
+    if t_total == 0:
+        return d_geom, d_featsT, d_dirs
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn("ptgs_tile_composite_bwd", _BWD_ARGTYPES)(
+            count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
+            featsT.data_ptr(), g_out.data_ptr(), g_alpha.data_ptr(),
+            g_depth.data_ptr(), d_dirs.data_ptr(), d_geom.data_ptr(),
+            d_featsT.data_ptr(), t_total, p, k, FEATURE_DIM, _chunk_size(k),
+            *_kernel_settings(settings), stream)
+    if err != 0:
+        raise RuntimeError(f"tile_composite_bwd: kernel launch failed with "
+                           f"CUDA error {err}")
+    BWD_LAUNCHES += 1
+    return d_geom, d_featsT, d_dirs
+
+
+class TileComposite(torch.autograd.Function):
+    """The fused composite with its analytic backward (the JAX package's
+    ``_packed_composite`` custom VJP). Saves only its inputs, as the JAX
+    residual does; the backward recomputes the forward chunk by chunk."""
+
+    @staticmethod
+    def forward(ctx, geom, featsT, dirs, count, settings):
+        ctx.settings = settings
+        ctx.save_for_backward(geom, featsT, dirs, count)
+        return _fwd(geom, featsT, dirs, count, settings)
+
+    @staticmethod
+    def backward(ctx, g_out, g_alpha, g_depth):
+        geom, featsT, dirs, count = ctx.saved_tensors
+        d_geom, d_featsT, d_dirs = tile_composite_bwd(
+            dict(geom=geom, featsT=featsT, count=count), dirs,
+            (g_out.contiguous(), g_alpha.contiguous(), g_depth.contiguous()),
+            ctx.settings)
+        return d_geom, d_featsT, d_dirs, None, None
+
+
 def tile_composite(packets, dirs: torch.Tensor, settings: RenderSettings):
-    """Fused tile compositing.
+    """Fused tile compositing, differentiable in geom, featsT and dirs.
 
     Args:
       packets: dict from :func:`build_tile_packets`: geom (T, 16, K),
@@ -178,53 +369,7 @@ def tile_composite(packets, dirs: torch.Tensor, settings: RenderSettings):
       dirs: (T, P, 3) per-tile pixel ray directions.
 
     Returns (out (T, P, F), alpha_acc (T, P), depth (T, P)). CPU tensors go
-    through :func:`tile_composite_plain`; CUDA tensors launch the kernel.
+    through the plain versions; CUDA tensors launch the kernels.
     """
-    global LAUNCHES
-    geom, featsT, count = packets["geom"], packets["featsT"], packets["count"]
-    tensors = (dirs, geom, featsT, count)
-    if all(x.device.type == "cpu" for x in tensors):
-        return tile_composite_plain(packets, dirs, settings)
-    dev = dirs.device
-    if dev.type != "cuda" or any(x.device != dev for x in tensors):
-        raise ValueError("tile_composite: inputs must all be on the CPU or "
-                         f"all on one CUDA device, got "
-                         f"{[str(x.device) for x in tensors]}")
-    if torch.cuda.get_device_capability(dev) != (9, 0):
-        raise RuntimeError("tile_composite: the kernel is built for sm_90a "
-                           f"(Hopper); {torch.cuda.get_device_name(dev)} "
-                           "is not")
-    t_total, p, _ = dirs.shape
-    k = geom.shape[-1]
-    f = featsT.shape[1]
-    expect = {"dirs": (t_total, p, 3), "geom": (t_total, GEOM_ROWS, k),
-              "featsT": (t_total, FEATURE_DIM, k), "count": (t_total,)}
-    for name, x in zip(expect, tensors):
-        if tuple(x.shape) != expect[name] or x.dtype != torch.float32 \
-                or not x.is_contiguous():
-            raise ValueError(
-                f"tile_composite: {name} must be a contiguous float32 tensor "
-                f"of shape {expect[name]}, got {x.dtype} {tuple(x.shape)} "
-                f"contiguous={x.is_contiguous()}")
-    if p % 32 != 0 or p > 256:
-        raise ValueError(f"tile_composite: P={p} must be a multiple of 32 "
-                         "and at most 256 (tile_size 16 or less)")
-    out = torch.empty((t_total, p, f), dtype=torch.float32, device=dev)
-    alpha_acc = torch.empty((t_total, p), dtype=torch.float32, device=dev)
-    depth = torch.empty((t_total, p), dtype=torch.float32, device=dev)
-    if t_total == 0:
-        return out, alpha_acc, depth
-    cut = math.exp(-0.5 * settings.sigma_cut * settings.sigma_cut)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn()(
-            count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
-            featsT.data_ptr(), out.data_ptr(), alpha_acc.data_ptr(),
-            depth.data_ptr(), t_total, p, k, f, _chunk_size(k),
-            settings.t_min, settings.t_max, settings.alpha_min,
-            settings.alpha_max, cut, settings.transmittance_min, stream)
-    if err != 0:
-        raise RuntimeError(f"tile_composite: kernel launch failed with CUDA "
-                           f"error {err}")
-    LAUNCHES += 1
-    return out, alpha_acc, depth
+    return TileComposite.apply(packets["geom"], packets["featsT"], dirs,
+                               packets["count"], settings)

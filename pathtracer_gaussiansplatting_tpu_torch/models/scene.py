@@ -1,17 +1,20 @@
-"""Procedural benchmark scenes.
+"""Procedural benchmark scenes and the trainable scene.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/models/scene.py``
 (``random_cloud``, ``surface_scene``). Both draw from numpy's seeded
 generator exactly as the reference does, so one seed gives the same scene
-in both packages; the result is built on ``device``.
+in both packages; the result is built on ``device``. ``SceneParams`` holds
+a scene's leaves as ``nn.Parameter``s, the port's form of the JAX scene
+pytree that ``optax`` updates.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
-    GaussianScene, make_scene,
+    SCENE_FIELDS, GaussianScene, make_scene,
 )
 from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import (
     rotmat_to_quat,
@@ -155,3 +158,26 @@ def random_cloud(n: int, seed: int = 13, spread: float = 1.0,
         roughness=rng.uniform(0.2, 1, (n,)).astype(np.float32),
         device=device,
     )
+
+
+class SceneParams(nn.Module):
+    """The 11 ``GaussianScene`` fields as trainable parameters."""
+
+    def __init__(self, **fields: torch.Tensor):
+        super().__init__()
+        for f in SCENE_FIELDS:
+            setattr(self, f, nn.Parameter(fields[f].detach().clone()))
+
+    @classmethod
+    def from_scene(cls, scene: GaussianScene) -> "SceneParams":
+        return cls(**{f: getattr(scene, f) for f in SCENE_FIELDS})
+
+    def scene(self) -> GaussianScene:
+        """The parameters as a GaussianScene (differentiable view)."""
+        return GaussianScene(**{f: getattr(self, f) for f in SCENE_FIELDS})
+
+    def grad_scene(self) -> GaussianScene:
+        """The gradients as a GaussianScene (zeros where none)."""
+        return GaussianScene(**{
+            f: torch.zeros_like(x) if x.grad is None else x.grad
+            for f, x in self.named_parameters()})

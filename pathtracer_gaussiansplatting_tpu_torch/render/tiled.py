@@ -136,9 +136,11 @@ def prepare_tiles(scene: GaussianScene, camera: Camera,
             f"BinningConfig.alpha_min ({config.alpha_min}) must match "
             f"RenderSettings.alpha_min ({settings.alpha_min})")
     tiles_x, tiles_y = num_tiles(camera, config)
-    proj = project_gaussians(scene, camera, config)
-    tile_idx, tile_mask, _, stats = bin_gaussians(proj, tiles_x, tiles_y,
-                                                  config)
+    # Binning yields indices, masks and stats: nothing to differentiate.
+    with torch.no_grad():
+        proj = project_gaussians(scene, camera, config)
+        tile_idx, tile_mask, _, stats = bin_gaussians(proj, tiles_x,
+                                                      tiles_y, config)
     origin = camera.c2w[:3, 3]
     feats_all = _packet_features(scene, origin, settings)
     packets = build_tile_packets(scene, feats_all, origin, tile_idx,
@@ -204,8 +206,10 @@ def render_tiled(scene: GaussianScene, camera: Camera,
     Returns full-image color (with background), feats, alpha_acc, depth.
     """
     tiles_x, tiles_y = num_tiles(camera, config)
-    proj = project_gaussians(scene, camera, config)
-    tile_idx, tile_mask, _, _ = bin_gaussians(proj, tiles_x, tiles_y, config)
+    with torch.no_grad():
+        proj = project_gaussians(scene, camera, config)
+        tile_idx, tile_mask, _, _ = bin_gaussians(proj, tiles_x, tiles_y,
+                                                  config)
     dirs_t, untile = _tile_dirs(camera, config)
     origin = camera.c2w[:3, 3]
     m_all = gops.canonical_transforms(scene.log_scales, scene.quats)

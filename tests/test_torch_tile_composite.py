@@ -12,7 +12,6 @@ from pathtracer_gaussiansplatting_tpu.kernels import tile_composite as jtc
 from pathtracer_gaussiansplatting_tpu.models.scene import (
     random_cloud as j_random_cloud,
 )
-from pathtracer_gaussiansplatting_tpu.ops import binning as jb
 from pathtracer_gaussiansplatting_tpu.ops import gaussians as jgauss
 from pathtracer_gaussiansplatting_tpu.render import tiled as jtiled
 from pathtracer_gaussiansplatting_tpu_torch.core.types import RenderSettings
@@ -22,29 +21,10 @@ from pathtracer_gaussiansplatting_tpu_torch.render import tiled
 
 from utils import random_scene
 from torch_parity import (
-    TORCH_THREADS, assert_close, cameras, np_of, to_torch_packets,
-    to_torch_scene,
+    TORCH_THREADS, assert_close, np_of, pose_packets, to_torch_scene,
 )
 
 torch.set_num_threads(TORCH_THREADS)
-
-BG = (0.1, 0.2, 0.3)
-
-
-def _pose_packets(n, spread, k, seed=21, eye=(0.0, 0.5, 4.0),
-                  scale_range=(-2.5, -1.0)):
-    """JAX packets and jittered tile dirs of one small pose, and their
-    torch copies."""
-    scene = j_random_cloud(n, seed=seed, spread=spread,
-                           scale_range=scale_range)
-    jcam, _ = cameras(eye=eye)
-    cfg = jb.BinningConfig(max_per_tile=k)
-    settings = JRenderSettings(background=BG)
-    packets = jtiled.prepare_tiles(scene, jcam, settings, cfg)
-    jit = np.random.default_rng(seed).uniform(0, 1, (48, 64, 2))
-    dirs, _ = jtiled._tile_dirs(jcam, cfg, jnp.asarray(jit, jnp.float32))
-    return (packets, dirs, to_torch_packets(packets),
-            torch.from_numpy(np.array(dirs)))
 
 
 @pytest.mark.parametrize("k", [64, 128])
@@ -52,7 +32,7 @@ def test_plain_matches_xla(k, monkeypatch):
     """tile_composite_plain vs the reference's own oracle semantics, in
     chunks of 5 tiles."""
     monkeypatch.setattr(tc, "PLAIN_CHUNK_ELEMS", 5 * 256 * k)
-    packets, dirs, tpk, tdirs = _pose_packets(250, 1.2, k)
+    packets, dirs, tpk, tdirs = pose_packets(250, 1.2, k)
     want = jtc._tile_composite_xla(packets, dirs, JRenderSettings())
     got = tc.tile_composite_plain(tpk, tdirs, RenderSettings())
     for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
@@ -62,7 +42,7 @@ def test_plain_matches_xla(k, monkeypatch):
 def test_plain_matches_pallas_interpret():
     """tile_composite_plain vs the Pallas kernel in interpret mode at K=256:
     two 128-slot chunks, with the second skipped on saturated tiles."""
-    packets, dirs, tpk, tdirs = _pose_packets(
+    packets, dirs, tpk, tdirs = pose_packets(
         600, 1.0, 256, eye=(0.0, 0.0, 1.5), scale_range=(-2.0, -1.0))
     settings = JRenderSettings()
     count = np.asarray(packets["count"])
@@ -148,7 +128,7 @@ def test_plain_matches_oracle(rng):
 def test_dispatch_cpu_and_no_fallback():
     """CPU tensors take the plain version; any other device must launch the
     kernel or raise, never fall back."""
-    _, _, tpk, tdirs = _pose_packets(120, 1.0, 64)
+    _, _, tpk, tdirs = pose_packets(120, 1.0, 64)
     settings = RenderSettings()
     before = tc.LAUNCHES
     got = tc.tile_composite(tpk, tdirs, settings)
@@ -166,7 +146,7 @@ def test_dispatch_cpu_and_no_fallback():
 def test_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
-    _, _, tpk, tdirs = _pose_packets(2000, 0.8, 256)
+    _, _, tpk, tdirs = pose_packets(2000, 0.8, 256)
     dev = torch.device("cuda", 0)
     packets = {k: v.to(dev) for k, v in tpk.items()}
     settings = RenderSettings()

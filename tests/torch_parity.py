@@ -2,11 +2,20 @@
 cameras into the PyTorch port and compare results as numpy arrays."""
 import dataclasses
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from pathtracer_gaussiansplatting_tpu.core.camera import Camera as JCamera
 from pathtracer_gaussiansplatting_tpu.core.camera import look_at as j_look_at
+from pathtracer_gaussiansplatting_tpu.core.types import (
+    RenderSettings as JRenderSettings,
+)
+from pathtracer_gaussiansplatting_tpu.models.scene import (
+    random_cloud as j_random_cloud,
+)
+from pathtracer_gaussiansplatting_tpu.ops import binning as jb
+from pathtracer_gaussiansplatting_tpu.render import tiled as jtiled
 from pathtracer_gaussiansplatting_tpu_torch.core.camera import Camera, look_at
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     SCENE_FIELDS, GaussianScene, scene_from_numpy,
@@ -42,6 +51,22 @@ def to_torch_packets(packets) -> dict:
     """JAX packets (geom, featsT, count) as CPU tensors."""
     return {k: torch.from_numpy(np.array(packets[k]))
             for k in ("geom", "featsT", "count")}
+
+
+def pose_packets(n, spread, k, seed=21, eye=(0.0, 0.5, 4.0),
+                 scale_range=(-2.5, -1.0)):
+    """JAX packets and jittered tile dirs of one small 64x48 pose, and their
+    torch copies: (packets, dirs, torch packets, torch dirs)."""
+    scene = j_random_cloud(n, seed=seed, spread=spread,
+                           scale_range=scale_range)
+    jcam, _ = cameras(eye=eye)
+    cfg = jb.BinningConfig(max_per_tile=k)
+    settings = JRenderSettings(background=(0.1, 0.2, 0.3))
+    packets = jtiled.prepare_tiles(scene, jcam, settings, cfg)
+    jit = np.random.default_rng(seed).uniform(0, 1, (48, 64, 2))
+    dirs, _ = jtiled._tile_dirs(jcam, cfg, jnp.asarray(jit, jnp.float32))
+    return (packets, dirs, to_torch_packets(packets),
+            torch.from_numpy(np.array(dirs)))
 
 
 def assert_close(got, want, rtol, atol, err_msg=""):
