@@ -30,7 +30,19 @@ are built from the checkout at first use. Then:
            K=256, 8 steps over two poses (timed, one step profiled), and a
            color-only fit at the same size that must learn; (c) the
            training step on the card against the CPU at phase 1's small
-           size.
+           size;
+  phase 5  path tracing on the dense backend (csrc/dense_topk.cu,
+           csrc/dense_visibility.cu): surface_scene(50k, seed 13) plus a
+           point light, 800x800, depth 4. (a) both kernels against their
+           plain versions on a 65536-ray chunk of primary rays, of bounce
+           rays and of shadow segments; (c) the flat route,
+           make_accumulating_renderer + render_pose in 65536-ray chunks,
+           8 spp (timed, one sample profiled); (d) the tiled route,
+           make_tiled_pose_renderer, 4 spp, the forward tile kernel once
+           per sample; last, (b) one sample of pathtrace and of
+           pathtrace_camera on the card against the CPU at 2000 Gaussians,
+           96x64, at depth 1 and depth 4. Both images are written to
+           chiprun_out/chip_smoke/.
 
 Every failure (a build error, a launch error, a tolerance miss, a
 non-finite image, a kernel the main path never launched) raises and ends
@@ -40,8 +52,10 @@ CUDA the script exits with code 2 at once. The last line printed is
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -61,6 +75,27 @@ BWD_KERNEL_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
                      "tile_composite_bwd.cu")
 BWD_KERNEL_REPLACES = ("pathtracer_gaussiansplatting_tpu/kernels/"
                        "tile_composite.py:281")
+TOPK_SOURCE = "pathtracer_gaussiansplatting_tpu_torch/csrc/dense_topk.cu"
+TOPK_REPLACES = "pathtracer_gaussiansplatting_tpu/render/reference.py:26"
+VIS_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
+              "dense_visibility.cu")
+VIS_REPLACES = "pathtracer_gaussiansplatting_tpu/render/reference.py:161"
+# Dense top-K: t relative and alpha absolute allowances where the kernel is
+# not bit-equal to its plain version (it is meant to be).
+TOPK_T_RTOL, TOPK_ALPHA_ATOL = 1e-6, 1e-6
+# Shadow visibility: the kernel multiplies in index order, torch.prod in
+# its own reduction order.
+VIS_RTOL, VIS_ATOL = 1e-5, 1e-6
+# Card vs CPU per path-traced sample: a pixel matches within the kernel
+# tolerance; at depth 1 at least PT_MIN_SHARE of them must. Deeper, each
+# bounce ray that differs in its last bit between card and CPU (sin, cos,
+# exp and pow round differently) may flip a thin surfel at an alpha cutoff
+# and send the path elsewhere (ROADMAP section 3), so at depth 4
+# PT_DEEP_MIN_SHARE must (96.65% measured on the card, the JAX package
+# against the port on the CPU 95.7%). At every depth the mean absolute
+# difference stays under PT_MEAN_FRAC of the image mean.
+PT_MIN_SHARE, PT_DEEP_MIN_SHARE, PT_MEAN_FRAC = 0.99, 0.93, 0.01
+PT_CHUNK = 65536  # render_pose's ray chunk (part of the random stream)
 RTOL, ATOL = 1e-3, 3e-4  # the reference's kernel-vs-oracle tolerances
 # The reference's tolerance for its analytic backward against autodiff
 # (tests/test_pallas_kernels.py, TestAnalyticBackward).
@@ -442,6 +477,369 @@ def small_train_check(scene, cam_kw, cfg, settings, dev) -> dict:
     return dict(grad=grad_err, loss=loss_err / max(losses[cpu]))
 
 
+def pt_world(n: int, width: int, height: int, device):
+    """The path-trace bench's scene (bench.py:124-128) with one point light
+    inside the room: (scene, light, camera)."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        make_punctual_lights,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+
+    scene = surface_scene(n, seed=13, device=device)
+    light = make_punctual_lights(position=[[0.6, 0.9, -0.4]],
+                                 intensity=[4.0], color=[[1.0, 0.95, 0.85]],
+                                 light_type=[0], device=device)
+    cam = Camera(c2w=look_at((0.0, 0.2, 1.7), (0.0, -0.4, -0.5),
+                             device=device),
+                 fov_y_deg=60.0, width=width, height=height)
+    return scene, light, cam
+
+
+def topk_check(dt, o, d, table, k, settings, name: str) -> float:
+    """dense_topk kernel vs dense_topk_plain: idx equal wherever the key is
+    valid and not tied, t and alpha bit-equal (or, counted, within
+    TOPK_T_RTOL / TOPK_ALPHA_ATOL). Returns the max abs error of alpha."""
+    got = dt.dense_topk(o, d, table, k, settings)
+    want = dt.dense_topk_plain(o, d, table, k, settings)
+    torch.cuda.synchronize()
+    valid = want[2] > 0
+    key = want[1]
+    eq = key[:, 1:] == key[:, :-1]
+    tied = torch.zeros_like(valid)
+    tied[:, 1:] |= eq
+    tied[:, :-1] |= eq
+    idx_bad = int((valid & ~tied & (got[0] != want[0])).sum())
+    n_t = int((got[1] != want[1]).sum())
+    n_a = int((got[2] != want[2]).sum())
+    err_t = compare(got[1], want[1], f"{name} t", rtol=TOPK_T_RTOL, atol=0.0)
+    err_a = compare(got[2], want[2], f"{name} alpha", rtol=0.0,
+                    atol=TOPK_ALPHA_ATOL)
+    log(f"phase 5a {name}: dense_topk R={o.shape[0]}, N={table.shape[0]}, "
+        f"K={k}: {int(valid.sum())} valid slots, {int((valid & tied).sum())} "
+        f"tied; idx mismatches (valid, untied) {idx_bad}; t differs in {n_t} "
+        f"slots (max abs {err_t:.3e}), alpha in {n_a} (max abs {err_a:.3e})")
+    check(idx_bad == 0, f"{name}: {idx_bad} idx mismatches")
+    return err_a
+
+
+def vis_check(dt, o, d, t_end, table, settings, active, name: str) -> float:
+    got = dt.dense_visibility(o, d, t_end, table, settings, active)
+    want = dt.dense_visibility_plain(o, d, t_end, table, settings, active)
+    torch.cuda.synchronize()
+    err = compare(got, want, f"{name} vis", rtol=VIS_RTOL, atol=VIS_ATOL)
+    log(f"phase 5a {name}: dense_visibility R={o.shape[0]}: "
+        f"{int(active.sum())} active, {int((got == want).sum())} bit-equal, "
+        f"max abs err {err:.3e} (rtol {VIS_RTOL}, atol {VIS_ATOL}), mean "
+        f"vis {float(want[active].mean()):.5f}")
+    return err
+
+
+def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
+    """Phase 5a: both dense kernels against their plain versions on the
+    first 65536-ray chunk of the pose's primary rays, on bounce rays
+    sampled from their hits, and on shadow segments to emissive surfels
+    and to the point light; times on the primary chunk."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        generate_rays,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import Rays
+    from pathtracer_gaussiansplatting_tpu_torch.ops import bsdf
+    from pathtracer_gaussiansplatting_tpu_torch.render import lights
+    from pathtracer_gaussiansplatting_tpu_torch.render import reference as ref
+
+    rays = generate_rays(cam)
+    o = rays.origins[:PT_CHUNK].contiguous()
+    d = rays.directions[:PT_CHUNK].contiguous()
+    table = dt.gaussian_table(scene)
+    k = min(settings.max_contribs, scene.num_gaussians)
+    err_a = topk_check(dt, o, d, table, k, settings, "primary rays")
+
+    # Bounce rays from the hits, sampled as the bounce loop samples them.
+    with torch.no_grad():
+        inter = ref.trace_dense(scene, Rays(o, d), settings)
+    dkey = rng.fold_in(rng.prng_key(13), 0)
+    u = {dim: rng.ray_uniform(dkey, PT_CHUNK, dim, num, o.device)
+         for dim, num in ((7, 1), (8, 2), (12, 1), (13, 1), (14, 2))}
+    alpha = inter["alpha_acc"].clamp_min(1e-8)
+    n = inter["normal"]
+    scat = bsdf.sample_clearcoated(
+        u[12][:, 0], u[13][:, 0], u[14], n, -d, inter["albedo"] / alpha[:, None],
+        inter["metallic"], inter["roughness"].clamp_min(1e-3),
+        inter["clearcoat"], inter["cc_roughness"])
+    eps = settings.shadow_eps
+    bo = (inter["position"] + n * eps).contiguous()
+    err_a = max(err_a, topk_check(dt, bo, scat["direction"].contiguous(),
+                                  table, k, settings, "bounce rays"))
+
+    # Shadow segments to emissive surfels and to the point light.
+    tables = lights.build_light_tables(scene, light)
+    hit = inter["alpha_acc"] > 1e-4
+    em = lights.sample_emissive(u[7][:, 0], u[8], scene, tables)
+    to_l = em["position"] - inter["position"]
+    dist = torch.sqrt(torch.clamp_min((to_l * to_l).sum(-1), 1e-4))
+    l_dir = (to_l / dist[:, None]).contiguous()
+    act_e = hit & ((n * l_dir).sum(-1) > 1e-3)
+    err_v = vis_check(dt, bo, l_dir, (dist - 2 * eps).contiguous(), table,
+                      settings, act_e, "emissive shadow segments")
+    pl = lights.sample_punctual(u[7][:, 0], light, tables, inter["position"])
+    act_p = hit & ((n * pl["direction"]).sum(-1) > 1e-3)
+    err_v = max(err_v, vis_check(
+        dt, bo, pl["direction"].contiguous(),
+        (pl["dist"] - 2 * eps).contiguous(), table, settings, act_p,
+        "point-light shadow segments"))
+
+    t_end = (dist - 2 * eps).contiguous()
+    topk_ms = cuda_ms(lambda: dt.dense_topk(o, d, table, k, settings), 5)
+    topk_plain_ms = cuda_ms(
+        lambda: dt.dense_topk_plain(o, d, table, k, settings), 1)
+    vis_ms = cuda_ms(lambda: dt.dense_visibility(bo, l_dir, t_end, table,
+                                                 settings, act_e), 5)
+    vis_plain_ms = cuda_ms(lambda: dt.dense_visibility_plain(
+        bo, l_dir, t_end, table, settings, act_e), 1)
+    log(f"phase 5a: dense_topk kernel {topk_ms:.3f} ms, plain "
+        f"{topk_plain_ms:.3f} ms; dense_visibility kernel {vis_ms:.3f} ms, "
+        f"plain {vis_plain_ms:.3f} ms (R={PT_CHUNK}, N={table.shape[0]}; "
+        f"CUDA events; {card})")
+    return dict(topk=dict(max_abs_err=err_a, ms=topk_ms,
+                          plain_ms=topk_plain_ms),
+                vis=dict(max_abs_err=err_v, ms=vis_ms,
+                         plain_ms=vis_plain_ms))
+
+
+def small_pt_check(dev, settings) -> None:
+    """Phase 5b: one sample of pathtrace (all rays as one batch) and one of
+    pathtrace_camera, on the card and on the CPU, 2000 Gaussians, 96x64,
+    the same key; at depth 1 (emission and direct light) and at the full
+    depth."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        generate_rays,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
+        pathtrace, pathtrace_camera,
+    )
+
+    for depth, min_share in ((1, PT_MIN_SHARE),
+                             (settings.max_depth, PT_DEEP_MIN_SHARE)):
+        st = dataclasses.replace(settings, max_depth=depth)
+        outs = []
+        for device in (dev, torch.device("cpu")):
+            scene, light, cam = pt_world(2000, 96, 64, device)
+            key = rng.prng_key(13)
+            jit = rng.subpixel_jitter(key, 64, 96, 0, device=device)
+            outs.append((
+                pathtrace(scene, generate_rays(cam), st, key,
+                          punctual=light).cpu(),
+                pathtrace_camera(scene, cam, st, key, punctual=light,
+                                 jitter=jit).cpu()))
+        for i, name in enumerate(("pathtrace", "pathtrace_camera")):
+            g, w = outs[0][i].double(), outs[1][i].double()
+            ok = ((g - w).abs() <= ATOL + RTOL * w.abs()).all(-1)
+            share = float(ok.double().mean())
+            mean_abs = float((g - w).abs().mean())
+            log(f"phase 5b {name} (2000 Gaussians, 96x64, depth {depth}, "
+                f"rr_start {st.rr_start_depth}, opaque_depth "
+                f"{st.opaque_depth}): card vs CPU {share:.4%} of pixels "
+                f"within rtol {RTOL} / atol {ATOL} (need {min_share:.0%}); "
+                f"mean abs diff {mean_abs:.3e} against an image mean of "
+                f"{float(w.mean()):.5f} (allowed {PT_MEAN_FRAC:.0%} of it); "
+                f"max abs diff {float((g - w).abs().max()):.3e}")
+            check(bool(torch.isfinite(g).all()), f"5b {name}: not finite")
+            check(share >= min_share, f"5b {name}, depth {depth}: only "
+                  f"{share:.4%} of pixels match")
+            check(mean_abs <= PT_MEAN_FRAC * float(w.mean()),
+                  f"5b {name}, depth {depth}: mean abs diff {mean_abs:.3e}")
+
+
+class HostTimer:
+    """Wraps a function of a module so that each call is timed on the host
+    clock between two synchronizes; restores it on exit."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.ms = []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def profile_split(name: str, fn, wall_ms: float, card: str) -> dict:
+    """One run of fn under torch.profiler (the second of two): device time
+    split into the dense top-K kernel, the shadow kernel, the random draws
+    (kernels of ops inside the range ptgs.rng), shading (of ops inside
+    ptgs.shade) and the rest. The op table goes to OUT_DIR."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("ptgs.")]
+
+    def kern(sub=None):
+        return sum(e.self_device_time_total for e in kernels
+                   if sub is None or sub in e.key) / 1e3
+
+    total = kern()
+    # A kernel launched by an aten op is linked to it; an op counts as RNG
+    # or shading when its host interval lies inside one of those ranges.
+    # The dense kernels, launched through ctypes, are linked to no op and
+    # are counted by name.
+    raw = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    ranges = {r: sorted((e.time_range.start, e.time_range.end) for e in raw
+                        if e.name == r) for r in ("ptgs.rng", "ptgs.shade")}
+
+    def inside(e, r):
+        i = bisect.bisect_right(ranges[r], (e.time_range.start, math.inf))
+        return i > 0 and e.time_range.end <= ranges[r][i - 1][1]
+
+    split = dict(dense_topk=kern("dense_topk"),
+                 dense_visibility=kern("dense_visibility"), rng=0.0,
+                 bsdf_nee=0.0)
+    for e in raw:
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        if ms and inside(e, "ptgs.rng"):
+            split["rng"] += ms
+        elif ms and inside(e, "ptgs.shade"):
+            split["bsdf_nee"] += ms
+    split["rest"] = total - sum(split.values())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    table = os.path.join(OUT_DIR, f"profile_{name}.txt")
+    with open(table, "w") as fh:
+        fh.write(events.table(sort_by="self_device_time_total",
+                              row_limit=50))
+    log(f"profile {name}: device time {total:.3f} ms of {wall_ms:.3f} ms "
+        f"wall = {total / wall_ms:.1%} busy, "
+        f"{sum(e.count for e in kernels)} kernel launches; split: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        + f"; table {os.path.relpath(table, ROOT)} ({card})")
+    return split
+
+
+def check_pt_image(img: np.ndarray, settings, name: str) -> float:
+    check(bool(np.isfinite(img).all()), f"{name}: image not finite")
+    check(float(img.min()) >= 0.0, f"{name}: negative radiance")
+    check(float(img.max()) <= settings.firefly_clamp + 1e-5,
+          f"{name}: radiance above the firefly clamp")
+    mean = float(img.mean())
+    check(0.05 < mean < 1.5, f"{name}: image mean {mean} outside (0.05, 1.5)")
+    return mean
+
+
+def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
+    """Phase 5c: make_accumulating_renderer + render_pose, 65536-ray
+    chunks, spp samples; each chunk-sample's pathtrace is timed."""
+    from pathtracer_gaussiansplatting_tpu_torch.data import capture
+    from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+
+    w, h = cam.width, cam.height
+    n_chunks = -(-w * h // PT_CHUNK)
+    render_fn = capture.make_accumulating_renderer(scene, settings, light,
+                                                   spp, backend="dense")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    with HostTimer(capture, "pathtrace") as timer:
+        img, total_ms = host_ms(lambda: capture.render_pose(
+            render_fn, cam.c2w, w, h, cam.fov_y_deg, chunk=PT_CHUNK))
+    launches = (dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(len(timer.ms) == spp * n_chunks, "5c: pathtrace calls")
+    sample_ms = [sum(timer.ms[c * spp + f] for c in range(n_chunks))
+                 for f in range(spp)]
+    med = statistics.median(sample_ms)
+    check(launches == (spp * n_chunks * settings.max_depth,
+                       2 * spp * n_chunks * settings.max_depth),
+          f"5c: kernel launches (dense_topk, dense_visibility) {launches}")
+    img = img.cpu().numpy()
+    mean = check_pt_image(img, settings, "5c")
+    jpg = os.path.join(OUT_DIR, f"phase5c_surface_50k_800_{spp}spp.jpg")
+    save_jpg(jpg, img)
+    log(f"phase 5c: flat route, 50k surface Gaussians + point light, "
+        f"{w}x{h}, depth 4, {spp} spp in {n_chunks} chunks of {PT_CHUNK}: "
+        f"pose {total_ms:.1f} ms; sample ms "
+        f"{', '.join(f'{m:.1f}' for m in sample_ms)} (median {med:.1f}); "
+        f"{w * h * spp / (total_ms * 1e-3):.4e} path-traced rays/s; 512 spp "
+        f"would take {512 * med / 6e4:.2f} min; launches per sample "
+        f"dense_topk {launches[0] // spp}, dense_visibility "
+        f"{launches[1] // spp}; peak memory {peak_gib:.2f} GiB ({card})")
+    log(f"phase 5c: image finite, in [0, {settings.firefly_clamp}], mean "
+        f"{mean:.5f}, max {img.max():.5f}; saved {os.path.relpath(jpg, ROOT)}")
+    one = capture.make_accumulating_renderer(scene, settings, light, 1,
+                                             backend="dense")
+    split = profile_split("phase5c_sample", lambda: capture.render_pose(
+        one, cam.c2w, w, h, cam.fov_y_deg, chunk=PT_CHUNK), med, card)
+    return dict(launches=launches, median_ms=med, split=split)
+
+
+def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
+    """Phase 5d: make_tiled_pose_renderer with dense bounces, spp samples,
+    the forward tile kernel once per sample; bounces must add light over a
+    depth-1 render (emission and direct light only)."""
+    from pathtracer_gaussiansplatting_tpu_torch.data import capture
+    from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+
+    w, h = cam.width, cam.height
+    render = capture.make_tiled_pose_renderer(scene, settings, light, spp,
+                                              bounce_backend="dense")
+    torch.cuda.synchronize()
+    tc.LAUNCHES = dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    with HostTimer(capture, "prepare_tiles") as prep, \
+            HostTimer(capture, "pathtrace_camera") as samples:
+        img = render(cam.c2w, w, h, cam.fov_y_deg)
+        torch.cuda.synchronize()
+    launches = (tc.LAUNCHES, dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
+    check(launches[0] == spp, f"5d: the forward tile kernel launched "
+          f"{launches[0]} times for {spp} samples")
+    check(launches[1:] == (spp * (settings.max_depth - 1),
+                           2 * spp * settings.max_depth),
+          f"5d: kernel launches (dense_topk, dense_visibility) {launches}")
+    img = img.cpu().numpy()
+    mean = check_pt_image(img, settings, "5d")
+    direct = capture.make_tiled_pose_renderer(
+        scene, dataclasses.replace(settings, max_depth=1), light, 1,
+        bounce_backend="dense")(cam.c2w, w, h, cam.fov_y_deg).cpu().numpy()
+    check(mean > float(direct.mean()),
+          f"5d: depth 4 mean {mean} not above depth 1 {direct.mean()}")
+    jpg = os.path.join(OUT_DIR, f"phase5d_surface_50k_800_{spp}spp.jpg")
+    save_jpg(jpg, img)
+    med = statistics.median(samples.ms)
+    log(f"phase 5d: tiled route, {w}x{h}, depth 4, {spp} spp: prepare "
+        f"{prep.ms[0]:.1f} ms; sample ms "
+        f"{', '.join(f'{m:.1f}' for m in samples.ms)} (median {med:.1f}); "
+        f"512 spp would take {(prep.ms[0] + 512 * med) / 6e4:.2f} min; "
+        f"launches (tile fwd, dense_topk, dense_visibility) {launches} "
+        f"({card})")
+    log(f"phase 5d: image finite, mean {mean:.5f} against {direct.mean():.5f}"
+        f" at depth 1 (bounces add {mean / direct.mean() - 1:.1%}); saved "
+        f"{os.path.relpath(jpg, ROOT)}")
+    return dict(launches=launches, median_ms=med)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -707,12 +1105,28 @@ def main() -> int:
         f"step-0 gradients max err {small_fit['grad']:.3e} of the leaf's "
         f"max |g|, 3 losses max rel err {small_fit['loss']:.3e}")
 
+    # ---- phase 5: path tracing on the dense backend ------------------
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import (
+        dense_trace as dt,
+    )
+
+    pt_settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
+    scene5, light5, cam5 = pt_world(50_000, 800, 800, dev)
+    dense = dense_kernel_checks(dt, scene5, light5, cam5, pt_settings, card)
+    flat = flat_route(dt, scene5, light5, cam5, pt_settings, card, spp=8)
+    tiled = tiled_route(tc, dt, scene5, light5, cam5, pt_settings, card,
+                        spp=4)
+    del scene5
+    small_pt_check(dev, dataclasses.replace(pt_settings, rr_start_depth=2,
+                                            opaque_depth=3))
+
     check("jax" not in sys.modules, "jax was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{
         "name": "tile_composite_fwd", "route": "cuda",
         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches_p2 + launches_p3 + launches_p4[0],
+        "launches": (launches_p2 + launches_p3 + launches_p4[0]
+                     + tiled["launches"][0]),
         "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
     }, {
         "name": "tile_composite_bwd", "route": "cuda",
@@ -720,6 +1134,16 @@ def main() -> int:
         "launches": launches_p4[1],
         "max_abs_err": max(bwd["max_abs_err"], bwd_pt["max_abs_err"]),
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+    }, {
+        "name": "dense_topk", "route": "cuda", "source": TOPK_SOURCE,
+        "replaces": TOPK_REPLACES,
+        "launches": flat["launches"][0] + tiled["launches"][1],
+        **dense["topk"],
+    }, {
+        "name": "dense_visibility", "route": "cuda", "source": VIS_SOURCE,
+        "replaces": VIS_REPLACES,
+        "launches": flat["launches"][1] + tiled["launches"][2],
+        **dense["vis"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Counter-based RNG for rendering, bit-exact with the reference's keys.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/core/rng.py``
-(``r2_sequence``, ``frame_key``, ``dim_key``, ``subpixel_jitter``). The
+(``r2_sequence``, ``frame_key``, ``dim_key``, ``ray_uniform``,
+``subpixel_jitter``). The
 reference draws from ``jax.random`` with the threefry2x32 generator in its
 partitionable bit layout; this module
 reimplements that hash, ``fold_in`` and float32 ``uniform`` so every
@@ -88,6 +89,13 @@ def frame_key(base_key: torch.Tensor, frame: int) -> torch.Tensor:
 def dim_key(key: torch.Tensor, dimension: int) -> torch.Tensor:
     """Key for one random dimension of the estimator (jitter, lobe, ...)."""
     return fold_in(key, dimension)
+
+
+def ray_uniform(key: torch.Tensor, num_rays: int, dimension: int,
+                num: int = 1, device=None) -> torch.Tensor:
+    """(num_rays, num) uniforms in [0, 1) for one random dimension, one
+    row per ray (the ray's index in its batch), on ``device``."""
+    return uniform(dim_key(key, dimension), (num_rays, num), device)
 
 
 def subpixel_jitter(key: torch.Tensor, height: int, width: int, frame: int,

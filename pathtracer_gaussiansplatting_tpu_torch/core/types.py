@@ -1,7 +1,8 @@
 """Scene, ray and settings types.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/core/types.py``
-(``GaussianScene``, ``make_scene``, ``Rays``, ``RenderSettings``).
+(``GaussianScene``, ``make_scene``, ``PunctualLights``,
+``make_punctual_lights``, ``Rays``, ``RenderSettings``).
 ``GaussianScene`` is a frozen dataclass of float32 tensors (struct of
 arrays over N Gaussians); ``scene_from_numpy`` builds it from the JAX
 scene's leaves so both packages compute on identical parameters, and
@@ -120,6 +121,72 @@ def scene_to_numpy(scene: GaussianScene) -> dict:
     """The scene's leaves as float32 numpy arrays, the inverse of
     :func:`scene_from_numpy` (also for a scene of gradients)."""
     return {f: getattr(scene, f).detach().cpu().numpy() for f in SCENE_FIELDS}
+
+
+@dataclasses.dataclass(frozen=True)
+class PunctualLights:
+    """Punctual lights: position, direction, color (L, 3) and intensity,
+    range (<= 0: unlimited), inner_cone_cos, outer_cone_cos (L,) float32
+    tensors; light_type (L,) int32, 1 directional, 0 point, 2 spot."""
+
+    position: torch.Tensor
+    direction: torch.Tensor
+    color: torch.Tensor
+    intensity: torch.Tensor
+    light_type: torch.Tensor
+    range: torch.Tensor
+    inner_cone_cos: torch.Tensor
+    outer_cone_cos: torch.Tensor
+
+    @property
+    def num_lights(self) -> int:
+        return self.position.shape[0]
+
+
+PUNCTUAL_FIELDS = tuple(f.name for f in dataclasses.fields(PunctualLights))
+
+
+def make_punctual_lights(position=None, direction=None, color=None,
+                         intensity=None, light_type=None, range=None,
+                         inner_cone_cos=None, outer_cone_cos=None,
+                         num: Optional[int] = None,
+                         device=None) -> PunctualLights:
+    """PunctualLights from array-likes; a missing field takes the JAX
+    ``make_punctual_lights`` default (direction (0, -1, 0), white, unit
+    intensity, point light, unlimited range, cones 1 / 0.7)."""
+    if num is None:
+        num = next((len(a) for a in (position, direction, color, intensity,
+                                     light_type) if a is not None), 0)
+
+    def arr(x, default, shape, dtype=np.float32):
+        if x is None:
+            return torch.tensor(np.full(shape, default, dtype), device=device)
+        return torch.tensor(np.asarray(x, dtype).reshape(shape),
+                            device=device)
+
+    return PunctualLights(
+        position=arr(position, 0.0, (num, 3)),
+        direction=arr(direction if direction is not None
+                      else np.tile([[0.0, -1.0, 0.0]], (num, 1)), 0.0,
+                      (num, 3)),
+        color=arr(color, 1.0, (num, 3)),
+        intensity=arr(intensity, 1.0, (num,)),
+        light_type=arr(light_type, 0, (num,), np.int32),
+        range=arr(range, 0.0, (num,)),
+        inner_cone_cos=arr(inner_cone_cos, 1.0, (num,)),
+        outer_cone_cos=arr(outer_cone_cos, 0.7, (num,)),
+    )
+
+
+def punctual_from_numpy(d: Mapping[str, np.ndarray],
+                        device=None) -> PunctualLights:
+    """PunctualLights from a dict of the lights' leaves as numpy arrays
+    (for example ``{f: np.asarray(getattr(jax_lights, f)) for f in
+    PUNCTUAL_FIELDS}``); ``light_type`` stays int32."""
+    return PunctualLights(**{
+        f: torch.tensor(np.asarray(d[f], np.int32 if f == "light_type"
+                                   else np.float32), device=device)
+        for f in PUNCTUAL_FIELDS})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """Front-to-back alpha compositing weights with an analytic backward.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/ops/composite.py``
-(``composite_weights`` and its custom VJP): the backward is the suffix-sum
+(``composite_weights`` and its custom VJP, ``composite``,
+``transmittance``): the backward is the suffix-sum
 form of 3DGS rasterizers, with no O(K^2) graph and no division by a
 cumprod that may underflow to zero.
 """
@@ -41,3 +42,16 @@ def composite_weights(alphas: torch.Tensor):
     alphas (..., K) in [0, alpha_max] sorted front to back; also the final
     transmittance (...,)."""
     return _CompositeWeights.apply(alphas)
+
+
+def composite(alphas: torch.Tensor, feats: torch.Tensor):
+    """Composite features (..., K, F) front to back under alphas (..., K):
+    (sum_i w_i feats_i (..., F), accumulated opacity, transmittance)."""
+    weights, trans = composite_weights(alphas)
+    out = torch.einsum("...k,...kf->...f", weights, feats)
+    return out, 1.0 - trans, trans
+
+
+def transmittance(alphas: torch.Tensor) -> torch.Tensor:
+    """prod(1 - alpha_i) along the last axis (shadow-ray visibility)."""
+    return torch.prod(1.0 - alphas, dim=-1)

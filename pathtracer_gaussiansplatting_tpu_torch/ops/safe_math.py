@@ -1,7 +1,7 @@
 """Vector helpers that stay finite at 0.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/ops/safe_math.py``
-(``safe_norm``, ``safe_normalize``).
+(``safe_norm``, ``safe_normalize``, ``safe_sqrt``).
 """
 from __future__ import annotations
 
@@ -17,3 +17,8 @@ def safe_norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False,
 def safe_normalize(x: torch.Tensor, dim: int = -1,
                    eps: float = 1e-12) -> torch.Tensor:
     return x / safe_norm(x, dim=dim, keepdim=True, eps=eps)
+
+
+def safe_sqrt(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """sqrt clamped away from 0, where its derivative is infinite."""
+    return torch.sqrt(torch.clamp_min(x, eps))

@@ -1,0 +1,125 @@
+"""Dense renderer: every Gaussian against every ray, exact per-ray order.
+
+Counterpart of ``pathtracer_gaussiansplatting_tpu/render/reference.py``
+(``dense_topk``, ``_gather_features``, ``trace_dense``,
+``render_radiance_dense``, ``visibility_dense``). The (R, N) stages run in
+``kernels/dense_trace.py`` (a CUDA kernel on the card, the plain version on
+the CPU); the (R, K) feature gather and composite are plain torch.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from pathtracer_gaussiansplatting_tpu_torch.core import sh as sh_mod
+from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+    GaussianScene, Rays, RenderSettings,
+)
+from pathtracer_gaussiansplatting_tpu_torch.kernels import dense_trace
+from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as gops
+from pathtracer_gaussiansplatting_tpu_torch.ops.composite import (
+    composite_weights,
+)
+from pathtracer_gaussiansplatting_tpu_torch.ops.safe_math import (
+    safe_normalize,
+)
+
+
+def dense_topk(scene: GaussianScene, rays: Rays, settings: RenderSettings,
+               sort_depths: Optional[torch.Tensor] = None,
+               active: Optional[torch.Tensor] = None):
+    """Top-K nearest contributing Gaussians per ray, front to back, K =
+    min(max_contribs, N).
+
+    ``sort_depths`` (N,) orders by per-Gaussian depths in place of the
+    per-ray peak t (the tile path's mean-depth order). Returns idx (R, K)
+    int32 (0 where invalid), t (R, K) (t_max where invalid) and alpha
+    (R, K) (0 where invalid or where ``active`` (R,) is false).
+    """
+    k = min(settings.max_contribs, scene.num_gaussians)
+    return dense_trace.dense_topk(
+        rays.origins.contiguous(), rays.directions.contiguous(),
+        dense_trace.gaussian_table(scene), k, settings, sort_depths, active)
+
+
+def _gather_features(scene: GaussianScene, rays: Rays, idx: torch.Tensor,
+                     t: torch.Tensor, settings: RenderSettings) -> dict:
+    """(R, K, ...) shading features at the peak points: SH color,
+    emission, viewer-facing surfel normal, materials and position."""
+    idx = idx.long()
+    d = rays.directions[:, None, :]
+    x = rays.origins[:, None, :] + t[..., None] * d
+    color = sh_mod.eval_sh(scene.sh_coeffs[idx], d.expand(x.shape),
+                           settings.sh_degree)
+    normal = gops.surfel_normal(scene.log_scales[idx], scene.quats[idx],
+                                view_dir=d)
+    return dict(color=color, emission=scene.emission[idx], normal=normal,
+                 metallic=scene.metallic[idx],
+                 roughness=scene.roughness[idx],
+                 clearcoat=scene.clearcoat[idx],
+                 cc_roughness=scene.clearcoat_roughness[idx],
+                 transmission=scene.transmission[idx], position=x)
+
+
+def trace_dense(scene: GaussianScene, rays: Rays, settings: RenderSettings,
+                sort_depths: Optional[torch.Tensor] = None,
+                active: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Trace rays against the whole scene and composite one aggregate
+    surface interaction per ray: (R, ...) radiance_emitted, albedo,
+    normal, position, depth, metallic, roughness, clearcoat, cc_roughness,
+    transmission, alpha_acc, trans and hit. A ray that ``active`` masks
+    out composites nothing (alpha 0 everywhere)."""
+    idx, t, alpha = dense_topk(scene, rays, settings, sort_depths, active)
+    feats = _gather_features(scene, rays, idx, t, settings)
+    weights, trans = composite_weights(alpha)
+    alpha_acc = 1.0 - trans
+
+    def wsum(f):
+        return torch.einsum("rk,rk...->r...", weights, f)
+
+    denom = torch.clamp_min(alpha_acc, 1e-8)
+    return dict(
+        radiance_emitted=wsum(feats["emission"]),
+        albedo=wsum(feats["color"]),
+        normal=safe_normalize(wsum(feats["normal"])),
+        position=wsum(feats["position"]) / denom[:, None],
+        depth=wsum(t) / denom,
+        metallic=wsum(feats["metallic"]) / denom,
+        roughness=wsum(feats["roughness"]) / denom,
+        clearcoat=wsum(feats["clearcoat"]) / denom,
+        cc_roughness=wsum(feats["cc_roughness"]) / denom,
+        transmission=wsum(feats["transmission"]) / denom,
+        alpha_acc=alpha_acc,
+        trans=trans,
+        hit=alpha_acc > settings.hit_opacity_threshold,
+    )
+
+
+def render_radiance_dense(scene: GaussianScene, rays: Rays,
+                          settings: RenderSettings,
+                          sort_depths: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Radiance-field rendering (R, 3): composited SH color + emission
+    over the background."""
+    idx, _, alpha = dense_topk(scene, rays, settings, sort_depths)
+    idx = idx.long()
+    d = rays.directions[:, None, :].expand(idx.shape[0], idx.shape[1], 3)
+    color = sh_mod.eval_sh(scene.sh_coeffs[idx], d, settings.sh_degree) \
+        + scene.emission[idx]
+    weights, trans = composite_weights(alpha)
+    bg = torch.tensor(settings.background, dtype=torch.float32,
+                      device=color.device)
+    return torch.einsum("rk,rkc->rc", weights, color) + trans[:, None] * bg
+
+
+def visibility_dense(scene: GaussianScene, origins: torch.Tensor,
+                     directions: torch.Tensor, t_end: torch.Tensor,
+                     settings: RenderSettings,
+                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Soft-shadow transmittance (R,) prod(1 - alpha_i) from origins along
+    directions up to t_end; 1 where ``active`` (R,) is false."""
+    return dense_trace.dense_visibility(
+        origins.contiguous(), directions.contiguous(), t_end.contiguous(),
+        dense_trace.gaussian_table(scene), settings, active)

@@ -18,7 +18,8 @@ from pathtracer_gaussiansplatting_tpu.ops import binning as jb
 from pathtracer_gaussiansplatting_tpu.render import tiled as jtiled
 from pathtracer_gaussiansplatting_tpu_torch.core.camera import Camera, look_at
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
-    SCENE_FIELDS, GaussianScene, scene_from_numpy,
+    PUNCTUAL_FIELDS, SCENE_FIELDS, GaussianScene, PunctualLights,
+    punctual_from_numpy, scene_from_numpy,
 )
 
 # tier-1 runs several pytest workers; keep each one's torch pool small
@@ -45,6 +46,36 @@ def cameras(eye=(0.0, 0.5, 4.0), target=(0.0, 0.0, 0.0), fov=50.0,
                     height=height),
             Camera(c2w=look_at(eye, target), fov_y_deg=fov, width=width,
                    height=height))
+
+
+def to_torch_lights(lights, device="cpu") -> PunctualLights:
+    """The port's PunctualLights with the JAX lights' exact values."""
+    return punctual_from_numpy({f: np.asarray(getattr(lights, f))
+                                for f in PUNCTUAL_FIELDS}, device)
+
+
+def to_torch_tables(tables, device="cpu"):
+    """The JAX LightTables as the port's, value for value."""
+    from pathtracer_gaussiansplatting_tpu_torch.render.lights import (
+        LightTables,
+    )
+
+    return LightTables(**{
+        f.name: torch.from_numpy(np.array(getattr(tables, f.name))).to(device)
+        for f in dataclasses.fields(LightTables)})
+
+
+def to_torch_key(key) -> torch.Tensor:
+    """A jax.random key as the port's (2,) int64 key."""
+    return torch.from_numpy(np.asarray(key).astype(np.int64))
+
+
+def share_outside(got, want, rtol, atol) -> float:
+    """Share of pixels (rows of the last axis) of two images where any
+    channel misses atol + rtol |want|."""
+    g, w = np_of(got), np_of(want)
+    bad = np.abs(g - w) > atol + rtol * np.abs(w)
+    return float(bad.reshape(-1, bad.shape[-1]).any(-1).mean())
 
 
 def to_torch_packets(packets) -> dict:
