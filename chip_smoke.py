@@ -42,13 +42,37 @@ are built from the checkout at first use. Then:
            per sample; last, (b) one sample of pathtrace and of
            pathtrace_camera on the card against the CPU at 2000 Gaussians,
            96x64, at depth 1 and depth 4. Both images are written to
-           chiprun_out/chip_smoke/.
+           chiprun_out/chip_smoke/;
+  phase 6  the grid backend (csrc/grid_march.cu) at 500k Gaussians
+           (surface_scene(500k, seed 13), built without a device: on the
+           card): (a) build_grid_accel (Kc=32, 2.5e9 B), timed, its stats
+           against GRID_ACCURACY.json, the host C++ binning against numpy;
+           (b) both march kernels against the plain march on three
+           65536-ray chunks from the 1080p primary hit (bounce rays, shadow
+           segments to the emissive panel, a 50% active mask); (c) grid
+           against dense on the primary interaction at 320x180
+           (psnr_albedo within 0.3 dB of GRID_ACCURACY_CPU.json's, the
+           JAX package's float32 figure, nothing frozen); (d)
+           bench.py's path-trace workload, pathtrace_camera at 1920x1080,
+           depth 4, grid bounces, 1 warm and 3 timed samples, one
+           profiled; (e) bench.py's capture pose through
+           make_tiled_pose_renderer(accel=shared), 800x800, 8 spp; (f) the
+           grid backend on the card against the CPU as in phase 5b;
+  phase 7  the ablation harness (csrc/tile_composite_variants.cu) at the
+           headline packets: every mode's kernel against its plain
+           version, full bit-equal to the forward kernel, then the timing
+           run, 20 launches a mode.
 
 Every failure (a build error, a launch error, a tolerance miss, a
 non-finite image, a kernel the main path never launched) raises and ends
 the run with a non-zero exit before any result line is printed. Without
 CUDA the script exits with code 2 at once. The last line printed is
-{"ok": true, "device": {...}}; the line before it is the kernel table.
+{"ok": true, "device": {...}}; the line before it is the kernel table,
+each kernel with its launches on the main path, its error against its
+plain version, its time, its plain version's, and its bound: the larger
+of the bytes it must move over 3.35 TB/s and its float operations over
+67 TFLOP/s (the H100 SXM's published HBM rate and float32 peak), from the
+inputs of this run.
 """
 from __future__ import annotations
 
@@ -80,6 +104,43 @@ TOPK_REPLACES = "pathtracer_gaussiansplatting_tpu/render/reference.py:26"
 VIS_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
               "dense_visibility.cu")
 VIS_REPLACES = "pathtracer_gaussiansplatting_tpu/render/reference.py:161"
+GRID_SOURCE = "pathtracer_gaussiansplatting_tpu_torch/csrc/grid_march.cu"
+GRID_TRACE_REPLACES = ("pathtracer_gaussiansplatting_tpu/render/"
+                       "grid_trace.py:1060")
+GRID_VIS_REPLACES = ("pathtracer_gaussiansplatting_tpu/render/"
+                     "grid_trace.py:1109")
+VARIANT_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
+                  "tile_composite_variants.cu")
+VARIANT_REPLACES = "benchmarks/variant_kernel.py:58"
+# The H100 SXM's published HBM rate and float32 (non-tensor) peak.
+HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
+# Float operations per unit of work, counted from the kernels' sources (a
+# division, an exp or a compare counts one): forward tile composite per
+# (pixel, slot) pair (eval_slot 33, composite_slot 33); backward ~230 (three
+# evaluations, the VJP chain, the per-slot sums); dense top-K and shadow
+# visibility per (ray, Gaussian) pair; a grid probe (cell lookup, exits,
+# sub-box slab test, four in-block steps) and a Gaussian of a recorded cell.
+FWD_PAIR_FLOPS, BWD_PAIR_FLOPS, DENSE_PAIR_FLOPS = 66, 230, 60
+GRID_PROBE_FLOPS, GRID_GAUSS_FLOPS = 350, 66
+GRID_MAX_STEPS = 192  # render/pipeline.make_trace_backend's default
+# Grid kernel vs plain march on rays neither froze: the kernel cannot see
+# the batch (exit fractions, capacity), so a ray may meet its kill test at
+# another cell count: up to ~transmittance_min of its light.
+GRID_TRANS_ATOL, GRID_RTOL, GRID_ATOL = 2e-4, 1e-3, 2e-4
+# Least share of a chunk's rays within 1e-6 of the plain march: bounce rays
+# meet the exit fractions, shadow segments (short, converging) hardly ever.
+GRID_BOUNCE_MIN_SHARE, GRID_SHADOW_MIN_SHARE = 0.995, 0.9999
+GRID_STATS_TOL = 1e-4  # grid stats against GRID_ACCURACY.json (same scene)
+# dB: psnr_albedo within this of GRID_ACCURACY_CPU.json's, which is
+# benchmarks/grid_accuracy.py run by the JAX package on the CPU in float32.
+# GRID_ACCURACY.json's figure, taken on a TPU, is 2.4 dB lower (ROADMAP
+# section 3).
+GRID_PSNR_TOL = 0.3
+GRID_PROFILE_NAMES = dict(tile_composite_fwd="tile_composite_fwd_kernel",
+                          grid_trace="grid_march_kernel<true",
+                          grid_visibility="grid_march_kernel<false")
+DENSE_PROFILE_NAMES = dict(dense_topk="dense_topk",
+                           dense_visibility="dense_visibility")
 # Dense top-K: t relative and alpha absolute allowances where the kernel is
 # not bit-equal to its plain version (it is meant to be).
 TOPK_T_RTOL, TOPK_ALPHA_ATOL = 1e-6, 1e-6
@@ -606,23 +667,35 @@ def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
         f"{topk_plain_ms:.3f} ms; dense_visibility kernel {vis_ms:.3f} ms, "
         f"plain {vis_plain_ms:.3f} ms (R={PT_CHUNK}, N={table.shape[0]}; "
         f"CUDA events; {card})")
+    # Every (ray, Gaussian) pair of the primary chunk, and of the active
+    # shadow segments; rays, the table and the outputs move once.
+    n = table.shape[0]
+    topk_b = bound(4.0 * (PT_CHUNK * 6 + n * dt.TABLE_COLS
+                          + PT_CHUNK * k * 3),
+                   PT_CHUNK * n * DENSE_PAIR_FLOPS)
+    vis_b = bound(4.0 * (PT_CHUNK * 8 + n * dt.TABLE_COLS) + PT_CHUNK,
+                  int(act_e.sum()) * n * DENSE_PAIR_FLOPS)
     return dict(topk=dict(max_abs_err=err_a, ms=topk_ms,
-                          plain_ms=topk_plain_ms),
+                          plain_ms=topk_plain_ms, **topk_b),
                 vis=dict(max_abs_err=err_v, ms=vis_ms,
-                         plain_ms=vis_plain_ms))
+                         plain_ms=vis_plain_ms, **vis_b))
 
 
-def small_pt_check(dev, settings) -> None:
-    """Phase 5b: one sample of pathtrace (all rays as one batch) and one of
-    pathtrace_camera, on the card and on the CPU, 2000 Gaussians, 96x64,
-    the same key; at depth 1 (emission and direct light) and at the full
-    depth."""
+def small_pt_check(dev, settings, backend: str = "dense",
+                   phase: str = "5b") -> None:
+    """Phase 5b (6f with the grid backend): one sample of pathtrace (all
+    rays as one batch) and one of pathtrace_camera, on the card and on the
+    CPU, 2000 Gaussians, 96x64, the same key; at depth 1 (emission and
+    direct light) and at the full depth."""
     from pathtracer_gaussiansplatting_tpu_torch.core import rng
     from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
         generate_rays,
     )
     from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
         pathtrace, pathtrace_camera,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.pipeline import (
+        make_trace_backend,
     )
 
     for depth, min_share in ((1, PT_MIN_SHARE),
@@ -633,28 +706,32 @@ def small_pt_check(dev, settings) -> None:
             scene, light, cam = pt_world(2000, 96, 64, device)
             key = rng.prng_key(13)
             jit = rng.subpixel_jitter(key, 64, 96, 0, device=device)
+            be = make_trace_backend(scene, st, backend)
             outs.append((
                 pathtrace(scene, generate_rays(cam), st, key,
-                          punctual=light).cpu(),
+                          punctual=light, backend=be).cpu(),
                 pathtrace_camera(scene, cam, st, key, punctual=light,
-                                 jitter=jit).cpu()))
+                                 jitter=jit, backend=be).cpu()))
         for i, name in enumerate(("pathtrace", "pathtrace_camera")):
             g, w = outs[0][i].double(), outs[1][i].double()
             ok = ((g - w).abs() <= ATOL + RTOL * w.abs()).all(-1)
             share = float(ok.double().mean())
             mean_abs = float((g - w).abs().mean())
-            log(f"phase 5b {name} (2000 Gaussians, 96x64, depth {depth}, "
+            log(f"phase {phase} {name} ({backend} backend, 2000 Gaussians, "
+                f"96x64, depth {depth}, "
                 f"rr_start {st.rr_start_depth}, opaque_depth "
                 f"{st.opaque_depth}): card vs CPU {share:.4%} of pixels "
                 f"within rtol {RTOL} / atol {ATOL} (need {min_share:.0%}); "
                 f"mean abs diff {mean_abs:.3e} against an image mean of "
                 f"{float(w.mean()):.5f} (allowed {PT_MEAN_FRAC:.0%} of it); "
                 f"max abs diff {float((g - w).abs().max()):.3e}")
-            check(bool(torch.isfinite(g).all()), f"5b {name}: not finite")
-            check(share >= min_share, f"5b {name}, depth {depth}: only "
+            check(bool(torch.isfinite(g).all()),
+                  f"{phase} {name}: not finite")
+            check(share >= min_share, f"{phase} {name}, depth {depth}: only "
                   f"{share:.4%} of pixels match")
             check(mean_abs <= PT_MEAN_FRAC * float(w.mean()),
-                  f"5b {name}, depth {depth}: mean abs diff {mean_abs:.3e}")
+                  f"{phase} {name}, depth {depth}: mean abs diff "
+                  f"{mean_abs:.3e}")
 
 
 class HostTimer:
@@ -683,11 +760,13 @@ class HostTimer:
         return False
 
 
-def profile_split(name: str, fn, wall_ms: float, card: str) -> dict:
+def profile_split(name: str, fn, wall_ms: float, card: str,
+                  names=DENSE_PROFILE_NAMES) -> dict:
     """One run of fn under torch.profiler (the second of two): device time
-    split into the dense top-K kernel, the shadow kernel, the random draws
-    (kernels of ops inside the range ptgs.rng), shading (of ops inside
-    ptgs.shade) and the rest. The op table goes to OUT_DIR."""
+    split into the hand-written kernels (``names``: label -> a substring of
+    the kernel's name), the random draws (kernels of ops inside the range
+    ptgs.rng), shading (of ops inside ptgs.shade) and the rest. The op table
+    goes to OUT_DIR."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -707,8 +786,8 @@ def profile_split(name: str, fn, wall_ms: float, card: str) -> dict:
     total = kern()
     # A kernel launched by an aten op is linked to it; an op counts as RNG
     # or shading when its host interval lies inside one of those ranges.
-    # The dense kernels, launched through ctypes, are linked to no op and
-    # are counted by name.
+    # The hand-written kernels, launched through ctypes, are linked to no
+    # op and are counted by name.
     raw = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     ranges = {r: sorted((e.time_range.start, e.time_range.end) for e in raw
                         if e.name == r) for r in ("ptgs.rng", "ptgs.shade")}
@@ -717,9 +796,8 @@ def profile_split(name: str, fn, wall_ms: float, card: str) -> dict:
         i = bisect.bisect_right(ranges[r], (e.time_range.start, math.inf))
         return i > 0 and e.time_range.end <= ranges[r][i - 1][1]
 
-    split = dict(dense_topk=kern("dense_topk"),
-                 dense_visibility=kern("dense_visibility"), rng=0.0,
-                 bsdf_nee=0.0)
+    split = {label: kern(sub) for label, sub in names.items()}
+    split.update(rng=0.0, bsdf_nee=0.0)
     for e in raw:
         ms = sum(k.duration for k in e.kernels) / 1e3
         if ms and inside(e, "ptgs.rng"):
@@ -840,6 +918,424 @@ def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
     return dict(launches=launches, median_ms=med)
 
 
+# ---- bounds: the least time the card could take for a kernel's work ----
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """bound_ms = max(bytes / HBM rate, flops / float32 peak) and which of
+    the two it is (the H100 SXM's published peaks)."""
+    b, f = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return dict(bound_ms=max(b, f) * 1e3,
+                bound_by="bytes" if b >= f else "operations",
+                bound_bytes=float(n_bytes), bound_flops=float(flops))
+
+
+def tile_pairs(tc, packets, dirs, settings) -> int:
+    """(pixel, slot) pairs the forward kernel evaluates on these packets:
+    slots under count in the chunks it runs (chunk_schedule's skips; a tile
+    within its margin counts every chunk)."""
+    _, skip_from, kc = chunk_schedule(tc, packets, dirs, settings)
+    count = torch.ceil(packets["count"]).long()
+    k = packets["geom"].shape[-1]
+    starts = torch.arange(0, k, kc, device=count.device)
+    slots = torch.clamp(count[:, None] - starts[None], 0, kc)
+    slots = torch.where(starts[None] // kc < skip_from[:, None], slots, 0)
+    return int(slots.sum()) * dirs.shape[1]
+
+
+def tile_bytes(packets, dirs, backward: bool = False) -> float:
+    """Bytes the tile kernels must move: count, dirs, the 11 geometry rows
+    used and the features read once, the outputs written once (and for the
+    backward the cotangent in, the three gradients out)."""
+    t_total, p, _ = dirs.shape
+    k = packets["geom"].shape[-1]
+    f = packets["featsT"].shape[1]
+    n = t_total * (1 + p * 3 + 11 * k + f * k) + t_total * p * (f + 2)
+    if backward:
+        n += t_total * (p * 3 + 16 * k + f * k)
+    return 4.0 * n
+
+
+# ---- phase 6: the grid backend ------------------------------------------
+
+def grid_stats_check(gt, grid_bin, accel, build_s: float, card: str) -> None:
+    """6a: the 500k grid's stats against GRID_ACCURACY.json (kc32), and the
+    host C++ binning against its numpy version on surface_scene(2000)."""
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+
+    with open(os.path.join(ROOT, "GRID_ACCURACY.json")) as fh:
+        ref = json.load(fh)["kc32"]
+    st = accel.stats_dict
+    diffs = {k: abs(float(st[k]) - float(ref[k]))
+             for k in ("dropped_frac", "overflow_cell_frac", "clamped_frac")}
+    log(f"phase 6a: build_grid_accel(surface_scene(500k), Kc=32, budget "
+        f"2.5e9 B) in {build_s:.2f} s (host binning + tables on the card): "
+        f"dims {st['dims']} (reference {tuple(ref['dims'])}), "
+        + ", ".join(f"{k} {float(st[k]):.6f} (reference {float(ref[k]):.6f})"
+                    for k in diffs)
+        + f", {accel.packet.shape[0]} occupied cells, packet table "
+        f"{accel.packet.numel() * 4 / 2**30:.2f} GiB ({card})")
+    check(tuple(st["dims"]) == tuple(ref["dims"]), "6a: grid dims differ")
+    check(max(diffs.values()) <= GRID_STATS_TOL,
+          f"6a: grid stats off the reference by {diffs}")
+    small = surface_scene(2000, seed=13, device="cpu")
+    dims, _, exts, lo, hi, _ = gt.fit_grid(small)
+    centers = small.means.numpy()
+    prio = small.opacities.numpy()
+    got = grid_bin.grid_bin_aniso(centers, exts, prio, dims, lo, hi, 32)
+    want = grid_bin.grid_bin_aniso_plain(centers, exts, prio, dims, lo, hi,
+                                         32)
+    check(np.array_equal(got[0], want[0]) and np.array_equal(got[1],
+                                                             want[1]),
+          "6a: the C++ binning differs from its numpy version")
+    log(f"phase 6a: C++ binning equals numpy on surface_scene(2000), dims "
+        f"{dims}: {int(got[1].sum())} insertions, idx and cnt equal")
+
+
+def grid_rays(scene, cam, settings, cfg, accel):
+    """6b's three 65536-ray chunks, strided over the 1080p primary hit:
+    bounce rays (sampled as the bounce loop samples them), shadow segments
+    to the emissive panel, and the bounce rays under a 50% active mask."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.ops import bsdf
+    from pathtracer_gaussiansplatting_tpu_torch.render import lights
+    from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
+        interaction_from_tile_arrays,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        prepare_tiles, render_prepared,
+    )
+
+    packets = prepare_tiles(scene, cam, settings, cfg)
+    out = render_prepared(packets, cam, settings, cfg, outputs=(
+        "tile_feats", "tile_alpha", "tile_depth", "tile_dirs"))
+    dirs = out["tile_dirs"].reshape(-1, 3)
+    origins = cam.c2w[:3, 3][None].expand(dirs.shape[0], 3)
+    inter = interaction_from_tile_arrays(out, origins, dirs, settings)
+    sel = torch.arange(0, dirs.shape[0], dirs.shape[0] // PT_CHUNK,
+                       device=dirs.device)[:PT_CHUNK]
+    inter = {k: v[sel] for k, v in inter.items()}
+    d = dirs[sel]
+    u = {dim: rng.ray_uniform(rng.fold_in(rng.prng_key(13), 1), PT_CHUNK,
+                              dim, num, d.device)
+         for dim, num in ((7, 1), (8, 2), (12, 1), (13, 1), (14, 2))}
+    alpha = inter["alpha_acc"].clamp_min(1e-8)
+    n = inter["normal"]
+    scat = bsdf.sample_clearcoated(
+        u[12][:, 0], u[13][:, 0], u[14], n, -d,
+        inter["albedo"] / alpha[:, None], inter["metallic"],
+        inter["roughness"].clamp_min(1e-3), inter["clearcoat"],
+        inter["cc_roughness"])
+    eps = settings.shadow_eps
+    hit = inter["alpha_acc"] > 1e-4
+    bo = (inter["position"] + n * eps).contiguous()
+    bd = scat["direction"].contiguous()
+    tables = lights.build_light_tables(scene, None)
+    em = lights.sample_emissive(u[7][:, 0], u[8], scene, tables)
+    to_l = em["position"] - inter["position"]
+    dist = torch.sqrt(torch.clamp_min((to_l * to_l).sum(-1), 1e-4))
+    l_dir = (to_l / dist[:, None]).contiguous()
+    half = torch.from_numpy(np.random.default_rng(21).uniform(
+        size=PT_CHUNK) < 0.5).to(d.device)
+    return [("bounce rays", bo, bd, dict(active=hit)),
+            ("shadow segments to the emissive panel", bo, l_dir,
+             dict(t_end=(dist - 2 * eps).contiguous(),
+                  active=hit & ((n * l_dir).sum(-1) > 1e-3))),
+            ("bounce rays, 50% active", bo, bd, dict(active=hit & half))]
+
+
+def grid_kernel_check(gt, accel, settings, name, o, d, kw, card) -> dict:
+    """6b: the grid kernel against march_plain on one chunk, on the card:
+    the share of rays within 1e-6 (gated), the largest error on rays
+    neither froze (gated), both frozen counts (the kernel's at most the
+    plain's), CUDA-event times, and the plain march's probes, block rows
+    and cell visits for the bound."""
+    feat = "t_end" not in kw
+    got = gt.march(accel, o, d, settings, GRID_MAX_STEPS,
+                   with_features=feat, **kw)
+    stats = {}
+    want, plain_ms = host_ms(lambda: gt.march_plain(
+        accel, o, d, settings, GRID_MAX_STEPS, with_features=feat,
+        stats=stats, **kw))
+    torch.cuda.synchronize()
+    (tk, ak, fk), (tp, ap, fp) = got, want
+    n_fk, n_fp = int(fk.sum()), int(fp.sum())
+    check(n_fk <= n_fp, f"6b {name}: the kernel froze {n_fk} rays, the "
+          f"plain march {n_fp}")
+    neither = ~fk & ~fp
+    e_t = (tk - tp).abs().double()
+    same = e_t <= 1e-6
+    err_t = float(e_t[neither].max())
+    check(err_t <= GRID_TRANS_ATOL, f"6b {name}: trans off by {err_t:.3e} on "
+          f"a ray neither froze (allowed {GRID_TRANS_ATOL})")
+    worst = 0.0
+    if feat:
+        e_a = (ak - ap).abs().double()
+        same &= (e_a <= 1e-6 + 1e-6 * ap.abs()).all(-1)
+        # A ray's sums move by at most ~transmittance_min x its remaining
+        # contributions: allow GRID_ATOL per unit of each channel's
+        # largest normalized value (feature, or depth for tsum).
+        lit = neither & (1.0 - tp > 1e-3)
+        scale = (ap[lit].abs() / (1.0 - tp[lit, None])).amax(0).clamp_min(1.0)
+        allow = GRID_ATOL * scale.double() + GRID_RTOL * ap.abs().double()
+        bad = (e_a > allow) & neither[:, None]
+        check(not bool(bad.any()), f"6b {name}: {int(bad.sum())} sums of rays "
+              f"neither froze outside rtol {GRID_RTOL} / atol {GRID_ATOL} x "
+              f"channel scale (max abs {float(e_a[neither].max()):.3e})")
+        worst = float((e_a[neither] / allow[neither]).max())
+    ms = cuda_ms(lambda: gt.march(accel, o, d, settings, GRID_MAX_STEPS,
+                                  with_features=feat, **kw), 5)
+    share = float(same.double().mean())
+    min_share = GRID_BOUNCE_MIN_SHARE if feat else GRID_SHADOW_MIN_SHARE
+    log(f"phase 6b {name}: R={o.shape[0]}, {int(kw['active'].sum())} "
+        f"active: {share:.4%} of rays within 1e-6 of march_plain (need "
+        f"{min_share:.2%}); rays neither froze: max trans err {err_t:.3e}"
+        + (f", worst sum err {worst:.3f} of its allowance" if feat else "")
+        + f"; frozen kernel {n_fk}, plain {n_fp}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms (plain: {stats.get('probes', 0)} probes of "
+        f"{int(stats['block_seen'].sum())} block rows, "
+        f"{int(stats['slot_visits'].sum())} cells composited, "
+        f"{int((stats['slot_visits'] > 0).sum())} distinct) ({card})")
+    check(share >= min_share, f"6b {name}: only {share:.4%} of rays within "
+          f"1e-6 of march_plain (need {min_share:.2%})")
+    return dict(max_abs_err=max(err_t, float(
+        (ak - ap).abs()[neither].max()) if feat else 0.0), ms=ms,
+        plain_ms=plain_ms, stats=stats, share=share, rays=o.shape[0],
+        frozen=(n_fk, n_fp), feat=feat,
+        cols=accel.pkt_cols if feat else gt.GEOM_COLS)
+
+
+def grid_bound(gt, accel, res: dict) -> dict:
+    """The grid kernel's bound on one chunk from what the plain march did:
+    per probe ~GRID_PROBE_FLOPS (cell lookup, exits, sub-box slab test, 4
+    in-block steps), per occupied slot of each composited cell visit
+    ~GRID_GAUSS_FLOPS (its quadratic, peak and alpha); bytes: the rays and
+    outputs once, each block row probed once (16 B) and, of each distinct
+    cell composited, the columns of its occupied slots once."""
+    st = res["stats"]
+    kc = accel.max_per_cell
+    occ = (accel.geom[:, gt.G_OPAC * kc:(gt.G_OPAC + 1) * kc] > 0).sum(1)
+    visits = st["slot_visits"]
+    flops = st["probes"] * GRID_PROBE_FLOPS \
+        + int((visits * occ).sum()) * GRID_GAUSS_FLOPS
+    n_bytes = 4 * res["rays"] * (6 + 1 + 1 + (16 if res["feat"] else 1)) \
+        + int(st["block_seen"].sum()) * 16 \
+        + int(occ[visits > 0].sum()) * res["cols"] * 4
+    return bound(n_bytes, flops)
+
+
+def grid_accuracy(gt, ref, metrics, scene, accel, settings, card) -> None:
+    """6c: the grid (kernel) against the dense backend (dense_topk kernel)
+    on the primary interaction at 320x180, benchmarks/grid_accuracy.py's
+    scene, camera and settings."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, generate_rays, look_at,
+    )
+
+    with open(os.path.join(ROOT, "GRID_ACCURACY.json")) as fh:
+        tpu = json.load(fh)["kc32"]
+    with open(os.path.join(ROOT, "GRID_ACCURACY_CPU.json")) as fh:
+        want = json.load(fh)["kc32"]
+    cam = Camera(c2w=look_at((0.0, 0.2, 1.7), (0.0, -0.4, -0.5)),
+                 fov_y_deg=60.0, width=320, height=180)
+    rays = generate_rays(cam)
+    with torch.no_grad():
+        dense = ref.trace_dense(scene, rays, settings)
+        grid = gt.trace_grid(scene, rays, settings, accel)
+    psnr_albedo = float(metrics.psnr(grid["albedo"], dense["albedo"], 1.0))
+    psnr_alpha = float(metrics.psnr(grid["alpha_acc"], dense["alpha_acc"],
+                                    1.0))
+    hit = (dense["alpha_acc"] > 0.5) & (grid["alpha_acc"] > 0.5)
+    depth_err = float((grid["depth"] - dense["depth"]).abs()[hit].mean())
+    frozen = int(grid["frozen_alive"])
+    log(f"phase 6c: grid vs dense, 500k Gaussians, 320x180 primary "
+        f"interaction: psnr_albedo {psnr_albedo:.3f} dB (reference on the "
+        f"CPU {want['psnr_albedo']:.3f}, on the TPU "
+        f"{tpu['psnr_albedo']:.3f}), psnr_alpha {psnr_alpha:.3f} "
+        f"({want['psnr_alpha']:.3f}, {tpu['psnr_alpha']:.3f}), mean abs "
+        f"depth err on hits {depth_err:.5f} "
+        f"({want['mean_abs_depth_err_hit']:.5f}, "
+        f"{tpu['mean_abs_depth_err_hit']:.5f}), frozen_alive {frozen} "
+        f"({card})")
+    check(abs(psnr_albedo - want["psnr_albedo"]) <= GRID_PSNR_TOL,
+          f"6c: psnr_albedo {psnr_albedo:.3f} more than {GRID_PSNR_TOL} dB "
+          f"from {want['psnr_albedo']:.3f}")
+    check(frozen == 0, f"6c: {frozen} rays frozen")
+
+
+def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
+                   card) -> dict:
+    """6d: bench.py's path-trace workload on the grid backend: one
+    prepare_tiles, then pathtrace_camera at 1920x1080, depth 4, one warm
+    and three timed samples; one more sample profiled."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.render import lights
+    from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
+        accumulate, pathtrace_camera,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        prepare_tiles,
+    )
+
+    w, h = cam.width, cam.height
+    tables = lights.build_light_tables(scene, None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    packets, prep_ms = host_ms(lambda: prepare_tiles(scene, cam, settings,
+                                                     cfg))
+    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
+    acc = torch.zeros((h * w, 3), device=cam.c2w.device)
+    sample_ms, frozen = [], 0
+    jitters = []
+    for f in range(4):
+        jit = rng.subpixel_jitter(key, h, w, f)   # no device: the card
+        jitters.append(jit.device.type)
+        (cur, aux), ms = host_ms(lambda: pathtrace_camera(
+            scene, cam, settings, rng.frame_key(key, f), packets=packets,
+            tables=tables, backend=backend, config=cfg, jitter=jit,
+            return_aux=True))
+        acc = accumulate(acc, cur, f)
+        sample_ms.append(ms)
+        frozen += int(aux["frozen_alive"])
+    launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(jitters == ["cuda"] * 4, f"6d: jitter built on {jitters}")
+    check(launches == (4 * (settings.max_depth - 1), 4 * settings.max_depth),
+          f"6d: grid kernel launches (trace, visibility) {launches}")
+    img = acc.reshape(h, w, 3).cpu().numpy()
+    mean = check_pt_image(img, settings, "6d")
+    med = statistics.median(sample_ms[1:])
+    from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+
+    jpg = os.path.join(OUT_DIR, "phase6d_surface_500k_1080p_grid_4spp.jpg")
+    save_jpg(jpg, img)
+    log(f"phase 6d: path trace, 500k surface Gaussians, {w}x{h}, depth 4, "
+        f"grid bounces: prepare {prep_ms:.1f} ms; sample ms "
+        f"{', '.join(f'{m:.1f}' for m in sample_ms)} (median of 2-4 "
+        f"{med:.1f}); {w * h / (med * 1e-3):.4e} path-traced rays/s; "
+        f"launches per sample grid_trace {launches[0] // 4}, grid_visibility "
+        f"{launches[1] // 4}; frozen rays {frozen} in 4 samples; peak memory "
+        f"{peak_gib:.2f} GiB ({card})")
+    log(f"phase 6d: image finite, mean {mean:.5f}; saved "
+        f"{os.path.relpath(jpg, ROOT)}")
+    split = profile_split("phase6d_sample", lambda: pathtrace_camera(
+        scene, cam, settings, rng.frame_key(key, 99), packets=packets,
+        tables=tables, backend=backend, config=cfg,
+        jitter=rng.subpixel_jitter(key, h, w, 99)), med, card,
+        GRID_PROFILE_NAMES)
+    return dict(launches=launches, median_ms=med, split=split)
+
+
+def grid_pose(gm, capture, scene, settings, accel, card, spp: int) -> dict:
+    """6e: bench.py's capture pose: make_tiled_pose_renderer with grid
+    bounces and the shared grid at toroidal_c2w(123, 20, 2.5, 0.3),
+    800x800, fov 45, spp samples, extrapolated to 512."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        toroidal_c2w,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+
+    render = capture.make_tiled_pose_renderer(scene, settings, None, spp,
+                                              bounce_backend="grid",
+                                              accel=accel)
+    c2w = toroidal_c2w(123.0, 20.0, 2.5, 0.3)   # no device: the card
+    check(c2w.device.type == "cuda", f"6e: pose built on {c2w.device}")
+    torch.cuda.synchronize()
+    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
+    stats = {}
+    with HostTimer(capture, "prepare_tiles") as prep, \
+            HostTimer(capture, "pathtrace_camera") as samples:
+        img = render(c2w, 800, 800, 45.0, stats_out=stats)
+        torch.cuda.synchronize()
+    launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
+    check(launches == (spp * (settings.max_depth - 1),
+                       spp * settings.max_depth),
+          f"6e: grid kernel launches (trace, visibility) {launches}")
+    img = img.cpu().numpy()
+    check(bool(np.isfinite(img).all()) and float(img.min()) >= 0.0,
+          "6e: image not finite or negative")
+    jpg = os.path.join(OUT_DIR, f"phase6e_capture_pose_800_{spp}spp.jpg")
+    save_jpg(jpg, img)
+    med = statistics.median(samples.ms)
+    log(f"phase 6e: capture pose toroidal_c2w(123, 20, 2.5, 0.3), 800x800, "
+        f"fov 45, grid bounces, {spp} spp: prepare {prep.ms[0]:.1f} ms; "
+        f"sample ms {', '.join(f'{m:.1f}' for m in samples.ms)} (median "
+        f"{med:.1f}); a 512-spp pose would take "
+        f"{(prep.ms[0] + 512 * med) / 6e4:.2f} min; frozen rays "
+        f"{stats.get('frozen_alive', 0):.0f}; image mean {img.mean():.5f}; "
+        f"saved {os.path.relpath(jpg, ROOT)} ({card})")
+    return dict(launches=launches, median_ms=med)
+
+
+# ---- phase 7: the ablation harness ----------------------------------------
+
+def ablation(tc, tv, card) -> dict:
+    """Phase 7: every mode's kernel against its plain version at the
+    headline packets (T=2500, K=256), full bit-equal to the forward kernel,
+    onechunk and noif within the transmittance_min bound of full; then the
+    harness's timing run, 20 launches a mode."""
+    inputs = tv.headline_inputs()
+    geom, featsT, dirs, count, settings = inputs
+    fwd = tc.tile_composite(dict(geom=geom, featsT=featsT, count=count),
+                            dirs, settings)
+    errs, outs = {}, {}
+    for mode in tv.MODES:
+        got = tv.tile_composite_variant(mode, *inputs)
+        want = tv.tile_composite_variant_plain("full" if mode in
+                                               tv.TENSOR_CORE else mode,
+                                               *inputs)
+        torch.cuda.synchronize()
+        outs[mode] = got
+        if mode in tv.TENSOR_CORE:
+            check(bool(torch.isfinite(got).all()), f"7 {mode}: not finite")
+            errs[mode] = float((got - want).abs().max())
+            continue
+        if mode == "noscan":  # depth ~1e10 where alpha_acc ~ 0: relative
+            compare(got[..., -1], want[..., -1], "7 noscan depth", atol=0.0)
+            got, want = got[..., :-1], want[..., :-1]
+        errs[mode] = compare(got, want, f"7 {mode}")
+    full = outs["full"]
+    check(torch.equal(full[..., :tc.FEATURE_DIM], fwd[0])
+          and torch.equal(full[..., tv.FP], fwd[1])
+          and torch.equal(full[..., tv.FP + 1], fwd[2]),
+          "7: full is not bit-equal to tile_composite_fwd")
+    # Chunks full skips hold at most transmittance_min of each pixel's
+    # light: features move by at most that times the largest feature.
+    tmin = settings.transmittance_min
+    fmax = float(featsT.abs().max())
+    for mode in ("onechunk", "noif"):
+        d = (outs[mode] - full).abs()
+        check(float(d[..., :tc.FEATURE_DIM].max()) <= 1.01 * tmin * fmax
+              + ATOL and float(d[..., tv.FP].max()) <= 1.01 * tmin + ATOL,
+              f"7 {mode}: beyond the transmittance_min bound of full")
+    pairs = tile_pairs(tc, dict(geom=geom, featsT=featsT, count=count),
+                       dirs, settings)
+    plain_ms = cuda_ms(lambda: tv.tile_composite_variant_plain(
+        "full", *inputs), 2)
+    tv.LAUNCHES = 0
+    rows = tv.run_harness(tv.MODES, inputs, 20)
+    launches = tv.LAUNCHES
+    full_ms = rows[0][1]
+    for mode, ms, err in rows:
+        note = "" if err is None else f", max rel err vs full {err:.2e}"
+        if mode in tv.TENSOR_CORE:
+            note += f", max abs err vs full's plain math {errs[mode]:.3e}"
+        log(f"phase 7 {mode:>9s}: {ms:8.3f} ms, {ms / full_ms:7.1%} of full"
+            f"{note} (T={geom.shape[0]}, K={geom.shape[-1]}; {card})")
+    log(f"phase 7: kernels vs plain within rtol {RTOL} / atol {ATOL}: "
+        + ", ".join(f"{m} {e:.2e}" for m, e in errs.items()
+                    if m not in tv.TENSOR_CORE)
+        + "; full bit-equal to tile_composite_fwd; onechunk and noif within "
+        f"the transmittance_min bound; {launches} launches; full's plain "
+        f"version {plain_ms:.3f} ms")
+    return dict(launches=launches, ms=full_ms, plain_ms=plain_ms,
+                max_abs_err=max(e for m, e in errs.items()
+                                if m not in tv.TENSOR_CORE),
+                **bound(tile_bytes(dict(geom=geom, featsT=featsT), dirs),
+                        pairs * FWD_PAIR_FLOPS))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -919,15 +1415,24 @@ def main() -> int:
         lambda: tc.tile_composite_plain(packets, dirs_t, settings), 3)
     log(f"phase 1: kernel vs plain max abs err out {err_out:.3e} alpha_acc "
         f"{err_acc:.3e} depth {err_depth:.3e} (rtol {RTOL}, atol {ATOL})")
+    pairs = tile_pairs(tc, packets, dirs_t, settings)
+    fwd_bound = bound(tile_bytes(packets, dirs_t), pairs * FWD_PAIR_FLOPS)
+    bwd_bound = bound(tile_bytes(packets, dirs_t, backward=True),
+                      pairs * BWD_PAIR_FLOPS)
     log(f"phase 1: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"(CUDA events; {card})")
+        f"(CUDA events; {card}); bound {fwd_bound['bound_ms']:.4f} ms by "
+        f"{fwd_bound['bound_by']} ({pairs} pixel-slot pairs, "
+        f"{fwd_bound['bound_flops']:.3e} flops, "
+        f"{fwd_bound['bound_bytes']:.3e} bytes)")
 
     # The slice end to end at a small size: card (kernel) vs CPU (plain).
     # Splats large against the camera distance keep q = c - b^2/a well
     # conditioned, so no pair sits within rounding of an alpha cutoff
     # (CPU and CUDA round exp differently).
-    small = random_cloud(2000, seed=7, spread=1.2, scale_range=(-1.8, -0.8))
-    small_cam = dict(c2w=look_at((0.0, 0.5, 4.0), (0.0, 0.0, 0.0)),
+    small = random_cloud(2000, seed=7, spread=1.2, scale_range=(-1.8, -0.8),
+                         device="cpu")
+    small_cam = dict(c2w=look_at((0.0, 0.5, 4.0), (0.0, 0.0, 0.0),
+                                 device="cpu"),
                      fov_y_deg=50.0, width=96, height=64)
     small_cfg = BinningConfig(max_per_tile=512)
     imgs = []
@@ -1120,31 +1625,97 @@ def main() -> int:
     small_pt_check(dev, dataclasses.replace(pt_settings, rr_start_depth=2,
                                             opaque_depth=3))
 
+    # ---- phase 6: the grid backend at 500k Gaussians ------------------
+    from pathtracer_gaussiansplatting_tpu_torch.csrc import grid_bin
+    from pathtracer_gaussiansplatting_tpu_torch.data import capture
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import (
+        grid_march as gm,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render import grid_trace as gt
+    from pathtracer_gaussiansplatting_tpu_torch.render import reference as ref
+    from pathtracer_gaussiansplatting_tpu_torch.render.pipeline import (
+        make_trace_backend,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.utils import metrics
+
+    # Built without a device argument: the port's entry points default to
+    # the card.
+    g_scene = surface_scene(500_000, seed=13)
+    g_cam = Camera(c2w=look_at((0.0, 0.2, 1.7), (0.0, -0.4, -0.5)),
+                   fov_y_deg=60.0, width=1920, height=1080)
+    check(g_scene.means.device.type == "cuda"
+          and g_cam.c2w.device.type == "cuda",
+          f"6: scene on {g_scene.means.device}, camera on {g_cam.c2w.device}")
+    g_cfg = BinningConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    accel = gt.build_grid_accel(g_scene, max_per_cell=32,
+                                memory_budget_bytes=2.5e9)
+    torch.cuda.synchronize()
+    grid_stats_check(gt, grid_bin, accel, time.perf_counter() - t0, card)
+    chunks = grid_rays(g_scene, g_cam, pt_settings, g_cfg, accel)
+    g_res = [grid_kernel_check(gt, accel, pt_settings, name, o, d, kw, card)
+             for name, o, d, kw in chunks]
+    trace_b = grid_bound(gt, accel, g_res[0])
+    vis_b = grid_bound(gt, accel, g_res[1])
+    del chunks
+    grid_accuracy(gt, ref, metrics, g_scene, accel, pt_settings, card)
+    backend = make_trace_backend(g_scene, pt_settings, "grid", accel=accel)
+    g_pt = grid_pathtrace(gm, g_scene, g_cam, pt_settings, g_cfg, backend,
+                          key, card)
+    g_pose = grid_pose(gm, capture, g_scene, pt_settings, accel, card, spp=8)
+    del g_scene, accel, backend
+    small_pt_check(dev, dataclasses.replace(pt_settings, rr_start_depth=2,
+                                            opaque_depth=3),
+                   backend="grid", phase="6f")
+
+    # ---- phase 7: the ablation harness -------------------------------
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import (
+        tile_composite_variants as tv,
+    )
+
+    abl = ablation(tc, tv, card)
+
     check("jax" not in sys.modules, "jax was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [{
-        "name": "tile_composite_fwd", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": (launches_p2 + launches_p3 + launches_p4[0]
-                     + tiled["launches"][0]),
-        "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-    }, {
-        "name": "tile_composite_bwd", "route": "cuda",
-        "source": BWD_KERNEL_SOURCE, "replaces": BWD_KERNEL_REPLACES,
-        "launches": launches_p4[1],
-        "max_abs_err": max(bwd["max_abs_err"], bwd_pt["max_abs_err"]),
-        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
-    }, {
-        "name": "dense_topk", "route": "cuda", "source": TOPK_SOURCE,
-        "replaces": TOPK_REPLACES,
-        "launches": flat["launches"][0] + tiled["launches"][1],
-        **dense["topk"],
-    }, {
-        "name": "dense_visibility", "route": "cuda", "source": VIS_SOURCE,
-        "replaces": VIS_REPLACES,
-        "launches": flat["launches"][1] + tiled["launches"][2],
-        **dense["vis"],
-    }]}))
+
+    def entry(name, source, replaces, launches, res, bnd):
+        log(f"bound {name}: {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+            f"({bnd['bound_flops']:.4e} flops, {bnd['bound_bytes']:.4e} "
+            f"bytes); kernel {res['ms']:.4f} ms = "
+            f"{bnd['bound_ms'] / res['ms']:.1%} of the bound's rate")
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    max_abs_err=res["max_abs_err"], ms=res["ms"],
+                    plain_ms=res["plain_ms"], bound_ms=bnd["bound_ms"],
+                    bound_by=bnd["bound_by"], library_ms=None)
+
+    topk, vis = dense["topk"], dense["vis"]
+    log(json.dumps({"kernels": [
+        entry("tile_composite_fwd", KERNEL_SOURCE, KERNEL_REPLACES,
+              launches_p2 + launches_p3 + launches_p4[0]
+              + tiled["launches"][0],
+              dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms),
+              fwd_bound),
+        entry("tile_composite_bwd", BWD_KERNEL_SOURCE, BWD_KERNEL_REPLACES,
+              launches_p4[1],
+              dict(max_abs_err=max(bwd["max_abs_err"],
+                                   bwd_pt["max_abs_err"]),
+                   ms=bwd["ms"], plain_ms=bwd["plain_ms"]), bwd_bound),
+        entry("dense_topk", TOPK_SOURCE, TOPK_REPLACES,
+              flat["launches"][0] + tiled["launches"][1], topk, topk),
+        entry("dense_visibility", VIS_SOURCE, VIS_REPLACES,
+              flat["launches"][1] + tiled["launches"][2], vis, vis),
+        entry("grid_trace", GRID_SOURCE, GRID_TRACE_REPLACES,
+              g_pt["launches"][0] + g_pose["launches"][0],
+              dict(g_res[0], max_abs_err=max(g_res[0]["max_abs_err"],
+                                             g_res[2]["max_abs_err"])),
+              trace_b),
+        entry("grid_visibility", GRID_SOURCE, GRID_VIS_REPLACES,
+              g_pt["launches"][1] + g_pose["launches"][1], g_res[1], vis_b),
+        entry("tile_composite_variants", VARIANT_SOURCE, VARIANT_REPLACES,
+              abl["launches"], abl, abl),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

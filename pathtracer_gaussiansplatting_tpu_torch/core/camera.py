@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from pathtracer_gaussiansplatting_tpu_torch.core.device import resolve_device
 from pathtracer_gaussiansplatting_tpu_torch.core.types import Rays
 
 
@@ -53,7 +54,8 @@ def _c2w(rot_cols, pos) -> torch.Tensor:
 
 def look_at(eye, target, up=(0.0, 1.0, 0.0), device=None) -> torch.Tensor:
     """Camera-to-world matrix (OpenGL convention) looking from eye at
-    target, on ``device``."""
+    target, on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     eye, target, up = (_f32(v, device) for v in (eye, target, up))
     fwd = _unit(target - eye)
     right = _unit(torch.linalg.cross(fwd, up))
@@ -73,7 +75,9 @@ def toroidal_c2w(alpha_deg, beta_deg, major_radius, height,
                  device=None) -> torch.Tensor:
     """Camera pose on the torus centerline: ``alpha`` around the major ring,
     ``beta`` pitch about the local right axis, with the up vector rotated
-    along so nothing snaps past 90 degrees."""
+    along so nothing snaps past 90 degrees. On ``device`` (None: the CUDA
+    card)."""
+    device = resolve_device(device)
     a = torch.deg2rad(torch.remainder(_f32(alpha_deg, device), 360.0))
     b = torch.deg2rad(torch.remainder(_f32(beta_deg, device), 360.0))
     zero = torch.zeros_like(a)

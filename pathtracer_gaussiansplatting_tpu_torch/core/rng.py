@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from pathtracer_gaussiansplatting_tpu_torch.core.device import resolve_device
+
 FRAME_MIX = 719393
 R2_A1 = 0.75487766624669276
 R2_A2 = 0.56984029099805327
@@ -64,8 +66,10 @@ def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
 
     Partitionable layout: element i hashes the counter (i >> 32, i & M32)
     and takes the XOR of the two output words; the top 23 bits become the
-    mantissa of a float in [1, 2), minus 1.
+    mantissa of a float in [1, 2), minus 1. ``device`` None means the CUDA
+    card.
     """
+    device = resolve_device(device)
     k1, k2 = (int(v) for v in key.tolist())
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     y1, y2 = threefry2x32(k1, k2, idx >> 32, idx & _M32)
@@ -75,7 +79,9 @@ def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
 
 
 def r2_sequence(i: int, device=None) -> torch.Tensor:
-    """Fractional part of the 2D R2 quasirandom sequence at index i, (2,)."""
+    """Fractional part of the 2D R2 quasirandom sequence at index i, (2,),
+    on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     i = torch.tensor(float(i), dtype=torch.float32, device=device)
     a = torch.tensor([R2_A1, R2_A2], dtype=torch.float32, device=device)
     return torch.fmod(i * a, 1.0)
@@ -94,13 +100,16 @@ def dim_key(key: torch.Tensor, dimension: int) -> torch.Tensor:
 def ray_uniform(key: torch.Tensor, num_rays: int, dimension: int,
                 num: int = 1, device=None) -> torch.Tensor:
     """(num_rays, num) uniforms in [0, 1) for one random dimension, one
-    row per ray (the ray's index in its batch), on ``device``."""
+    row per ray (the ray's index in its batch), on ``device`` (None: the
+    CUDA card)."""
     return uniform(dim_key(key, dimension), (num_rays, num), device)
 
 
 def subpixel_jitter(key: torch.Tensor, height: int, width: int, frame: int,
                     device=None) -> torch.Tensor:
     """(H, W, 2) subpixel jitter for ``frame``: pixel-uniform random jitter
-    shifted by the frame's R2 offset, modulo 1."""
+    shifted by the frame's R2 offset, modulo 1, on ``device`` (None: the
+    CUDA card)."""
+    device = resolve_device(device)
     u = uniform(dim_key(frame_key(key, frame), 0), (height, width, 2), device)
     return torch.fmod(u + r2_sequence(frame, device), 1.0)

@@ -16,6 +16,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from pathtracer_gaussiansplatting_tpu_torch.core.device import resolve_device
 from pathtracer_gaussiansplatting_tpu_torch.core.sh import SH_C0
 
 
@@ -75,8 +76,10 @@ def make_scene(means, log_scales, quats, opacity_logits, sh_coeffs=None,
     """Build a GaussianScene from array-likes, filling default channels.
 
     ``colors`` (N, 3) in [0, 1] may replace ``sh_coeffs``: it becomes the
-    DC SH band, dc = (c - 0.5) / SH_C0 (3DGS convention).
+    DC SH band, dc = (c - 0.5) / SH_C0 (3DGS convention). The scene is
+    built on ``device`` (None: the CUDA card, see ``core/device.py``).
     """
+    device = resolve_device(device)
     means = _f32(means, device)
     n = means.shape[0]
 
@@ -113,7 +116,8 @@ def scene_from_numpy(d: Mapping[str, np.ndarray],
                      device=None) -> GaussianScene:
     """GaussianScene from a dict of the scene's leaves as numpy arrays
     (for example ``{f: np.asarray(getattr(jax_scene, f)) for f in
-    SCENE_FIELDS}``)."""
+    SCENE_FIELDS}``), on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     return GaussianScene(**{f: _f32(d[f], device) for f in SCENE_FIELDS})
 
 
@@ -153,7 +157,9 @@ def make_punctual_lights(position=None, direction=None, color=None,
                          device=None) -> PunctualLights:
     """PunctualLights from array-likes; a missing field takes the JAX
     ``make_punctual_lights`` default (direction (0, -1, 0), white, unit
-    intensity, point light, unlimited range, cones 1 / 0.7)."""
+    intensity, point light, unlimited range, cones 1 / 0.7). Built on
+    ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     if num is None:
         num = next((len(a) for a in (position, direction, color, intensity,
                                      light_type) if a is not None), 0)
@@ -182,7 +188,9 @@ def punctual_from_numpy(d: Mapping[str, np.ndarray],
                         device=None) -> PunctualLights:
     """PunctualLights from a dict of the lights' leaves as numpy arrays
     (for example ``{f: np.asarray(getattr(jax_lights, f)) for f in
-    PUNCTUAL_FIELDS}``); ``light_type`` stays int32."""
+    PUNCTUAL_FIELDS}``); ``light_type`` stays int32. Built on ``device``
+    (None: the CUDA card)."""
+    device = resolve_device(device)
     return PunctualLights(**{
         f: torch.tensor(np.asarray(d[f], np.int32 if f == "light_type"
                                    else np.float32), device=device)

@@ -1,16 +1,20 @@
-"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+"""Build and load the port's native code: the CUDA kernels (nvcc) and the
+host-side C++ helpers (g++), each a shared library loaded with ctypes.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/csrc/build.py`` (which
-builds the reference's host-side C++ helpers). Here one ``nvcc`` per
-``csrc/*.cu`` file, all started together, compiles each (with its plain C
-entry point) for Hopper (``sm_90a``); one more links the objects into a
-shared library, and ``ctypes`` loads it. Nothing includes PyTorch's
-headers, so a build takes seconds.
+builds the reference's host-side C++ helpers). For the kernels, one
+``nvcc`` per ``csrc/*.cu`` file, all started together, compiles each (with
+its plain C entry point) for Hopper (``sm_90a``); one more links the
+objects into a shared library. Nothing includes PyTorch's headers, so a
+build takes seconds. The host helpers (``csrc/*.cpp``: the grid binning)
+are one ``g++ -O3 -shared -fPIC`` call (:func:`build_host`); they run on
+any machine with ``g++``, the CPU tests' included.
 
-The library goes to ``csrc/_build/`` (listed in ``.gitignore``) under a name
+The libraries go to ``csrc/_build/`` (listed in ``.gitignore``) under names
 hashed from the sources and flags: the first call in a fresh checkout
 builds, later calls load. ptxas's report (registers, shared memory, spills)
-is kept beside it in a ``.log`` file.
+is kept beside the kernel library in a ``.log`` file. A failed build
+raises; nothing falls back to a slower path.
 """
 from __future__ import annotations
 
@@ -25,8 +29,10 @@ CSRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = CSRC_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _LIB = None
+_HOST_LIB = None
 
 
 def sources() -> list:
@@ -49,12 +55,24 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources() + headers():
+def host_sources() -> list:
+    return sorted(CSRC_DIR.glob("*.cpp"))
+
+
+def _hashed(stem: str, flags, files) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in files:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libptgs_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+
+
+def library_path() -> Path:
+    return _hashed("libptgs_kernels", NVCC_FLAGS, sources() + headers())
+
+
+def host_library_path() -> Path:
+    return _hashed("libptgs_host", HOST_FLAGS, host_sources())
 
 
 def _run_all(cmds, env) -> list:
@@ -111,3 +129,30 @@ def load() -> ctypes.CDLL:
     if _LIB is None:
         _LIB = ctypes.CDLL(str(build()))
     return _LIB
+
+
+def build_host() -> Path:
+    """Compile the host helpers with g++ unless a library for these sources
+    exists."""
+    lib = host_library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{lib.stem}.{os.getpid()}.tmp.so"
+    cmd = ["g++", *HOST_FLAGS, "-o", str(tmp),
+           *(str(s) for s in host_sources())]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed with code {res.returncode}:\n"
+                           f"{(res.stdout + res.stderr)[-4000:]}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load_host() -> ctypes.CDLL:
+    """The host helper library, built at first use and loaded once."""
+    global _HOST_LIB
+    if _HOST_LIB is None:
+        _HOST_LIB = ctypes.CDLL(str(build_host()))
+    return _HOST_LIB

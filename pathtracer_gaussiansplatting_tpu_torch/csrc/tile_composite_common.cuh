@@ -1,5 +1,6 @@
 // Per-(pixel, slot) math shared by the forward and backward tile composite
-// kernels (tile_composite_fwd.cu, tile_composite_bwd.cu).
+// kernels (tile_composite_fwd.cu, tile_composite_bwd.cu) and the forward's
+// ablation harness (tile_composite_variants.cu).
 //
 // The backward recomputes the forward's alpha, transmittance and chunk
 // skip decisions. alpha steps at the sigma_cut and alpha_min cutoffs,
@@ -96,6 +97,22 @@ __device__ __forceinline__ SlotEval eval_slot(const PixelDir& p,
 // Transmittance past a slot: T * (1 - alpha), rounded as the forward does.
 __device__ __forceinline__ float trans_after(float trans, float alpha) {
   return __fmul_rn(trans, __fsub_rn(1.0f, alpha));
+}
+
+// The forward's step over slot j of a chunk staged as sf[f * kc + j]:
+// w = T alpha, T *= 1 - alpha, and w added into the depth and F feature
+// sums by explicit FMAs, so every kernel that takes this step (the forward
+// and the harness's production modes) rounds it the same way.
+template <int F>
+__device__ __forceinline__ void composite_slot(const SlotEval& e,
+                                               const float* sf, int kc,
+                                               int j, float& trans,
+                                               float& s_depth, float* acc) {
+  const float w = __fmul_rn(trans, e.alpha);
+  trans = trans_after(trans, e.alpha);
+  s_depth = __fmaf_rn(w, e.t, s_depth);
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = __fmaf_rn(w, sf[f * kc + j], acc[f]);
 }
 
 }  // namespace ptgs

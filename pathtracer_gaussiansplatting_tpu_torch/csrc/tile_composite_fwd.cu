@@ -88,11 +88,7 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
     for (int j = 0; j < n; ++j) {
       // alpha is bit-equal to the plain version's (see the shared header).
       const ptgs::SlotEval e = ptgs::eval_slot(pd, sg, kc, j, prm);
-      const float w = trans * e.alpha;
-      trans = ptgs::trans_after(trans, e.alpha);
-      s_depth += w * e.t;
-#pragma unroll
-      for (int f = 0; f < F; ++f) acc[f] += w * sf[f * kc + j];
+      ptgs::composite_slot<F>(e, sf, kc, j, trans, s_depth, acc);
     }
   }
 

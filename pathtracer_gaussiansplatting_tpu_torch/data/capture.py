@@ -46,13 +46,15 @@ def make_accumulating_renderer(scene: GaussianScene,
                                settings: RenderSettings,
                                punctual: Optional[PunctualLights], spp: int,
                                key: Optional[torch.Tensor] = None,
-                               backend: str = "auto"):
+                               backend: str = "auto", **backend_kw):
     """render(origins, directions) -> (R, 3) radiance accumulated over spp
     path-traced samples, acc += (cur - acc) / (f + 1), through the trace
-    backend named ``backend`` (render/pipeline.py)."""
+    backend named ``backend`` (render/pipeline.py; ``backend_kw`` such as
+    ``accel=`` go to ``make_trace_backend``)."""
     tables = lights_mod.build_light_tables(scene, punctual)
     base_key = rng_mod.prng_key(CAPTURE_SEED) if key is None else key
-    trace_backend = make_trace_backend(scene, settings, backend)
+    trace_backend = make_trace_backend(scene, settings, backend,
+                                       **backend_kw)
 
     def render(origins: torch.Tensor, directions: torch.Tensor):
         rays = Rays(origins, directions)
@@ -86,20 +88,23 @@ def make_tiled_pose_renderer(scene: GaussianScene, settings: RenderSettings,
                              punctual: Optional[PunctualLights], spp: int,
                              key: Optional[torch.Tensor] = None,
                              bounce_backend: str = "auto",
-                             binning_config: Optional[BinningConfig] = None):
+                             binning_config: Optional[BinningConfig] = None,
+                             **backend_kw):
     """Pose renderer with the fused tile pass for the primary hit.
 
     Returns render(c2w, width, height, fov_y_deg, stats_out=None) ->
     (H, W, 3): per pose one ``prepare_tiles``, then spp samples of
     ``pathtrace_camera`` with fresh subpixel jitter, whose bounces use the
-    backend named ``bounce_backend``, accumulated. ``stats_out`` (a dict)
-    gathers the binning stats and the backend's frozen shadow rays, summed
-    over poses.
+    backend named ``bounce_backend`` (``backend_kw`` such as ``accel=`` go
+    to ``make_trace_backend``, so one grid serves every pose), accumulated.
+    ``stats_out`` (a dict) gathers the binning stats and the backend's
+    frozen shadow rays, summed over poses.
     """
     config = binning_config or BinningConfig()
     tables = lights_mod.build_light_tables(scene, punctual)
     base_key = rng_mod.prng_key(CAPTURE_SEED) if key is None else key
-    trace_backend = make_trace_backend(scene, settings, bounce_backend)
+    trace_backend = make_trace_backend(scene, settings, bounce_backend,
+                                       **backend_kw)
 
     def render(c2w: torch.Tensor, width: int, height: int, fov_y_deg: float,
                stats_out: Optional[dict] = None, state_path=None,

@@ -1,0 +1,128 @@
+"""Grid march kernel wrapper: ``csrc/grid_march.cu`` on CUDA tensors.
+
+Counterpart of the march of
+``pathtracer_gaussiansplatting_tpu/render/grid_trace.py`` (``trace_grid``
+:1060 and ``visibility_grid`` :1109, plain XLA there, not Pallas).
+:func:`march_kernel` launches ``ptgs_grid_trace`` (features into the 15
+sums of ``render.grid_trace.ACC_KEYS``, counted in ``TRACE_LAUNCHES``) or
+``ptgs_grid_visibility`` (geometry only, shadow segments, counted in
+``VIS_LAUNCHES``). The dispatch, and the plain march that CPU tensors run,
+are ``render.grid_trace.march`` and ``march_plain``; this module imports
+nothing of ``render``.
+
+The kernel runs one thread per ray through the same per-round state machine
+as the plain march, but it cannot see the batch: the exit fractions and the
+compaction capacity (properties of the whole batch) do not apply, so a ray
+the plain march pauses early gets its kill checks at other cell counts
+(a difference of at most transmittance_min times its remaining
+contributions), and a ray the plain march freezes for capacity is
+finished. Its frozen count is at most the plain march's (ROADMAP section 3).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from pathtracer_gaussiansplatting_tpu_torch.core.types import RenderSettings
+from pathtracer_gaussiansplatting_tpu_torch.kernels.tile_composite import (
+    _kernel_fn, _on_cpu,
+)
+
+TRACE_LAUNCHES = 0  # ptgs_grid_trace launches; read by chip_smoke.py
+VIS_LAUNCHES = 0    # ptgs_grid_visibility launches; read by chip_smoke.py
+N_SUMS = 15         # the per-ray sums of a feature trace
+MAX_ROUNDS = 8      # rounds the kernel's schedule holds
+MAX_KC = 128        # the largest max_per_cell the kernel takes
+
+_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+             + [ctypes.c_float] * 7 + [ctypes.c_void_p])
+
+
+def _check(tensors: dict, r: int) -> None:
+    shapes = dict(origins=(r, 3), dirs=(r, 3), t_end=(r,), active=(r,))
+    for key, x in tensors.items():
+        dtype = dict(active=torch.bool, btab=torch.int32).get(
+            key, torch.float32)
+        shape = shapes.get(key, tuple(x.shape))
+        if x.dtype != dtype or not x.is_contiguous() \
+                or tuple(x.shape) != shape:
+            raise ValueError(
+                f"grid_march: {key} must be a contiguous {dtype} tensor of "
+                f"shape {shape}, got {x.dtype} {tuple(x.shape)} "
+                f"contiguous={x.is_contiguous()}")
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
+                 settings: RenderSettings, rounds,
+                 t_end: Optional[torch.Tensor] = None,
+                 with_features: bool = True,
+                 active: Optional[torch.Tensor] = None):
+    """Launch the march kernel on CUDA tensors: (trans (R,), sums (R, 15)
+    or None, frozen (R,) bool). ``accel`` is a ``render.grid_trace.
+    GridAccel``; ``rounds`` the clipped schedule's (frac, M, a_max, a_exit)
+    entries, of which the kernel reads M and a_max (see the module
+    docstring). CPU tensors raise: they go to the plain march."""
+    global TRACE_LAUNCHES, VIS_LAUNCHES
+    tensors = dict(origins=origins, dirs=dirs, btab=accel.btab,
+                   geom=accel.geom, packet=accel.packet, lo=accel.lo,
+                   hi=accel.hi)
+    if t_end is not None:
+        tensors["t_end"] = t_end
+    if active is not None:
+        tensors["active"] = active
+    if _on_cpu("grid_march", tensors):
+        raise ValueError("grid_march: CPU tensors run the plain march, "
+                         "render.grid_trace.march_plain")
+    # Rays may arrive as expanded views (one camera origin for all).
+    origins, dirs = origins.contiguous(), dirs.contiguous()
+    t_end = None if t_end is None else t_end.contiguous()
+    tensors.update(origins=origins, dirs=dirs)
+    if t_end is not None:
+        tensors["t_end"] = t_end
+    r = origins.shape[0]
+    _check(tensors, r)
+    kc = accel.max_per_cell
+    if kc > MAX_KC:
+        raise ValueError(f"grid_march: max_per_cell {kc} above {MAX_KC}")
+    if len(rounds) > MAX_ROUNDS:
+        raise ValueError(f"grid_march: {len(rounds)} rounds, at most "
+                         f"{MAX_ROUNDS}")
+    sched = (ctypes.c_int * (2 * MAX_ROUNDS))(
+        *[v for _, m, a_max, _ in rounds for v in (m, a_max)])
+    dev = origins.device
+    trans = torch.empty((r,), dtype=torch.float32, device=dev)
+    acc = torch.empty((r, N_SUMS), dtype=torch.float32,
+                      device=dev) if with_features else None
+    frozen = torch.empty((r,), dtype=torch.bool, device=dev)
+    if r == 0:
+        return trans, acc, frozen
+    table = accel.packet if with_features else accel.geom
+    cols = table.shape[1] // kc
+    name = "ptgs_grid_trace" if with_features else "ptgs_grid_visibility"
+    gx, gy, gz = accel.dims
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn(name, _ARGTYPES)(
+            origins.data_ptr(), dirs.data_ptr(), _ptr(t_end), _ptr(active),
+            accel.btab.data_ptr(), table.data_ptr(), accel.lo.data_ptr(),
+            accel.hi.data_ptr(), ctypes.addressof(sched), trans.data_ptr(),
+            _ptr(acc), frozen.data_ptr(), r, len(rounds), gx, gy, gz, kc,
+            cols, settings.t_min, settings.t_max,
+            settings.alpha_min, settings.alpha_max,
+            math.exp(-0.5 * settings.sigma_cut * settings.sigma_cut),
+            settings.transmittance_min, accel.jump_unit, stream)
+    if err != 0:
+        raise RuntimeError(f"grid_march: {name} launch failed with CUDA "
+                           f"error {err}")
+    if with_features:
+        TRACE_LAUNCHES += 1
+    else:
+        VIS_LAUNCHES += 1
+    return trans, acc, frozen

@@ -3,7 +3,8 @@
 Counterpart of ``pathtracer_gaussiansplatting_tpu/models/scene.py``
 (``random_cloud``, ``surface_scene``). Both draw from numpy's seeded
 generator exactly as the reference does, so one seed gives the same scene
-in both packages; the result is built on ``device``. ``SceneParams`` holds
+in both packages; the result is built on ``device`` (None: the CUDA
+card, ``core/device.py``). ``SceneParams`` holds
 a scene's leaves as ``nn.Parameter``s, the port's form of the JAX scene
 pytree that ``optax`` updates.
 """

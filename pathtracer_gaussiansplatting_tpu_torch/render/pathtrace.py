@@ -159,8 +159,9 @@ def pathtrace(scene: GaussianScene, rays: Rays, settings: RenderSettings,
       primary_interaction: a precomputed depth-0 interaction (the fused
         tile pass, see :func:`pathtrace_camera`); the camera trace is then
         skipped.
-      return_aux: also return dict(frozen_alive=...), the shadow rays the
-        backend stopped short, summed over the sample.
+      return_aux: also return dict(frozen_alive=...), the rays the
+        backend stopped short (bounce traces and shadow rays), summed over
+        the sample.
     """
     if backend is None:
         backend = make_trace_backend(scene, settings, "dense")
@@ -184,6 +185,8 @@ def pathtrace(scene: GaussianScene, rays: Rays, settings: RenderSettings,
         else:
             inter = backend.trace(scene, Rays(origins, dirs), settings,
                                   active=None if d == 0 else alive)
+            if "frozen_alive" in inter:
+                frozen_total = frozen_total + inter["frozen_alive"]
         with record_function("ptgs.shade"):
             alpha = inter["alpha_acc"]
             # The escaping fraction sees the sky.

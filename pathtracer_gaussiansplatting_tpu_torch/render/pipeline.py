@@ -4,18 +4,20 @@ Counterpart of ``pathtracer_gaussiansplatting_tpu/render/pipeline.py``
 (``AUTO_DENSE_LIMIT``, ``make_trace_backend``). A backend is a
 :class:`TraceBackend`: an explicit pair of calls the bounce loop makes, in
 place of the reference's signature inspection of bare callables. The port
-has the dense backend; "grid" (and "auto" above ``AUTO_DENSE_LIMIT``
-Gaussians) and "spatial" come with later slices and raise until then.
+has the dense backend and the grid backend ("auto" takes grid above
+``AUTO_DENSE_LIMIT`` Gaussians); "spatial" comes with a later slice and
+raises until then.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     GaussianScene, RenderSettings,
 )
+from pathtracer_gaussiansplatting_tpu_torch.render import grid_trace
 from pathtracer_gaussiansplatting_tpu_torch.render import reference as ref
 
 AUTO_DENSE_LIMIT = 50_000
@@ -32,10 +34,14 @@ class TraceBackend:
       soft-shadow transmittance, 1 where ``active`` is false, and the
       number of shadow rays the backend stopped short (always 0 for the
       exact dense backend).
+    name: "dense" or "grid"; accel: the grid backend's GridAccel (None
+      for dense), whose ``stats`` report the binning's truncation.
     """
 
     trace: Callable
     visibility: Callable
+    name: str = "dense"
+    accel: Optional[grid_trace.GridAccel] = None
 
 
 def _dense_vis(scene: GaussianScene, settings: RenderSettings, origins,
@@ -44,10 +50,33 @@ def _dense_vis(scene: GaussianScene, settings: RenderSettings, origins,
                                 active), 0
 
 
+def _grid_trace(accel, max_steps: int, scene: GaussianScene, rays,
+                settings: RenderSettings, active=None):
+    return grid_trace.trace_grid(scene, rays, settings, accel,
+                                 max_steps=max_steps, active=active)
+
+
+def _grid_vis(accel, max_steps: int, settings: RenderSettings, origins,
+              dirs, t_end, active=None):
+    return grid_trace.visibility_grid(None, accel, origins, dirs, t_end,
+                                      settings, max_steps=max_steps,
+                                      active=active, return_frozen=True)
+
+
 def make_trace_backend(scene: GaussianScene, settings: RenderSettings,
-                       backend: str = "auto") -> TraceBackend:
-    """The TraceBackend named ``backend`` for ``scene``: "dense", or
-    "auto" (dense up to AUTO_DENSE_LIMIT Gaussians)."""
+                       backend: str = "auto",
+                       grid_dims: Optional[Tuple[int, int, int]] = None,
+                       max_per_cell: int = 32, max_steps: int = 192,
+                       accel: Optional[grid_trace.GridAccel] = None
+                       ) -> TraceBackend:
+    """The TraceBackend named ``backend`` for ``scene``: "dense", "grid",
+    or "auto" (dense up to AUTO_DENSE_LIMIT Gaussians, else grid).
+
+    The grid backend builds its GridAccel once here (``grid_dims=None``
+    auto-fits the grid, ``max_per_cell`` Gaussians a cell) unless
+    ``accel`` gives one, and marches at most ``max_steps`` occupied cells a
+    ray; the defaults are the reference's.
+    """
     if backend == "auto":
         backend = "dense" if scene.num_gaussians <= AUTO_DENSE_LIMIT \
             else "grid"
@@ -56,12 +85,16 @@ def make_trace_backend(scene: GaussianScene, settings: RenderSettings,
             trace=ref.trace_dense,
             visibility=functools.partial(_dense_vis, scene, settings))
     if backend == "grid":
-        raise NotImplementedError(
-            f"backend 'grid' (what 'auto' takes above {AUTO_DENSE_LIMIT} "
-            f"Gaussians; this scene has {scene.num_gaussians}) is not "
-            "ported yet: the grid marcher is slice C of the port")
+        if accel is None:
+            accel = grid_trace.build_grid_accel(scene, dims=grid_dims,
+                                                max_per_cell=max_per_cell)
+        return TraceBackend(
+            trace=functools.partial(_grid_trace, accel, max_steps),
+            visibility=functools.partial(_grid_vis, accel, max_steps,
+                                         settings),
+            name="grid", accel=accel)
     if backend == "spatial":
         raise NotImplementedError(
-            "backend 'spatial' is not ported yet: it waits for the grid "
-            "marcher (slice C) and the multi-GPU slab ring (slice F)")
+            "backend 'spatial' is not ported yet: it waits for the "
+            "multi-GPU slab ring (slice F)")
     raise ValueError(f"unknown backend '{backend}'")

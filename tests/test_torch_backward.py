@@ -36,7 +36,7 @@ from pathtracer_gaussiansplatting_tpu_torch.render import tiled
 from pathtracer_gaussiansplatting_tpu_torch.utils import metrics
 
 from torch_parity import (
-    TORCH_THREADS, assert_close, cameras, np_of, pose_packets,
+    CPU, TORCH_THREADS, assert_close, cameras, np_of, pose_packets,
     to_torch_scene,
 )
 
@@ -201,7 +201,7 @@ def test_scene_params_round_trip():
     scene_from_numpy, for parameters and for their gradients."""
     jscene = j_random_cloud(20, seed=3, sh_degree=1)
     leaves = {f: np.asarray(getattr(jscene, f)) for f in SCENE_FIELDS}
-    params = SceneParams.from_scene(scene_from_numpy(leaves))
+    params = SceneParams.from_scene(scene_from_numpy(leaves, CPU))
     assert [n for n, _ in params.named_parameters()] == list(SCENE_FIELDS)
     assert all(p.requires_grad for p in params.parameters())
     back = scene_to_numpy(params.scene())

@@ -1,5 +1,6 @@
 """PyTorch port vs the JAX package: settings, math leaves, camera, RNG,
 scene builders, accumulation and images (CPU)."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -36,7 +37,7 @@ from pathtracer_gaussiansplatting_tpu_torch.ops import quaternions as tquat
 from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import accumulate
 
 from torch_parity import (
-    TORCH_THREADS, assert_close, cameras, dataclass_defaults, np_of,
+    CPU, TORCH_THREADS, assert_close, cameras, dataclass_defaults, np_of,
     to_torch_scene,
 )
 
@@ -141,7 +142,7 @@ def test_generate_rays_match(rng, jittered):
 @pytest.mark.parametrize("angles", [(0.0, 0.0), (30.0, 45.0), (200.0, 120.0),
                                     (-75.0, 400.0)])
 def test_toroidal_c2w_matches(angles):
-    got = tcam.toroidal_c2w(angles[0], angles[1], 3.0, 0.5)
+    got = tcam.toroidal_c2w(angles[0], angles[1], 3.0, 0.5, device=CPU)
     want = jcam.toroidal_c2w(angles[0], angles[1], 3.0, 0.5)
     assert_close(got, want, 0, 1e-6)
 
@@ -153,11 +154,11 @@ def test_rng_bit_exact(frame):
     assert np.array_equal(np_of(tkey), np.asarray(key).astype(np.int64))
     assert np.array_equal(np_of(trng.frame_key(tkey, frame)),
                           np.asarray(jrng.frame_key(key, frame)))
-    got = np_of(trng.subpixel_jitter(tkey, 48, 64, frame))
+    got = np_of(trng.subpixel_jitter(tkey, 48, 64, frame, device=CPU))
     want = np.asarray(jrng.subpixel_jitter(key, 48, 64, frame))
     assert got.dtype == want.dtype == np.float32
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
-    assert np.array_equal(np_of(trng.r2_sequence(frame)).view(np.uint32),
+    assert np.array_equal(np_of(trng.r2_sequence(frame, CPU)).view(np.uint32),
                           np.asarray(jrng.r2_sequence(frame)).view(np.uint32))
 
 
@@ -167,10 +168,10 @@ def test_scene_builders_match(builder):
         want = jscene.random_cloud(700, seed=3, spread=1.3, sh_degree=1,
                                    emissive_frac=0.1)
         got = tscene.random_cloud(700, seed=3, spread=1.3, sh_degree=1,
-                                  emissive_frac=0.1)
+                                  emissive_frac=0.1, device=CPU)
     else:
         want = jscene.surface_scene(900, seed=13)
-        got = tscene.surface_scene(900, seed=13)
+        got = tscene.surface_scene(900, seed=13, device=CPU)
     for f in ttypes.SCENE_FIELDS:
         assert_close(getattr(got, f), getattr(want, f), 0, 1e-6, err_msg=f)
     assert got.num_gaussians == want.num_gaussians
@@ -185,7 +186,7 @@ def test_make_scene_and_scene_from_numpy(rng):
                 opacity_logits=rng.normal(size=n),
                 colors=rng.uniform(size=(n, 3)))
     want = jtypes.make_scene(**args)
-    got = ttypes.make_scene(**args)
+    got = ttypes.make_scene(**args, device=CPU)
     for f in ttypes.SCENE_FIELDS:
         assert_close(getattr(got, f), getattr(want, f), 0, 1e-6, err_msg=f)
     moved = to_torch_scene(want)
@@ -231,3 +232,47 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+_SCENE_ARGS = dict(means=[[0.0, 0.0, 0.0]], log_scales=[[0.0, 0.0, 0.0]],
+                   quats=[[1.0, 0.0, 0.0, 0.0]], opacity_logits=[0.0])
+_LIGHT_LEAVES = {f: np.zeros((1, 3) if f in ("position", "direction",
+                                             "color") else (1,))
+                 for f in ttypes.PUNCTUAL_FIELDS}
+CONSTRUCTORS = {
+    "make_scene": lambda **kw: ttypes.make_scene(**_SCENE_ARGS, **kw),
+    "scene_from_numpy": lambda **kw: ttypes.scene_from_numpy(
+        {f: np.zeros((1, 1, 3)) if f == "sh_coeffs" else np.zeros(
+            (1, 3) if f in ("means", "log_scales", "emission") else
+            (1, 4) if f == "quats" else (1,)) for f in ttypes.SCENE_FIELDS},
+        **kw),
+    "make_punctual_lights": lambda **kw: ttypes.make_punctual_lights(
+        position=[[0.0, 1.0, 0.0]], **kw),
+    "punctual_from_numpy": lambda **kw: ttypes.punctual_from_numpy(
+        _LIGHT_LEAVES, **kw),
+    "surface_scene": lambda **kw: tscene.surface_scene(50, **kw),
+    "random_cloud": lambda **kw: tscene.random_cloud(50, **kw),
+    "look_at": lambda **kw: tcam.look_at((0, 0, 4), (0, 0, 0), **kw),
+    "toroidal_c2w": lambda **kw: tcam.toroidal_c2w(10.0, 20.0, 2.5, 0.3,
+                                                   **kw),
+    "uniform": lambda **kw: trng.uniform(trng.prng_key(1), (4,), **kw),
+    "r2_sequence": lambda **kw: trng.r2_sequence(3, **kw),
+    "ray_uniform": lambda **kw: trng.ray_uniform(trng.prng_key(1), 4, 7,
+                                                 **kw),
+    "subpixel_jitter": lambda **kw: trng.subpixel_jitter(trng.prng_key(1),
+                                                         4, 6, 0, **kw),
+}
+
+
+@pytest.mark.parametrize("name", list(CONSTRUCTORS))
+def test_constructor_defaults_to_the_card(monkeypatch, name):
+    """Without a device a constructor builds on the CUDA card; where there
+    is none it raises and names device="cpu", and never falls back to the
+    CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        CONSTRUCTORS[name]()
+    out = CONSTRUCTORS[name](device=CPU)
+    leaves = [out] if isinstance(out, torch.Tensor) else [
+        getattr(out, f.name) for f in dataclasses.fields(out)]
+    assert all(x.device.type == "cpu" for x in leaves)

@@ -20,7 +20,7 @@ from pathtracer_gaussiansplatting_tpu_torch.core.types import (
 from pathtracer_gaussiansplatting_tpu_torch.render import lights as tl
 
 from torch_parity import (
-    TORCH_THREADS, assert_close, np_of, to_torch_lights, to_torch_scene,
+    CPU, TORCH_THREADS, assert_close, np_of, to_torch_lights, to_torch_scene,
     to_torch_tables,
 )
 
@@ -132,7 +132,7 @@ def _wall(emission=None):
         log_scales=np.log([[3.0, 3.0, 0.01], [0.3, 0.3, 0.01]][:n]),
         quats=[[1.0, 0, 0, 0]] * n, opacity_logits=[9.0] * n,
         colors=[[0.8, 0.8, 0.8], [0.0, 0.0, 0.0]][:n],
-        emission=[[0.0, 0.0, 0.0], emission or [0, 0, 0]][:n])
+        emission=[[0.0, 0.0, 0.0], emission or [0, 0, 0]][:n], device=CPU)
 
 
 def test_cdf_normalized():
@@ -145,13 +145,14 @@ def test_cdf_normalized():
 
 def test_p_emissive_clamp():
     pl = make_punctual_lights(position=[[0, 0, 2]], intensity=[1000.0],
-                              light_type=[0])
+                              light_type=[0], device=CPU)
     t = tl.build_light_tables(_wall([1e-3] * 3), pl)
     assert 0.1 <= float(t.p_emissive) <= 0.9
 
 
 def test_punctual_flux_rule():
     pl = make_punctual_lights(position=[[0, 0, 2], [0, 0, 3]],
-                              intensity=[1.0, 1.0], light_type=[1, 0])
+                              intensity=[1.0, 1.0], light_type=[1, 0],
+                              device=CPU)
     probs = np_of(tl.build_light_tables(_wall(), pl).punctual_prob)
     assert probs[0] == pytest.approx(400.0 / (400.0 + 4 * np.pi), rel=1e-5)

@@ -43,7 +43,7 @@ from pathtracer_gaussiansplatting_tpu_torch.render import pathtrace as tpt
 from pathtracer_gaussiansplatting_tpu_torch.render import pipeline as tpipe
 
 from torch_parity import (
-    TORCH_THREADS, assert_close, cameras, np_of, share_outside,
+    CPU, TORCH_THREADS, assert_close, cameras, np_of, share_outside,
     to_torch_key, to_torch_lights, to_torch_scene, to_torch_tables,
 )
 
@@ -135,7 +135,8 @@ def test_thin_surfel_divergence_grows_with_depth():
     eye, target = (0.0, 0.2, 1.7), (0.0, -0.4, -0.5)
     jr = j_generate_rays(JCamera(c2w=j_look_at(eye, target), fov_y_deg=60.0,
                                  width=W, height=H))
-    tr = generate_rays(Camera(c2w=look_at(eye, target), fov_y_deg=60.0,
+    tr = generate_rays(Camera(c2w=look_at(eye, target, device=CPU),
+                              fov_y_deg=60.0,
                               width=W, height=H))
     shares = []
     for depth in (1, 4):
@@ -249,13 +250,13 @@ def test_ray_uniform_and_lights_carry_across():
     key = jax.random.PRNGKey(7)
     for dim, num in ((7, 1), (8, 2), (20, 1)):
         got = np_of(trng.ray_uniform(to_torch_key(jax.random.fold_in(key, 3)),
-                                     100, dim, num))
+                                     100, dim, num, CPU))
         want = np.asarray(jrng.ray_uniform(jax.random.fold_in(key, 3), 100,
                                            dim, num))
         assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
     args = dict(position=[[0, 1, 2], [3, 4, 5]], intensity=[2.0, 3.0],
                 light_type=[1, 2])
-    got = make_punctual_lights(**args)
+    got = make_punctual_lights(**args, device=CPU)
     want = j_make_punctual_lights(**args)
     carried = to_torch_lights(want)
     for f in ttypes.PUNCTUAL_FIELDS:
@@ -263,28 +264,22 @@ def test_ray_uniform_and_lights_carry_across():
                               np.asarray(getattr(want, f)))
         assert getattr(carried, f).dtype == getattr(got, f).dtype
     assert got.light_type.dtype == torch.int32
-    assert make_punctual_lights().num_lights == 0
+    assert make_punctual_lights(device=CPU).num_lights == 0
 
 
 def test_backend_protocol_and_failures(world):
     backend = tpipe.make_trace_backend(world["ts"], RenderSettings(), "auto")
     assert isinstance(backend, tpipe.TraceBackend)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tpipe.make_trace_backend(world["ts"], RenderSettings(), "grid")
-    with pytest.raises(NotImplementedError, match="slice C"):
+    assert backend.name == "dense" and backend.accel is None
+    grid = tpipe.make_trace_backend(world["ts"], RenderSettings(), "grid")
+    assert grid.name == "grid" and grid.accel is not None
+    with pytest.raises(NotImplementedError, match="slice F"):
         tpipe.make_trace_backend(world["ts"], RenderSettings(), "spatial")
     with pytest.raises(ValueError, match="unknown backend"):
         tpipe.make_trace_backend(world["ts"], RenderSettings(), "bvh")
-    n = tpipe.AUTO_DENSE_LIMIT + 1
-    big = make_scene(means=np.zeros((n, 3)), log_scales=np.zeros((n, 3)),
-                     quats=np.tile([1.0, 0, 0, 0], (n, 1)),
-                     opacity_logits=np.zeros(n))
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tpipe.make_trace_backend(big, RenderSettings(), "auto")
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tcap.make_accumulating_renderer(big, RenderSettings(), None, 1)
     assert tpipe.AUTO_DENSE_LIMIT == 50_000
     assert tcap.CAPTURE_SEED == jcap.CAPTURE_SEED
+    n = tpipe.AUTO_DENSE_LIMIT + 1
     for backend, count in (("auto", 10), ("auto", n), ("tiled+dense", 10)):
         assert tcap.resolve_backend(backend, count) == \
             jcap.resolve_backend(backend, count)
@@ -331,7 +326,7 @@ def wall_scene(albedo=(0.8, 0.8, 0.8), emissive=None, extra=None,
         emission.append([0, 0, 0])
     return make_scene(means=means, log_scales=np.log(scales), quats=quats,
                       opacity_logits=opac, colors=colors, emission=emission,
-                      roughness=np.ones(len(means)))
+                      roughness=np.ones(len(means)), device=CPU)
 
 
 def down_rays(n=4, z=2.0, span=0.2):
@@ -361,7 +356,7 @@ def test_direct_emission():
 def test_nee_point_light_analytic():
     rho, h, intensity = 0.8, 2.0, 10.0
     pl = make_punctual_lights(position=[[0, 0, h]], intensity=[intensity],
-                              light_type=[0], color=[[1, 1, 1]])
+                              light_type=[0], color=[[1, 1, 1]], device=CPU)
     out = tpt.pathtrace(wall_scene(albedo=(rho,) * 3), down_rays(1, span=0),
                         RenderSettings(max_depth=1, ambient=(0, 0, 0, 1.0)),
                         KEY, punctual=pl)
@@ -371,7 +366,7 @@ def test_nee_point_light_analytic():
 
 def test_shadowing():
     pl = make_punctual_lights(position=[[2.0, 0, 2.0]], intensity=[10.0],
-                              light_type=[0])
+                              light_type=[0], device=CPU)
     settings = RenderSettings(max_depth=1, ambient=(0, 0, 0, 1.0))
     lit = tpt.pathtrace(wall_scene(), down_rays(1, span=0), settings, KEY,
                         punctual=pl)
@@ -421,7 +416,8 @@ def _panels(transmission=0.0):
         colors=np.r_[np.tile([0.6, 0.6, 0.6], (64, 1)), np.ones((64, 3))],
         emission=np.r_[np.zeros((64, 3)), np.full((64, 3), 6.0)],
         roughness=np.full(128, 0.8),
-        transmission=np.r_[np.full(64, transmission), np.zeros(64)])
+        transmission=np.r_[np.full(64, transmission), np.zeros(64)],
+        device=CPU)
 
 
 def _panel_rays():
@@ -429,7 +425,8 @@ def _panel_rays():
         Camera, look_at,
     )
 
-    return generate_rays(Camera(c2w=look_at((0.0, 0.0, 3.0), (0, 0, -4.0)),
+    return generate_rays(Camera(c2w=look_at((0.0, 0.0, 3.0), (0, 0, -4.0),
+                                            device=CPU),
                                 fov_y_deg=30.0, width=8, height=8))
 
 

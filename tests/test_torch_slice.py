@@ -27,7 +27,7 @@ from pathtracer_gaussiansplatting_tpu_torch.render import tiled
 from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import accumulate
 
 from torch_parity import (
-    TORCH_THREADS, assert_close, cameras, np_of, to_torch_scene,
+    CPU, TORCH_THREADS, assert_close, cameras, np_of, to_torch_scene,
 )
 
 torch.set_num_threads(TORCH_THREADS)
@@ -79,7 +79,7 @@ def test_slice_matches_reference(pose):
             jitter=jrng.subpixel_jitter(jkey, H, W, f))
         to = tiled.render_prepared(
             tpk, pose["tcam"], tset, tcfg,
-            jitter=trng.subpixel_jitter(tkey, H, W, f))
+            jitter=trng.subpixel_jitter(tkey, H, W, f, device=CPU))
         for o in IMAGE_OUTPUTS:
             j_acc[o] = j_accumulate(j_acc[o], jo[o], f)
             t_acc[o] = accumulate(t_acc[o], to[o], f)
@@ -122,7 +122,7 @@ def test_tile_major_outputs_untile_to_images(pose):
     settings, cfg = RenderSettings(background=BG), BinningConfig(
         max_per_tile=64)
     packets = tiled.prepare_tiles(pose["tscene"], pose["tcam"], settings, cfg)
-    jit = trng.subpixel_jitter(trng.prng_key(3), H, W, 2)
+    jit = trng.subpixel_jitter(trng.prng_key(3), H, W, 2, device=CPU)
     imgs = tiled.render_prepared(packets, pose["tcam"], settings, cfg,
                                  jitter=jit)
     tiles = tiled.render_prepared(

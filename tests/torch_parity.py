@@ -24,6 +24,9 @@ from pathtracer_gaussiansplatting_tpu_torch.core.types import (
 
 # tier-1 runs several pytest workers; keep each one's torch pool small
 TORCH_THREADS = 2
+# The port's constructors build on the CUDA card unless told otherwise; the
+# CPU tests say so explicitly.
+CPU = "cpu"
 
 
 def np_of(x) -> np.ndarray:
@@ -33,7 +36,7 @@ def np_of(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def to_torch_scene(scene, device="cpu") -> GaussianScene:
+def to_torch_scene(scene, device=CPU) -> GaussianScene:
     """The port's GaussianScene with the JAX scene's exact parameters."""
     return scene_from_numpy({f: np.asarray(getattr(scene, f))
                              for f in SCENE_FIELDS}, device)
@@ -44,17 +47,17 @@ def cameras(eye=(0.0, 0.5, 4.0), target=(0.0, 0.0, 0.0), fov=50.0,
     """The same pinhole camera in both packages: (jax_camera, camera)."""
     return (JCamera(c2w=j_look_at(eye, target), fov_y_deg=fov, width=width,
                     height=height),
-            Camera(c2w=look_at(eye, target), fov_y_deg=fov, width=width,
-                   height=height))
+            Camera(c2w=look_at(eye, target, device=CPU), fov_y_deg=fov,
+                   width=width, height=height))
 
 
-def to_torch_lights(lights, device="cpu") -> PunctualLights:
+def to_torch_lights(lights, device=CPU) -> PunctualLights:
     """The port's PunctualLights with the JAX lights' exact values."""
     return punctual_from_numpy({f: np.asarray(getattr(lights, f))
                                 for f in PUNCTUAL_FIELDS}, device)
 
 
-def to_torch_tables(tables, device="cpu"):
+def to_torch_tables(tables, device=CPU):
     """The JAX LightTables as the port's, value for value."""
     from pathtracer_gaussiansplatting_tpu_torch.render.lights import (
         LightTables,
