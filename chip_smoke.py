@@ -49,15 +49,23 @@ are built from the checkout at first use. Then:
            against GRID_ACCURACY.json, the host C++ binning against numpy;
            (b) both march kernels against the plain march on three
            65536-ray chunks from the 1080p primary hit (bounce rays, shadow
-           segments to the emissive panel, a 50% active mask); (c) grid
-           against dense on the primary interaction at 320x180
-           (psnr_albedo within 0.3 dB of GRID_ACCURACY_CPU.json's, the
-           JAX package's float32 figure, nothing frozen); (d)
-           bench.py's path-trace workload, pathtrace_camera at 1920x1080,
-           depth 4, grid bounces, 1 warm and 3 timed samples, one
-           profiled; (e) bench.py's capture pose through
-           make_tiled_pose_renderer(accel=shared), 800x800, 8 spp; (f) the
-           grid backend on the card against the CPU as in phase 5b;
+           segments to the emissive panel, a 50% active mask), on the
+           default schedule and, ray for ray, on its rounds at capacity 1
+           without exit fractions; the latter again at Kc=64 on
+           surface_scene(50k)'s grid; (c) grid against dense on the
+           primary interaction at 320x180 (psnr_albedo within 0.3 dB of
+           GRID_ACCURACY_CPU.json's, the JAX package's float32 figure,
+           nothing frozen); (d) bench.py's path-trace workload,
+           pathtrace_camera at 1920x1080, depth 4, grid bounces, 1 warm and
+           3 timed samples (the card's clocks, temperature and power read
+           around each), one profiled; (e) bench.py's capture pose through
+           make_tiled_pose_renderer(accel=shared), 800x800, 8 spp, one
+           sample profiled, and both march kernels held to the plain march
+           (in 65536-ray chunks) on that sample's first bounce trace and
+           first shadow march with (b)'s default-schedule gates, and timed
+           there beside their bound (the plain march's counts over those
+           rays); (f) the grid backend on the card against the CPU as in
+           phase 5b;
   phase 7  the ablation harness (csrc/tile_composite_variants.cu) at the
            headline packets: every mode's kernel against its plain
            version, full bit-equal to the forward kernel, then the timing
@@ -81,6 +89,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -115,13 +124,23 @@ VARIANT_REPLACES = "benchmarks/variant_kernel.py:58"
 # The H100 SXM's published HBM rate and float32 (non-tensor) peak.
 HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
 # Float operations per unit of work, counted from the kernels' sources (a
-# division, an exp or a compare counts one): forward tile composite per
-# (pixel, slot) pair (eval_slot 33, composite_slot 33); backward ~230 (three
-# evaluations, the VJP chain, the per-slot sums); dense top-K and shadow
-# visibility per (ray, Gaussian) pair; a grid probe (cell lookup, exits,
-# sub-box slab test, four in-block steps) and a Gaussian of a recorded cell.
+# division, an exp, a floor, a min or max or a compare counts one; integer
+# work is not counted): forward tile composite per (pixel, slot) pair
+# (eval_slot 33, composite_slot 33); backward ~230 (three evaluations, the
+# VJP chain, the per-slot sums); dense top-K and shadow visibility per (ray,
+# Gaussian) pair.
 FWD_PAIR_FLOPS, BWD_PAIR_FLOPS, DENSE_PAIR_FLOPS = 66, 230, 60
-GRID_PROBE_FLOPS, GRID_GAUSS_FLOPS = 350, 66
+# The grid march (csrc/grid_march.cu, grid_common.cuh), by code path: per
+# ray (setup_ray); per probe (the loop test and cell_of); per probe of an
+# empty block (its jump, besides the block exit); per probe of an occupied
+# block (the sub-box slab test); per block exit (after a missed sub-box, an
+# empty block's jump, or in-block steps that left the sub-box: the exit and
+# its max); per in-block step entered (cell_of and two tests) and taken
+# (the cell exit); per occupied slot of a composited cell (respond). The
+# walk over a cell's live slots and the feature sums are not charged.
+GRID_RAY_FLOPS, GRID_PROBE_FLOPS, GRID_JUMP_FLOPS = 61, 26, 2
+GRID_SLAB_FLOPS, GRID_BLOCK_EXIT_FLOPS = 47, 27
+GRID_CHECK_FLOPS, GRID_STEP_FLOPS, GRID_GAUSS_FLOPS = 27, 20, 66
 GRID_MAX_STEPS = 192  # render/pipeline.make_trace_backend's default
 # Grid kernel vs plain march on rays neither froze: the kernel cannot see
 # the batch (exit fractions, capacity), so a ray may meet its kill test at
@@ -130,6 +149,11 @@ GRID_TRANS_ATOL, GRID_RTOL, GRID_ATOL = 2e-4, 1e-3, 2e-4
 # Least share of a chunk's rays within 1e-6 of the plain march: bounce rays
 # meet the exit fractions, shadow segments (short, converging) hardly ever.
 GRID_BOUNCE_MIN_SHARE, GRID_SHADOW_MIN_SHARE = 0.995, 0.9999
+# On the default schedule's rounds (M, a_max) at capacity 1 without exit
+# fractions nothing of the batch is in play, so the kernel must follow the
+# plain march ray for ray: trans within GRID_EXACT_TRANS, sums within the
+# rtol / atol that allow for summation order alone, the same frozen rays.
+GRID_EXACT_TRANS, GRID_EXACT_RTOL, GRID_EXACT_ATOL = 1e-6, 1e-5, 1e-6
 GRID_STATS_TOL = 1e-4  # grid stats against GRID_ACCURACY.json (same scene)
 # dB: psnr_albedo within this of GRID_ACCURACY_CPU.json's, which is
 # benchmarks/grid_accuracy.py run by the JAX package on the CPU in float32.
@@ -244,12 +268,51 @@ def profile_once(name: str, fn, wall_ms: float, card: str) -> None:
         + f"; table {os.path.relpath(table, ROOT)} ({card})")
 
 
+def ptxas_report(build_log: str) -> list:
+    """One line per compiled kernel from nvcc's -Xptxas -v output: its
+    name (template arguments spelt out), registers, stack and spills; and
+    any error line."""
+    out, name, frame = [], "", ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([A-Za-z_]*kernel)(I(?:L[a-z]\d+E)+E)?",
+                          m.group(1))
+            name = m.group(1) if k is None else k.group(1)
+            if k is not None and k.group(2):
+                args = [dict(b0="false", b1="true").get(t + v, v) for t, v in
+                        re.findall(r"L([a-z])(\d+)E", k.group(2))]
+                name += "<" + ", ".join(args) + ">"
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}; {frame}")
+        elif "error" in line:
+            out.append(line.strip())
+    return out
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "-i", "0",
                           "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     return res.stdout.strip()
+
+
+def card_state() -> str:
+    """The card's SM and memory clocks, temperature, power draw and active
+    clock-event reasons as nvidia-smi reads them; a driver that does not
+    know the reasons' field gives the rest."""
+    base = "clocks.sm,clocks.mem,temperature.gpu,power.draw"
+    for fields in (base + ",clocks_event_reasons.active",
+                   base + ",clocks_throttle_reasons.active", base):
+        res = subprocess.run(["nvidia-smi", "-i", "0", f"--query-gpu={fields}",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True)
+        if res.returncode == 0:
+            return res.stdout.strip()
+    return "not read"
 
 
 def chunk_schedule(tc, packets, dirs, settings):
@@ -760,6 +823,35 @@ class HostTimer:
         return False
 
 
+class FirstCalls:
+    """Wraps a function of a module so that it keeps the arguments of its
+    first call for each value of ``kind(kw)`` in ``calls`` (tensors cloned);
+    restores it on exit."""
+
+    def __init__(self, module, name: str, kind=lambda kw: None):
+        self.module, self.name, self.kind = module, name, kind
+        self.orig = getattr(module, name)
+        self.calls = {}
+
+    def __enter__(self):
+        def keep(x):
+            return x.clone() if isinstance(x, torch.Tensor) else x
+
+        def recorded(*args, **kw):
+            k = self.kind(kw)
+            if k not in self.calls:
+                self.calls[k] = ([keep(a) for a in args],
+                                 {n: keep(v) for n, v in kw.items()})
+            return self.orig(*args, **kw)
+
+        setattr(self.module, self.name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
 def profile_split(name: str, fn, wall_ms: float, card: str,
                   names=DENSE_PROFILE_NAMES) -> dict:
     """One run of fn under torch.profiler (the second of two): device time
@@ -993,83 +1085,24 @@ def grid_stats_check(gt, grid_bin, accel, build_s: float, card: str) -> None:
         f"{dims}: {int(got[1].sum())} insertions, idx and cnt equal")
 
 
-def grid_rays(scene, cam, settings, cfg, accel):
-    """6b's three 65536-ray chunks, strided over the 1080p primary hit:
-    bounce rays (sampled as the bounce loop samples them), shadow segments
-    to the emissive panel, and the bounce rays under a 50% active mask."""
-    from pathtracer_gaussiansplatting_tpu_torch.core import rng
-    from pathtracer_gaussiansplatting_tpu_torch.ops import bsdf
-    from pathtracer_gaussiansplatting_tpu_torch.render import lights
-    from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
-        interaction_from_tile_arrays,
-    )
-    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
-        prepare_tiles, render_prepared,
-    )
-
-    packets = prepare_tiles(scene, cam, settings, cfg)
-    out = render_prepared(packets, cam, settings, cfg, outputs=(
-        "tile_feats", "tile_alpha", "tile_depth", "tile_dirs"))
-    dirs = out["tile_dirs"].reshape(-1, 3)
-    origins = cam.c2w[:3, 3][None].expand(dirs.shape[0], 3)
-    inter = interaction_from_tile_arrays(out, origins, dirs, settings)
-    sel = torch.arange(0, dirs.shape[0], dirs.shape[0] // PT_CHUNK,
-                       device=dirs.device)[:PT_CHUNK]
-    inter = {k: v[sel] for k, v in inter.items()}
-    d = dirs[sel]
-    u = {dim: rng.ray_uniform(rng.fold_in(rng.prng_key(13), 1), PT_CHUNK,
-                              dim, num, d.device)
-         for dim, num in ((7, 1), (8, 2), (12, 1), (13, 1), (14, 2))}
-    alpha = inter["alpha_acc"].clamp_min(1e-8)
-    n = inter["normal"]
-    scat = bsdf.sample_clearcoated(
-        u[12][:, 0], u[13][:, 0], u[14], n, -d,
-        inter["albedo"] / alpha[:, None], inter["metallic"],
-        inter["roughness"].clamp_min(1e-3), inter["clearcoat"],
-        inter["cc_roughness"])
-    eps = settings.shadow_eps
-    hit = inter["alpha_acc"] > 1e-4
-    bo = (inter["position"] + n * eps).contiguous()
-    bd = scat["direction"].contiguous()
-    tables = lights.build_light_tables(scene, None)
-    em = lights.sample_emissive(u[7][:, 0], u[8], scene, tables)
-    to_l = em["position"] - inter["position"]
-    dist = torch.sqrt(torch.clamp_min((to_l * to_l).sum(-1), 1e-4))
-    l_dir = (to_l / dist[:, None]).contiguous()
-    half = torch.from_numpy(np.random.default_rng(21).uniform(
-        size=PT_CHUNK) < 0.5).to(d.device)
-    return [("bounce rays", bo, bd, dict(active=hit)),
-            ("shadow segments to the emissive panel", bo, l_dir,
-             dict(t_end=(dist - 2 * eps).contiguous(),
-                  active=hit & ((n * l_dir).sum(-1) > 1e-3))),
-            ("bounce rays, 50% active", bo, bd, dict(active=hit & half))]
-
-
-def grid_kernel_check(gt, accel, settings, name, o, d, kw, card) -> dict:
-    """6b: the grid kernel against march_plain on one chunk, on the card:
-    the share of rays within 1e-6 (gated), the largest error on rays
-    neither froze (gated), both frozen counts (the kernel's at most the
-    plain's), CUDA-event times, and the plain march's probes, block rows
-    and cell visits for the bound."""
-    feat = "t_end" not in kw
-    got = gt.march(accel, o, d, settings, GRID_MAX_STEPS,
-                   with_features=feat, **kw)
-    stats = {}
-    want, plain_ms = host_ms(lambda: gt.march_plain(
-        accel, o, d, settings, GRID_MAX_STEPS, with_features=feat,
-        stats=stats, **kw))
-    torch.cuda.synchronize()
+def grid_gates(name: str, got, want, feat: bool) -> dict:
+    """The default schedule's gates on a march kernel's (trans, sums,
+    frozen) against march_plain's on the same rays: the kernel freezes at
+    most the plain march's rays; on rays neither froze, trans within
+    GRID_TRANS_ATOL and the sums inside their allowance; a share of the rays
+    within 1e-6 (GRID_BOUNCE_MIN_SHARE, GRID_SHADOW_MIN_SHARE). Returns the
+    figures and a summary for the log."""
     (tk, ak, fk), (tp, ap, fp) = got, want
     n_fk, n_fp = int(fk.sum()), int(fp.sum())
-    check(n_fk <= n_fp, f"6b {name}: the kernel froze {n_fk} rays, the "
-          f"plain march {n_fp}")
+    check(n_fk <= n_fp, f"{name}: the kernel froze {n_fk} rays, the plain "
+          f"march {n_fp}")
     neither = ~fk & ~fp
     e_t = (tk - tp).abs().double()
     same = e_t <= 1e-6
     err_t = float(e_t[neither].max())
-    check(err_t <= GRID_TRANS_ATOL, f"6b {name}: trans off by {err_t:.3e} on "
-          f"a ray neither froze (allowed {GRID_TRANS_ATOL})")
-    worst = 0.0
+    check(err_t <= GRID_TRANS_ATOL, f"{name}: trans off by {err_t:.3e} on a "
+          f"ray neither froze (allowed {GRID_TRANS_ATOL})")
+    worst = err_a = 0.0
     if feat:
         e_a = (ak - ap).abs().double()
         same &= (e_a <= 1e-6 + 1e-6 * ap.abs()).all(-1)
@@ -1080,48 +1113,114 @@ def grid_kernel_check(gt, accel, settings, name, o, d, kw, card) -> dict:
         scale = (ap[lit].abs() / (1.0 - tp[lit, None])).amax(0).clamp_min(1.0)
         allow = GRID_ATOL * scale.double() + GRID_RTOL * ap.abs().double()
         bad = (e_a > allow) & neither[:, None]
-        check(not bool(bad.any()), f"6b {name}: {int(bad.sum())} sums of rays "
+        err_a = float(e_a[neither].max())
+        check(not bool(bad.any()), f"{name}: {int(bad.sum())} sums of rays "
               f"neither froze outside rtol {GRID_RTOL} / atol {GRID_ATOL} x "
-              f"channel scale (max abs {float(e_a[neither].max()):.3e})")
+              f"channel scale (max abs {err_a:.3e})")
         worst = float((e_a[neither] / allow[neither]).max())
-    ms = cuda_ms(lambda: gt.march(accel, o, d, settings, GRID_MAX_STEPS,
-                                  with_features=feat, **kw), 5)
     share = float(same.double().mean())
     min_share = GRID_BOUNCE_MIN_SHARE if feat else GRID_SHADOW_MIN_SHARE
-    log(f"phase 6b {name}: R={o.shape[0]}, {int(kw['active'].sum())} "
-        f"active: {share:.4%} of rays within 1e-6 of march_plain (need "
-        f"{min_share:.2%}); rays neither froze: max trans err {err_t:.3e}"
-        + (f", worst sum err {worst:.3f} of its allowance" if feat else "")
-        + f"; frozen kernel {n_fk}, plain {n_fp}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms (plain: {stats.get('probes', 0)} probes of "
-        f"{int(stats['block_seen'].sum())} block rows, "
-        f"{int(stats['slot_visits'].sum())} cells composited, "
-        f"{int((stats['slot_visits'] > 0).sum())} distinct) ({card})")
-    check(share >= min_share, f"6b {name}: only {share:.4%} of rays within "
+    check(share >= min_share, f"{name}: only {share:.4%} of rays within "
           f"1e-6 of march_plain (need {min_share:.2%})")
-    return dict(max_abs_err=max(err_t, float(
-        (ak - ap).abs()[neither].max()) if feat else 0.0), ms=ms,
-        plain_ms=plain_ms, stats=stats, share=share, rays=o.shape[0],
-        frozen=(n_fk, n_fp), feat=feat,
-        cols=accel.pkt_cols if feat else gt.GEOM_COLS)
+    text = (f"{share:.4%} of rays within 1e-6 of march_plain (need "
+            f"{min_share:.2%}); rays neither froze: max trans err "
+            f"{err_t:.3e}"
+            + (f", worst sum err {worst:.3f} of its allowance" if feat
+               else "")
+            + f"; frozen kernel {n_fk}, plain {n_fp}")
+    return dict(share=share, frozen=(n_fk, n_fp),
+                max_abs_err=max(err_t, err_a), text=text)
+
+
+def plain_counts(stats: dict) -> str:
+    """The plain march's work on a batch, as read by grid_bound."""
+    visits = stats.get("slot_visits")
+    return (f"{stats.get('probes', 0)} probes ("
+            + ", ".join(f"{stats.get(k, 0)} {k}"
+                        for k in ("probes_empty", "probes_missed",
+                                  "block_exits"))
+            + f"), {stats.get('step_checks', 0)} in-block steps entered, "
+            f"{stats.get('steps', 0)} taken, "
+            f"{int(stats['block_seen'].sum())} distinct block rows, "
+            f"{0 if visits is None else int(visits.sum())} cells composited, "
+            f"{0 if visits is None else int((visits > 0).sum())} distinct")
+
+
+def grid_kernel_check(gt, accel, settings, name, o, d, kw, card) -> dict:
+    """6b: the grid kernel against march_plain on one chunk, on the card:
+    grid_gates, CUDA-event times, and the plain march's counts for the
+    bound."""
+    feat = "t_end" not in kw
+    got = gt.march(accel, o, d, settings, GRID_MAX_STEPS,
+                   with_features=feat, **kw)
+    stats = {}
+    want, plain_ms = host_ms(lambda: gt.march_plain(
+        accel, o, d, settings, GRID_MAX_STEPS, with_features=feat,
+        stats=stats, **kw))
+    torch.cuda.synchronize()
+    gates = grid_gates(f"6b {name}", got, want, feat)
+    ms = cuda_ms(lambda: gt.march(accel, o, d, settings, GRID_MAX_STEPS,
+                                  with_features=feat, **kw), 5)
+    log(f"phase 6b {name}: R={o.shape[0]}, {int(kw['active'].sum())} "
+        f"active: {gates['text']}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms (plain: {plain_counts(stats)}) ({card})")
+    return dict(gates, ms=ms, plain_ms=plain_ms, stats=stats,
+                rays=o.shape[0], feat=feat,
+                cols=accel.pkt_cols if feat else gt.GEOM_COLS)
+
+
+def grid_exact_check(gt, accel, settings, name, o, d, kw, card) -> None:
+    """6b, ray for ray: the grid kernel against march_plain on one chunk on
+    the default schedule's rounds at capacity 1 without exit fractions.
+    Every ray's trans within GRID_EXACT_TRANS, every sum within
+    GRID_EXACT_RTOL / GRID_EXACT_ATOL, the same rays frozen."""
+    feat = "t_end" not in kw
+    schedule = tuple((1.0, m, a_max) for _, m, a_max, *_ in
+                     gt.DEFAULT_SCHEDULE)
+    tk, ak, fk = gt.march(accel, o, d, settings, GRID_MAX_STEPS,
+                          with_features=feat, schedule=schedule, **kw)
+    tp, ap, fp = gt.march_plain(accel, o, d, settings, GRID_MAX_STEPS,
+                                with_features=feat, schedule=schedule, **kw)
+    torch.cuda.synchronize()
+    err_t = float((tk - tp).abs().max())
+    check(torch.equal(fk, fp), f"6b {name} (no exit fractions): frozen rays "
+          f"differ (kernel {int(fk.sum())}, plain {int(fp.sum())})")
+    check(err_t <= GRID_EXACT_TRANS, f"6b {name} (no exit fractions): trans "
+          f"off by {err_t:.3e} (allowed {GRID_EXACT_TRANS})")
+    err_a = compare(ak, ap, f"6b {name} (no exit fractions) sums",
+                    rtol=GRID_EXACT_RTOL, atol=GRID_EXACT_ATOL) if feat \
+        else 0.0
+    log(f"phase 6b {name}, Kc={accel.max_per_cell}, no exit fractions, "
+        f"capacity 1: every ray's trans within {err_t:.3e} of march_plain"
+        + (f", sums within {err_a:.3e} (rtol {GRID_EXACT_RTOL}, atol "
+           f"{GRID_EXACT_ATOL})" if feat else "")
+        + f"; frozen {int(fk.sum())} = {int(fp.sum())}, the same rays "
+        f"({card})")
 
 
 def grid_bound(gt, accel, res: dict) -> dict:
-    """The grid kernel's bound on one chunk from what the plain march did:
-    per probe ~GRID_PROBE_FLOPS (cell lookup, exits, sub-box slab test, 4
-    in-block steps), per occupied slot of each composited cell visit
-    ~GRID_GAUSS_FLOPS (its quadratic, peak and alpha); bytes: the rays and
-    outputs once, each block row probed once (16 B) and, of each distinct
-    cell composited, the columns of its occupied slots once."""
+    """The grid kernel's bound on a batch from what the plain march did
+    there: each probe, each in-block step and each occupied slot of a
+    composited cell visit charged the float operations of its code path in
+    the kernel (GRID_*_FLOPS); bytes: the rays and outputs once, each block
+    row probed once (16 B) and, of each distinct cell composited, the
+    columns of its occupied slots once."""
     st = res["stats"]
     kc = accel.max_per_cell
     occ = (accel.geom[:, gt.G_OPAC * kc:(gt.G_OPAC + 1) * kc] > 0).sum(1)
-    visits = st["slot_visits"]
-    flops = st["probes"] * GRID_PROBE_FLOPS \
-        + int((visits * occ).sum()) * GRID_GAUSS_FLOPS
+    # A key is missing where the march probed or composited nothing.
+    visits = st.get("slot_visits", torch.zeros_like(occ))
+    n = {k: st.get(k, 0) for k in ("probes", *gt.PROBE_STAT_KEYS)}
+    flops = (res["rays"] * GRID_RAY_FLOPS + n["probes"] * GRID_PROBE_FLOPS
+             + n["probes_empty"] * (GRID_JUMP_FLOPS + GRID_BLOCK_EXIT_FLOPS)
+             + (n["probes"] - n["probes_empty"]) * GRID_SLAB_FLOPS
+             + (n["probes_missed"] + n["block_exits"]) * GRID_BLOCK_EXIT_FLOPS
+             + n["step_checks"] * GRID_CHECK_FLOPS
+             + n["steps"] * GRID_STEP_FLOPS
+             + int((visits * occ).sum()) * GRID_GAUSS_FLOPS)
+    block_rows = int(st.get("block_seen", visits).sum())
     n_bytes = 4 * res["rays"] * (6 + 1 + 1 + (16 if res["feat"] else 1)) \
-        + int(st["block_seen"].sum()) * 16 \
-        + int(occ[visits > 0].sum()) * res["cols"] * 4
+        + block_rows * 16 + int(occ[visits > 0].sum()) * res["cols"] * 4
     return bound(n_bytes, flops)
 
 
@@ -1187,8 +1286,9 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
     gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
     acc = torch.zeros((h * w, 3), device=cam.c2w.device)
     sample_ms, frozen = [], 0
-    jitters = []
+    jitters, states = [], []
     for f in range(4):
+        states.append(card_state())
         jit = rng.subpixel_jitter(key, h, w, f)   # no device: the card
         jitters.append(jit.device.type)
         (cur, aux), ms = host_ms(lambda: pathtrace_camera(
@@ -1198,6 +1298,7 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
         acc = accumulate(acc, cur, f)
         sample_ms.append(ms)
         frozen += int(aux["frozen_alive"])
+    states.append(card_state())
     launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(jitters == ["cuda"] * 4, f"6d: jitter built on {jitters}")
@@ -1219,6 +1320,9 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
         f"{peak_gib:.2f} GiB ({card})")
     log(f"phase 6d: image finite, mean {mean:.5f}; saved "
         f"{os.path.relpath(jpg, ROOT)}")
+    log("phase 6d: the card (SM clock, memory clock, temperature, power "
+        "draw, active clock-event reasons) before each sample and after the "
+        "last: " + " | ".join(states))
     split = profile_split("phase6d_sample", lambda: pathtrace_camera(
         scene, cam, settings, rng.frame_key(key, 99), packets=packets,
         tables=tables, backend=backend, config=cfg,
@@ -1227,10 +1331,13 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
     return dict(launches=launches, median_ms=med, split=split)
 
 
-def grid_pose(gm, capture, scene, settings, accel, card, spp: int) -> dict:
+def grid_pose(gm, gt, capture, scene, settings, accel, card,
+              spp: int) -> dict:
     """6e: bench.py's capture pose: make_tiled_pose_renderer with grid
     bounces and the shared grid at toroidal_c2w(123, 20, 2.5, 0.3),
-    800x800, fov 45, spp samples, extrapolated to 512."""
+    800x800, fov 45, spp samples, extrapolated to 512; then one sample
+    profiled, and both march kernels timed on the first sample's first
+    bounce trace and first shadow march beside their bound."""
     from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
         toroidal_c2w,
     )
@@ -1245,7 +1352,10 @@ def grid_pose(gm, capture, scene, settings, accel, card, spp: int) -> dict:
     gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
     stats = {}
     with HostTimer(capture, "prepare_tiles") as prep, \
-            HostTimer(capture, "pathtrace_camera") as samples:
+            HostTimer(capture, "pathtrace_camera") as samples, \
+            FirstCalls(capture, "pathtrace_camera") as sample_args, \
+            FirstCalls(gm, "march_kernel",
+                       lambda kw: kw.get("with_features", True)) as marches:
         img = render(c2w, 800, 800, 45.0, stats_out=stats)
         torch.cuda.synchronize()
     launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
@@ -1265,6 +1375,45 @@ def grid_pose(gm, capture, scene, settings, accel, card, spp: int) -> dict:
         f"{(prep.ms[0] + 512 * med) / 6e4:.2f} min; frozen rays "
         f"{stats.get('frozen_alive', 0):.0f}; image mean {img.mean():.5f}; "
         f"saved {os.path.relpath(jpg, ROOT)} ({card})")
+    args, kw = sample_args.calls[None]
+    split = profile_split("phase6e_sample", lambda: capture.pathtrace_camera(
+        *args, **kw), med, card, GRID_PROFILE_NAMES)
+    for feat, name in ((True, "grid_trace"), (False, "grid_visibility")):
+        (m_accel, o, d, m_settings, rounds), m_kw = marches.calls[feat]
+        check(m_accel is accel and list(rounds) == gt.clip_schedule(
+            gt.DEFAULT_SCHEDULE, GRID_MAX_STEPS), f"6e: {name} ran on "
+            "another grid or schedule")
+        got = gm.march_kernel(m_accel, o, d, m_settings, rounds, **m_kw)
+        ms = cuda_ms(lambda: gm.march_kernel(m_accel, o, d, m_settings,
+                                             rounds, **m_kw), 5)
+        # The plain march over the same rays in 65536-ray chunks: its
+        # outputs hold the kernel's to 6b's gates, its counts (probes
+        # summed, block rows and cells distinct over all chunks) give the
+        # bound.
+        st, parts = {}, []
+        t_end, active = m_kw.get("t_end"), m_kw.get("active")
+        for s in range(0, o.shape[0], PT_CHUNK):
+            sl = slice(s, s + PT_CHUNK)
+            parts.append(gt.march_plain(
+                accel, o[sl], d[sl], m_settings, GRID_MAX_STEPS,
+                t_end=None if t_end is None else t_end[sl],
+                with_features=feat,
+                active=None if active is None else active[sl], stats=st))
+        want = [None if p[0] is None else torch.cat(p) for p in zip(*parts)]
+        gates = grid_gates(f"6e {name}", got, want, feat)
+        bnd = grid_bound(gt, accel, dict(
+            stats=st, rays=o.shape[0], feat=feat,
+            cols=accel.pkt_cols if feat else gt.GEOM_COLS))
+        n_active = o.shape[0] if active is None else int(active.sum())
+        log(f"phase 6e: {name} on the first sample's first "
+            f"{'bounce trace' if feat else 'shadow march'}: R={o.shape[0]}, "
+            f"{n_active} active: {gates['text']}; kernel {ms:.3f} ms (CUDA "
+            f"events); bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+            f"({bnd['bound_flops']:.4e} flops, {bnd['bound_bytes']:.4e} "
+            f"bytes; plain: {plain_counts(st)}) = "
+            f"{bnd['bound_ms'] / ms:.1%} of the bound's rate; per sample "
+            f"{split[name]:.3f} ms in {launches[0 if feat else 1] // spp} "
+            f"launches ({card})")
     return dict(launches=launches, median_ms=med)
 
 
@@ -1384,9 +1533,12 @@ def main() -> int:
     build.load()
     log(f"build: {os.path.relpath(lib, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log("  ptxas: " + line.strip())
+    ptxas = ptxas_report(build.build_log())
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as fh:
+        fh.write("\n".join(ptxas) + "\n")
+    for line in ptxas:
+        log("  ptxas: " + line)
 
     key = rng.prng_key(13)
 
@@ -1636,6 +1788,9 @@ def main() -> int:
     from pathtracer_gaussiansplatting_tpu_torch.render.pipeline import (
         make_trace_backend,
     )
+    from pathtracer_gaussiansplatting_tpu_torch.tools.grid_march_lanes import (
+        march_chunks,
+    )
     from pathtracer_gaussiansplatting_tpu_torch.utils import metrics
 
     # Built without a device argument: the port's entry points default to
@@ -1653,17 +1808,30 @@ def main() -> int:
                                 memory_budget_bytes=2.5e9)
     torch.cuda.synchronize()
     grid_stats_check(gt, grid_bin, accel, time.perf_counter() - t0, card)
-    chunks = grid_rays(g_scene, g_cam, pt_settings, g_cfg, accel)
+    chunks = march_chunks(g_scene, g_cam, pt_settings, g_cfg)
     g_res = [grid_kernel_check(gt, accel, pt_settings, name, o, d, kw, card)
              for name, o, d, kw in chunks]
     trace_b = grid_bound(gt, accel, g_res[0])
     vis_b = grid_bound(gt, accel, g_res[1])
+    for name, o, d, kw in chunks[:2]:
+        grid_exact_check(gt, accel, pt_settings, name, o, d, kw, card)
     del chunks
+    # A lane's share of a cell changes with Kc: the ray-for-ray check again
+    # at Kc=64 (two slots a lane of a trace, four of a shadow segment) on a
+    # smaller scene's grid.
+    s50 = surface_scene(50_000, seed=13)
+    accel64 = gt.build_grid_accel(s50, max_per_cell=64)
+    for name, o, d, kw in march_chunks(s50, g_cam, pt_settings,
+                                       g_cfg)[:2]:
+        grid_exact_check(gt, accel64, pt_settings,
+                         f"{name}, surface_scene(50k)", o, d, kw, card)
+    del s50, accel64
     grid_accuracy(gt, ref, metrics, g_scene, accel, pt_settings, card)
     backend = make_trace_backend(g_scene, pt_settings, "grid", accel=accel)
     g_pt = grid_pathtrace(gm, g_scene, g_cam, pt_settings, g_cfg, backend,
                           key, card)
-    g_pose = grid_pose(gm, capture, g_scene, pt_settings, accel, card, spp=8)
+    g_pose = grid_pose(gm, gt, capture, g_scene, pt_settings, accel, card,
+                       spp=8)
     del g_scene, accel, backend
     small_pt_check(dev, dataclasses.replace(pt_settings, rr_start_depth=2,
                                             opaque_depth=3),

@@ -4,11 +4,11 @@
 // Replaces the plain XLA march of the reference, not a Pallas kernel:
 // pathtracer_gaussiansplatting_tpu/render/grid_trace.py: trace_grid (:1060)
 // and visibility_grid (:1109), i.e. _phase_a (:459), _phase_b (:611) and
-// _march (:894). One thread per ray runs the reference's per-round state
-// machine: for each round (M slots, a_max probes) of the schedule it walks
-// the block table (empty-block euclidean jumps, a slab test of the occupied
-// block's sub-box, up to 4 in-block cell steps per probe, popcount slots),
-// and composites each occupied cell as phase A records it: the cell's Kc
+// _march (:894). Each ray runs the reference's per-round state machine: for
+// each round (M slots, a_max probes) of the schedule it walks the block
+// table (empty-block euclidean jumps, a slab test of the occupied block's
+// sub-box, up to 4 in-block cell steps per probe, popcount slots), and
+// composites each occupied cell as phase A records it: the cell's Kc
 // Gaussians respond at their slab-owned peaks (t in [t_enter, t_exit)),
 // are weighted front to back in (t, slot) order by the exclusive product
 // over the Gaussians before them, and the cell transmittance is chained in
@@ -18,20 +18,44 @@
 // end a ray at or below transmittance_min dies; a ray still alive after the
 // last round is frozen (its sums are partial) and flagged.
 //
-// What the kernel cannot do: see the batch. The plain march's exit
-// fractions stop phase A for the whole batch once few rays still probe, and
-// above 32768 rays its later rounds resume only the first `cap` survivors.
-// Here every ray gets each round's full probe budget, so a ray the plain
-// march paused early meets its kill tests at other cell counts (a
-// difference of at most transmittance_min times its remaining
-// contributions), and a ray the plain march froze for capacity finishes.
+// What the kernel leaves out, by choice: the batch-level schedule. The
+// plain march's exit fractions stop phase A for the whole batch once few
+// rays still probe, and above 32768 rays its later rounds resume only the
+// first `cap` survivors. The reference has them because a while-loop
+// iteration costs the full batch width on the TPU whatever the live-lane
+// count (grid_trace.py:441-448); here a finished ray costs nothing, so
+// every ray gets each round's full probe budget. With a schedule that has
+// no exit fractions and capacity 1 the kernel follows the plain march ray
+// for ray.
 //
-// What bounds it on this card: latency of dependent loads and divergence,
-// not bytes or flops. A ray reads one 16-byte block row per probe and one
-// (cols x Kc) packet row per occupied cell (3 KB at Kc 32), through L1/L2;
-// rays of a warp take different numbers of probes and cells. The design
-// keeps it simple and right: one thread per ray (128 per block), the
-// cell's alpha and peak t in a local array of Kc, the 15 sums in registers.
+// What bounds it on this card: not bytes or flops but instruction issue
+// and the latency of dependent loads (a probe's 16-byte block row, then a
+// cell's packet row). Rays take different numbers of probes and cells, and
+// a cell's work (Kc responses, the cell transmittance, each Gaussian's
+// exclusive product) is serial within a ray. The design:
+// - L lanes per ray: a warp (L = 32, 4 rays a 128-thread block) for a
+//   feature trace, half a warp (L = 16, 8 rays a block) for a shadow
+//   segment. The traversal (cell lookup, block-table probe, sub-box slab
+//   test, in-block steps, the slot groups' transmittance and kill tests)
+//   runs identically in each of a ray's lanes on broadcast loads, so they
+//   never diverge. Its instructions are issued once per ray, so it skips
+//   what it can: an empty block jumps without the sub-box test, and the
+//   in-block steps end at the first that would change nothing. Shadow
+//   segments are mostly probes, so they take fewer lanes.
+// - A cell across the lanes. A cell row is stored column-major with stride
+//   Kc, so lane l takes slots l, l + L, ... below Kc (NS = ceil(Kc / L) of
+//   them, in registers) and each column is one coalesced load. The cell
+//   transmittance and each slot's exclusive product are taken by a walk over
+//   the cell's live slots (a ballot of alpha > 0) in slot order, each slot's
+//   alpha and peak t broadcast by a shuffle, in every lane: the operands and
+//   their order are a serial march's, so the transmittance, the weights and
+//   every kill test are too, whatever L.
+// - Each lane keeps 15 partial sums over its slots for the whole ray and
+//   loads a slot's feature columns only where its weight is positive; the
+//   lanes add the partial sums once per ray (a xor-shuffle butterfly). Only
+//   this summation order differs from a serial march.
+// - No local arrays: every per-lane array has a compile-time size and is
+//   indexed by unrolled loops.
 //
 // Plain C entry points (bound with ctypes); each returns cudaGetLastError().
 
@@ -43,69 +67,145 @@ namespace {
 
 using ptgs_grid::fadd;
 using ptgs_grid::fmul;
+using ptgs_grid::fsub;
 using ptgs_grid::kAccKeys;
 using ptgs_grid::Params;
 using ptgs_grid::Ray;
 
 constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kMaxKc = 128;
+// Lanes a ray: a warp for a feature trace, half a warp for a shadow
+// segment, which is mostly probes (about 20 a segment against 1.6 cells
+// composited), so fewer lanes repeat them.
+constexpr int kTraceLanes = 32;
+constexpr int kVisLanes = 16;
+
+template <bool FEAT>
+__host__ __device__ constexpr int lanes() {
+  return FEAT ? kTraceLanes : kVisLanes;
+}
+
+// A ray's L lanes of a warp: this thread's lane among them, and their
+// ballot, broadcast and butterfly, which no other lane of the warp joins.
+template <int L>
+struct RayLanes {
+  int lane, base;  // lane in 0 .. L-1; the ray's first lane in the warp
+  unsigned mask;   // the ray's lanes in the warp
+
+  __device__ RayLanes() {
+    const int wl = threadIdx.x % kWarp;
+    lane = wl % L;
+    base = wl - lane;
+    mask = (0xffffffffu >> (kWarp - L)) << base;
+  }
+  // Bit i set iff lane i's pred.
+  __device__ unsigned ballot(bool pred) const {
+    return (__ballot_sync(mask, pred) & mask) >> base;
+  }
+  __device__ float bcast(float v, int src) const {
+    return __shfl_sync(mask, v, src, L);
+  }
+  __device__ float bxor(float v, int off) const {
+    return __shfl_xor_sync(mask, v, off, L);
+  }
+};
+
+// Adds slot i's weighted features (weight w > 0) to this lane's sums.
+__device__ __forceinline__ void add_features(const Ray& r, const float* row,
+                                             int kc, int i, float w,
+                                             float t_peak, bool deg1,
+                                             float* acc) {
+  const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
+  const float* f = row + i;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float col = fadd(f[(ptgs_grid::kDc + ch) * kc], 0.5f);
+    if (deg1)
+      col = fadd(fadd(fadd(col, fmul(dy, f[(ptgs_grid::kBy + ch) * kc])),
+                      fmul(dz, f[(ptgs_grid::kBy + 3 + ch) * kc])),
+                 fmul(dx, f[(ptgs_grid::kBy + 6 + ch) * kc]));
+    acc[ch] = fadd(acc[ch], fmul(w, fmaxf(col, 0.0f)));
+    acc[3 + ch] = fadd(acc[3 + ch], fmul(w, f[(ptgs_grid::kEmi + ch) * kc]));
+  }
+#pragma unroll
+  for (int s = 0; s < 5; ++s)  // metallic .. transmission
+    acc[6 + s] = fadd(acc[6 + s], fmul(w, f[(ptgs_grid::kMet + s) * kc]));
+  const float ax = f[ptgs_grid::kAxis * kc];
+  const float ay = f[(ptgs_grid::kAxis + 1) * kc];
+  const float az = f[(ptgs_grid::kAxis + 2) * kc];
+  const float sgn =
+      fadd(fadd(fmul(ax, dx), fmul(ay, dy)), fmul(az, dz)) > 0.0f ? -1.0f
+                                                                  : 1.0f;
+  acc[11] = fadd(acc[11], fmul(fmul(w, ax), sgn));
+  acc[12] = fadd(acc[12], fmul(fmul(w, ay), sgn));
+  acc[13] = fadd(acc[13], fmul(fmul(w, az), sgn));
+  acc[14] = fadd(acc[14], fmul(w, t_peak));
+}
 
 // Composites one recorded cell (packet or geometry row `row`) entered with
-// transmittance t_enter; returns the cell transmittance prod (1 - alpha)
-// and, with FEAT, adds the cell's weighted features to acc.
-template <bool FEAT, int KCMAX>
-__device__ float composite_cell(const Ray& r, const float* row, float t0,
-                                float t1, bool segment, float t_cap,
-                                float t_enter, float* acc,
-                                const Params& prm) {
+// transmittance t_enter, across the ray's L lanes (lane l takes slots l,
+// l + L, ...): returns the cell transmittance prod (1 - alpha) in slot
+// order (the same value in every lane) and, with FEAT, adds this lane's
+// slots' weighted features to its partial sums acc.
+template <bool FEAT, int NS, int L>
+__device__ __forceinline__ float composite_cell(
+    const Ray& r, const float* row, float t0, float t1, bool segment,
+    float t_cap, float t_enter, float* acc, const Params& prm,
+    const RayLanes<L>& rl) {
   const int kc = prm.kc;
-  float alpha[KCMAX], tpk[KCMAX];
-  int idx[KCMAX];
-  int n = 0;
+  float alpha[NS], tpk[NS], excl[NS];
+  unsigned live[NS];
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int j = rl.lane + L * s;
+    alpha[s] = 0.0f;
+    tpk[s] = 0.0f;
+    excl[s] = 1.0f;
+    if (j < kc) {
+      const ptgs_grid::Response e =
+          ptgs_grid::respond(r, row, kc, j, t0, t1, segment, t_cap, prm);
+      // A slot without a positive alpha is a factor 1 and a weight 0.
+      if (e.alpha > 0.0f) {
+        alpha[s] = e.alpha;
+        tpk[s] = e.t_peak;
+      }
+    }
+    live[s] = rl.ballot(alpha[s] > 0.0f);
+  }
+  // The live slots in slot order, each broadcast to every lane.
   float ct = 1.0f;
-  for (int j = 0; j < kc; ++j) {
-    const ptgs_grid::Response e =
-        ptgs_grid::respond(r, row, kc, j, t0, t1, segment, t_cap, prm);
-    if (!(e.alpha > 0.0f)) continue;  // a factor 1 and a weight 0
-    ct = fmul(ct, ptgs_grid::fsub(1.0f, e.alpha));
-    alpha[n] = e.alpha;
-    tpk[n] = e.t_peak;
-    idx[n] = j;
-    ++n;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    unsigned m = live[s];
+    while (m != 0u) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1u;
+      const float om = fsub(1.0f, rl.bcast(alpha[s], src));
+      ct = fmul(ct, om);
+      if (FEAT) {
+        // Exclusive product over the Gaussians before each of this lane's
+        // slots in (t, slot) order.
+        const float tj = rl.bcast(tpk[s], src);
+        const int j = src + L * s;
+#pragma unroll
+        for (int k = 0; k < NS; ++k) {
+          const int i = rl.lane + L * k;
+          if (tj < tpk[k] || (tj == tpk[k] && j < i))
+            excl[k] = fmul(excl[k], om);
+        }
+      }
+    }
   }
   if (FEAT) {
     const bool deg1 = prm.cols >= ptgs_grid::kPktDeg1;
-    const float dx = r.d[0], dy = r.d[1], dz = r.d[2];
-    for (int i = 0; i < n; ++i) {
-      // Exclusive product over the Gaussians before i in (t, slot) order.
-      float excl = 1.0f;
-      for (int j = 0; j < n; ++j)
-        if (tpk[j] < tpk[i] || (tpk[j] == tpk[i] && idx[j] < idx[i]))
-          excl = fmul(excl, ptgs_grid::fsub(1.0f, alpha[j]));
-      const float w = fmul(fmul(t_enter, excl), alpha[i]);
-      const int g = idx[i];
-      const float* f = row + g;
-      for (int ch = 0; ch < 3; ++ch) {
-        float col = fadd(f[(ptgs_grid::kDc + ch) * kc], 0.5f);
-        if (deg1)
-          col = fadd(fadd(fadd(col, fmul(dy, f[(ptgs_grid::kBy + ch) * kc])),
-                          fmul(dz, f[(ptgs_grid::kBy + 3 + ch) * kc])),
-                     fmul(dx, f[(ptgs_grid::kBy + 6 + ch) * kc]));
-        acc[ch] = fadd(acc[ch], fmul(w, fmaxf(col, 0.0f)));
-        acc[3 + ch] = fadd(acc[3 + ch],
-                           fmul(w, f[(ptgs_grid::kEmi + ch) * kc]));
-      }
-      for (int s = 0; s < 5; ++s)  // metallic .. transmission
-        acc[6 + s] = fadd(acc[6 + s], fmul(w, f[(ptgs_grid::kMet + s) * kc]));
-      const float ax = f[ptgs_grid::kAxis * kc];
-      const float ay = f[(ptgs_grid::kAxis + 1) * kc];
-      const float az = f[(ptgs_grid::kAxis + 2) * kc];
-      const float sgn =
-          fadd(fadd(fmul(ax, dx), fmul(ay, dy)), fmul(az, dz)) > 0.0f ? -1.0f
-                                                                      : 1.0f;
-      acc[11] = fadd(acc[11], fmul(fmul(w, ax), sgn));
-      acc[12] = fadd(acc[12], fmul(fmul(w, ay), sgn));
-      acc[13] = fadd(acc[13], fmul(fmul(w, az), sgn));
-      acc[14] = fadd(acc[14], fmul(w, tpk[i]));
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      if (!(alpha[k] > 0.0f)) continue;
+      const float w = fmul(fmul(t_enter, excl[k]), alpha[k]);
+      // A zero weight adds exact zeros: skip its loads.
+      if (w > 0.0f)
+        add_features(r, row, kc, rl.lane + L * k, w, tpk[k], deg1, acc);
     }
   }
   return ct;
@@ -130,7 +230,7 @@ struct Groups {
   }
 };
 
-template <bool FEAT, int KCMAX>
+template <bool FEAT, int NS>
 __global__ void __launch_bounds__(kThreads) grid_march_kernel(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ t_end, const unsigned char* __restrict__ active,
@@ -138,8 +238,12 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
     const float* __restrict__ lo, const float* __restrict__ hi,
     float* __restrict__ trans_out, float* __restrict__ acc_out,
     unsigned char* __restrict__ frozen_out, int n_rays, Params prm) {
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  if (ray >= n_rays) return;
+  constexpr int L = lanes<FEAT>();
+  const RayLanes<L> rl;
+  const int ray = blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  if (ray >= n_rays) return;  // all of the ray's lanes
+  // Every lane of the ray reads the same addresses (broadcast loads) and
+  // computes the same traversal; only the cells' slots are split.
   const Ray r = ptgs_grid::setup_ray(origins + 3 * ray, dirs + 3 * ray, lo,
                                      hi, prm);
   const bool segment = t_end != nullptr;
@@ -147,6 +251,7 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
   const float t_far = segment ? fminf(r.t_far, t_cap) : r.t_far;
   bool alive = r.inside && (active == nullptr || active[ray] != 0);
   float acc[kAccKeys];
+#pragma unroll
   for (int c = 0; c < kAccKeys; ++c) acc[c] = 0.0f;
   float trans = 1.0f;
   float t = r.t_entry;
@@ -156,28 +261,18 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
   const size_t row_len = static_cast<size_t>(prm.cols) * prm.kc;
 
   for (int round = 0; round < prm.n_rounds && alive; ++round) {
-    Groups grp{prm.m[round], 0, 0, trans, 1.0f, 1.0f, 1.0f};
-    bool dead = false;
-    // Records one cell: composite it, close its group when full.
-    auto take_cell = [&](int slot, float t0, float t1) {
-      const float t_enter = fmul(grp.t_group, grp.e_prod);
-      const float ct = composite_cell<FEAT, KCMAX>(
-          r, table + static_cast<size_t>(slot) * row_len, t0, t1, segment,
-          t_cap, t_enter, acc, prm);
-      grp.e_last = grp.e_prod;
-      grp.ct_last = ct;
-      grp.e_prod = fmul(grp.e_prod, ct);
-      ++grp.n;
-      if (grp.n - grp.g0 == grp.width()) {
-        trans = grp.closed();
-        dead = !(trans > prm.transmittance_min);
-        grp.g0 = grp.n;
-        grp.t_group = trans;
-        grp.e_prod = grp.e_last = grp.ct_last = 1.0f;
+    // The round's (M, a_max), picked by constant indices: a runtime index
+    // into the parameters would copy them to a local-memory stack.
+    int m_round = 0, a_round = 0;
+#pragma unroll
+    for (int i = 0; i < ptgs_grid::kMaxRounds; ++i)
+      if (i == round) {
+        m_round = prm.m[i];
+        a_round = prm.a_max[i];
       }
-    };
-
-    for (int it = 0; it < prm.a_max[round] && !dead; ++it) {
+    Groups grp{m_round, 0, 0, trans, 1.0f, 1.0f, 1.0f};
+    bool dead = false;
+    for (int it = 0; it < a_round && !dead; ++it) {
       if (!(t < t_far && grp.n < grp.m)) break;
       float cell[3];
       ptgs_grid::cell_of(r, t, cell);
@@ -190,23 +285,29 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
       const int info = row.x, base = row.y;
       const unsigned mlo = static_cast<unsigned>(row.z);
       const unsigned mhi = static_cast<unsigned>(row.w);
-      const bool occ_block = info >= 0;
 
+      // The block's exit, at least t + eps (taken only where it is used).
+      auto block_exit = [&]() {
+        const float bcell[3] = {floorf(cell[0] / 4.0f),
+                                floorf(cell[1] / 4.0f),
+                                floorf(cell[2] / 4.0f)};
+        return fmaxf(ptgs_grid::exit_of(r, bcell, r.edge), fadd(t, r.eps));
+      };
       // Empty block: euclidean jump, at least to the block exit.
-      const float bcell[3] = {floorf(cell[0] / 4.0f), floorf(cell[1] / 4.0f),
-                              floorf(cell[2] / 4.0f)};
-      const float t_bex =
-          fmaxf(ptgs_grid::exit_of(r, bcell, r.edge), fadd(t, r.eps));
-      const float jump_w =
-          fmul(static_cast<float>(-(info + 1)), prm.jump_unit);
-      const float t_jump = fmaxf(t_bex, fadd(t, jump_w));
+      if (info < 0) {
+        const float jump_w =
+            fmul(static_cast<float>(-(info + 1)), prm.jump_unit);
+        t = fmaxf(block_exit(), fadd(t, jump_w));
+        continue;
+      }
 
       // Occupied block: slab-test the tight box of its set cells.
-      const int b = max(info, 0);
-      const int bmin[3] = {b & 3, (b >> 4) & 3, (b >> 8) & 3};
-      const int bmax[3] = {(b >> 2) & 3, (b >> 6) & 3, (b >> 10) & 3};
+      const int bmin[3] = {info & 3, (info >> 4) & 3, (info >> 8) & 3};
+      const int bmax[3] = {(info >> 2) & 3, (info >> 6) & 3,
+                           (info >> 10) & 3};
       const int bi[3] = {bx, by, bz};
       float t_in = -3.402823466e38f, t_out = 3.402823466e38f;
+#pragma unroll
       for (int k = 0; k < 3; ++k) {
         const float borig =
             fadd(r.lo[k], fmul(static_cast<float>(bi[k]), r.edge[k]));
@@ -214,47 +315,66 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
             fadd(borig, fmul(static_cast<float>(bmin[k]), r.cell[k]));
         const float box_hi = fadd(
             borig, fmul(fadd(static_cast<float>(bmax[k]), 1.0f), r.cell[k]));
-        const float tb0 = fmul(ptgs_grid::fsub(box_lo, r.o[k]), r.inv_d[k]);
-        const float tb1 = fmul(ptgs_grid::fsub(box_hi, r.o[k]), r.inv_d[k]);
+        const float tb0 = fmul(fsub(box_lo, r.o[k]), r.inv_d[k]);
+        const float tb1 = fmul(fsub(box_hi, r.o[k]), r.inv_d[k]);
         t_in = fmaxf(t_in, fminf(tb0, tb1));
         t_out = fminf(t_out, fmaxf(tb0, tb1));
       }
       const float enter = fmaxf(t, t_in);
-      const bool box_hit = occ_block && t_out > enter;
+      if (!(t_out > enter)) {  // the sub-box missed: on to the block exit
+        t = fmaxf(block_exit(), t);
+        continue;
+      }
 
-      // Up to 4 in-block cell steps from this one row.
-      float tk = box_hit ? enter : t;
-      for (int s = 0; s < 4 && !dead; ++s) {
+      // Up to 4 in-block cell steps from this one row. A step that changes
+      // nothing (out of the sub-box, or the round's slots full) ends them:
+      // the next would repeat it.
+      float tk = enter;
+      for (int s = 0; s < 4; ++s) {
         float ck[3];
         ptgs_grid::cell_of(r, tk, ck);
         const int jx = static_cast<int>(ck[0]), jy = static_cast<int>(ck[1]);
         const int jz = static_cast<int>(ck[2]);
         const bool same_block =
             (jx >> 2) == bx && (jy >> 2) == by && (jz >> 2) == bz;
-        const bool stepk =
-            box_hit && same_block && tk < t_far && tk < t_out;
-        if (!stepk) continue;  // no step changes nothing
+        if (!(same_block && tk < t_far && tk < t_out)) break;
         const int rank = (jx & 3) + 4 * (jy & 3) + 16 * (jz & 3);
         const bool hi_word = rank >= 32;
         const int sh = hi_word ? rank - 32 : rank;
         const unsigned word = hi_word ? mhi : mlo;
         const bool bit = (word >> sh) & 1u;
-        const unsigned below = (1u << sh) - 1u;
-        const unsigned below_lo = hi_word ? mlo : (mlo & below);
-        const unsigned below_hi = hi_word ? (mhi & below) : 0u;
-        const int slot = base + __popc(below_lo) + __popc(below_hi);
         const float tex =
             fmaxf(ptgs_grid::exit_of(r, ck, r.cell), fadd(tk, r.eps));
-        const bool take = bit && grp.n < grp.m;
-        if (take) take_cell(slot, tk, tex);
-        if (!bit || take) tk = tex;
+        if (bit) {
+          if (!(grp.n < grp.m)) break;
+          // Record the cell: composite it, close its group when full.
+          const unsigned below = (1u << sh) - 1u;
+          const unsigned below_lo = hi_word ? mlo : (mlo & below);
+          const unsigned below_hi = hi_word ? (mhi & below) : 0u;
+          const int slot = base + __popc(below_lo) + __popc(below_hi);
+          const float t_enter = fmul(grp.t_group, grp.e_prod);
+          const float ct = composite_cell<FEAT, NS, L>(
+              r, table + static_cast<size_t>(slot) * row_len, tk, tex,
+              segment, t_cap, t_enter, acc, prm, rl);
+          grp.e_last = grp.e_prod;
+          grp.ct_last = ct;
+          grp.e_prod = fmul(grp.e_prod, ct);
+          ++grp.n;
+          if (grp.n - grp.g0 == grp.width()) {
+            trans = grp.closed();
+            dead = !(trans > prm.transmittance_min);
+            grp.g0 = grp.n;
+            grp.t_group = trans;
+            grp.e_prod = grp.e_last = grp.ct_last = 1.0f;
+            if (dead) break;
+          }
+        }
+        tk = tex;
       }
       if (dead) break;
 
-      // Past the sub-box (or never in it): on to the block exit.
-      const float t_occ =
-          (box_hit && tk < t_out) ? tk : fmaxf(t_bex, tk);
-      t = occ_block ? t_occ : t_jump;
+      // Past the sub-box (or the steps stopped inside it).
+      t = tk < t_out ? tk : fmaxf(block_exit(), tk);
     }
     if (!dead && grp.n > grp.g0) {  // the round's last, partial group
       trans = grp.closed();
@@ -265,11 +385,31 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
     alive = !dead && t < t_far;
   }
 
-  trans_out[ray] = trans;
-  frozen_out[ray] = alive ? 1 : 0;
-  if (FEAT)
+  if (FEAT) {
+    // The lanes' partial sums, added once per ray.
+#pragma unroll
     for (int c = 0; c < kAccKeys; ++c)
-      acc_out[static_cast<size_t>(ray) * kAccKeys + c] = acc[c];
+#pragma unroll
+      for (int off = L / 2; off > 0; off /= 2)
+        acc[c] = fadd(acc[c], rl.bxor(acc[c], off));
+  }
+  if (rl.lane == 0) {
+    trans_out[ray] = trans;
+    frozen_out[ray] = alive ? 1 : 0;
+    if (FEAT)
+#pragma unroll
+      for (int c = 0; c < kAccKeys; ++c)
+        acc_out[static_cast<size_t>(ray) * kAccKeys + c] = acc[c];
+  }
+}
+
+// Launches the instantiation for ns = ceil(Kc / L) slots a lane.
+template <bool FEAT, int NS = 1, typename... Args>
+void launch_ns(int ns, int blocks, cudaStream_t stream, Args... args) {
+  if constexpr (NS * lanes<FEAT>() < kMaxKc) {
+    if (ns > NS) return launch_ns<FEAT, NS + 1>(ns, blocks, stream, args...);
+  }
+  grid_march_kernel<FEAT, NS><<<blocks, kThreads, 0, stream>>>(args...);
 }
 
 template <bool FEAT>
@@ -279,19 +419,13 @@ cudaError_t launch(const float* origins, const float* dirs,
                    const float* hi, float* trans, float* acc,
                    unsigned char* frozen, int n_rays, const Params& prm,
                    cudaStream_t stream) {
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  const int4* bt = reinterpret_cast<const int4*>(btab);
-#define PTGS_LAUNCH(KC)                                                     \
-  grid_march_kernel<FEAT, KC><<<blocks, kThreads, 0, stream>>>(             \
-      origins, dirs, t_end, active, bt, table, lo, hi, trans, acc, frozen, \
-      n_rays, prm)
-  if (prm.kc <= 32)
-    PTGS_LAUNCH(32);
-  else if (prm.kc <= 64)
-    PTGS_LAUNCH(64);
-  else
-    PTGS_LAUNCH(128);
-#undef PTGS_LAUNCH
+  constexpr int L = lanes<FEAT>();
+  const int rays_per_block = kThreads / L;
+  launch_ns<FEAT>((prm.kc + L - 1) / L,
+                  (n_rays + rays_per_block - 1) / rays_per_block, stream,
+                  origins, dirs, t_end, active,
+                  reinterpret_cast<const int4*>(btab), table, lo, hi, trans,
+                  acc, frozen, n_rays, prm);
   return cudaGetLastError();
 }
 
@@ -300,7 +434,7 @@ bool make_params(const int* sched, int n_rounds, int gx, int gy, int gz,
                  float alpha_max, float gval_cut, float transmittance_min,
                  float jump_unit, Params* prm) {
   if (n_rounds < 0 || n_rounds > ptgs_grid::kMaxRounds || kc <= 0 ||
-      kc > 128 || gx <= 0 || gy <= 0 || gz <= 0)
+      kc > kMaxKc || gx <= 0 || gy <= 0 || gz <= 0)
     return false;
   *prm = Params{t_min, t_max, alpha_min, alpha_max, gval_cut,
                 transmittance_min, jump_unit, gx, gy, gz, kc, cols,

@@ -10,13 +10,20 @@ sums of ``render.grid_trace.ACC_KEYS``, counted in ``TRACE_LAUNCHES``) or
 are ``render.grid_trace.march`` and ``march_plain``; this module imports
 nothing of ``render``.
 
-The kernel runs one thread per ray through the same per-round state machine
-as the plain march, but it cannot see the batch: the exit fractions and the
-compaction capacity (properties of the whole batch) do not apply, so a ray
-the plain march pauses early gets its kill checks at other cell counts
-(a difference of at most transmittance_min times its remaining
-contributions), and a ray the plain march freezes for capacity is
-finished. Its frozen count is at most the plain march's (ROADMAP section 3).
+The kernel runs L lanes per ray (a warp for a trace, half a warp for a
+shadow segment) through the same per-round state machine as the plain
+march: every lane walks the ray's traversal, and a cell's Kc Gaussians are
+spread across the lanes (lane l takes slots l, l + L, ...), with the cell
+transmittance and the weights taken in a serial march's operand order;
+each lane keeps partial feature sums, added once per ray.
+It leaves out the batch-level schedule, by choice: the exit fractions and
+the compaction capacity (properties of the whole batch, a TPU scheduling
+device) do not apply, so a ray the plain march pauses early gets its kill
+checks at other cell counts (a difference of at most transmittance_min
+times its remaining contributions), and a ray the plain march freezes for
+capacity is finished. Its frozen count is at most the plain march's; on a
+schedule without exit fractions, at capacity 1, it follows the plain march
+ray for ray (ROADMAP section 3).
 """
 from __future__ import annotations
 

@@ -31,10 +31,10 @@ environment knobs); phase B is chunked over rays only to bound memory,
 which changes no value. It is what the CPU tests hold to the JAX package.
 
 ``trace_grid`` and ``visibility_grid`` go through :func:`march`: CUDA
-tensors launch the hand-written kernel (``kernels/grid_march``, one thread
-per ray, without the batch-level exit fractions and compaction), CPU
-tensors run ``march_plain``. Inference only: nothing here is
-differentiable, as in the reference.
+tensors launch the hand-written kernel (``kernels/grid_march``, a warp or
+half of one per ray, without the batch-level exit fractions and
+compaction), CPU tensors run ``march_plain``. Inference only: nothing here
+is differentiable, as in the reference.
 """
 from __future__ import annotations
 
@@ -94,6 +94,13 @@ DEFAULT_SCHEDULE = ((1.0, 8, 64, 0.05, 0.10),
 COMPACT_MIN_RAYS = 32768  # at or below: one batch, no sorting
 SLOT_GROUP = 8            # phase B kills saturated rays after each group
 PLAIN_CHUNK_ELEMS = 1 << 24  # (ray, slot, Kc, Kc) elements per phase-B chunk
+# march_plain's probe counts by what a ray-at-a-time march does for them:
+# probes of an empty block, probes whose occupied block's sub-box the ray
+# misses, probes that step through the sub-box and then leave it (a block
+# exit), and the in-block steps entered and taken (a step ends the walk at
+# the first that changes nothing).
+PROBE_STAT_KEYS = ("probes_empty", "probes_missed", "block_exits",
+                   "step_checks", "steps")
 
 _M32 = 0xFFFFFFFF
 
@@ -485,8 +492,12 @@ def _phase_a(accel: GridAccel, origins, dirs, setup, t, alive, t_far,
         enter = torch.maximum(t_, t_in)
         box_hit = occ_block & (t_out > enter)
 
-        # Up to 4 in-block cell steps from this one row.
+        # Up to 4 in-block cell steps from this one row. ``going``: the steps
+        # a ray-at-a-time march runs, which end at the first that changes
+        # nothing (counted for the stats).
         tk = torch.where(box_hit, enter, t_)
+        going = probing & box_hit
+        n_checks = n_steps = 0
         for _ in range(4):
             cellk = cell_of(tk)
             ik = cellk.long()
@@ -511,10 +522,23 @@ def _phase_a(accel: GridAccel, origins, dirs, setup, t, alive, t_far,
             t_exd = torch.where(put, tex[:, None], t_exd)
             count = count + take.long()
             tk = torch.where(stepk & (~bit | take), tex, tk)
+            if stats is not None:
+                n_checks = n_checks + going.sum()
+                going = going & stepk
+                n_steps = n_steps + going.sum()
+                going = going & (~bit | take)
 
         # Past the sub-box (or never in it): on to the block exit.
         t_occ = torch.where(box_hit & (tk < t_out), tk,
                             torch.maximum(t_bex, tk))
+        if stats is not None:
+            counts = torch.stack([
+                (probing & ~occ_block).sum(),
+                (probing & occ_block & ~box_hit).sum(),
+                (probing & box_hit & ~(tk < t_out)).sum(),
+                n_checks, n_steps]).tolist()
+            for name, n in zip(PROBE_STAT_KEYS, counts):
+                stats[name] = stats.get(name, 0) + n
         t_ = torch.where(probing, torch.where(occ_block, t_occ, t_jump), t_)
     paused = (t_ < t_far) & alive
     return slots, t_ent, t_exd, count, torch.where(alive, t_, t), paused
@@ -715,9 +739,9 @@ def march_plain(accel: GridAccel, origins, dirs, settings: RenderSettings,
     partial). ``active`` (R,) pre-kills rays; ``t_end`` makes the march a
     shadow segment; ``max_steps`` bounds the occupied cells composited per
     ray (the schedule is clipped to it). ``stats`` (a dict), when given,
-    gathers the block probes ("probes"), which block rows were probed
-    ("block_seen", (B,) bool) and how often each cell was composited
-    ("slot_visits", (S,) int64).
+    gathers the block probes ("probes", and by kind ``PROBE_STAT_KEYS``),
+    which block rows were probed ("block_seen", (B,) bool) and how often
+    each cell was composited ("slot_visits", (S,) int64).
     """
     r, dev = origins.shape[0], origins.device
     rounds = clip_schedule(schedule, max_steps)

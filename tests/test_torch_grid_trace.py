@@ -270,6 +270,13 @@ def test_march_dispatch_and_stats(world):
     assert seen.shape == (ta.btab.shape[0],)
     assert 0 < int((visits > 0).sum()) <= int(visits.sum())
     assert 0 < int(seen.sum()) <= stats["probes"]
+    # The probes by kind: each that enters a sub-box checks 1-4 in-block
+    # steps and takes at most as many.
+    hits = stats["probes"] - stats["probes_empty"] - stats["probes_missed"]
+    assert min(stats[k] for k in tgt.PROBE_STAT_KEYS) >= 0 and hits > 0
+    assert stats["block_exits"] <= hits
+    assert hits <= stats["step_checks"] <= 4 * hits
+    assert 0 < stats["steps"] <= stats["step_checks"]
     # Every composited cell lies in a probed, occupied block.
     occupied = torch.nonzero(ta.btab[:, 0] >= 0)[:, 0]
     bases = ta.btab[occupied, 1].contiguous()        # ascending slots
@@ -279,11 +286,14 @@ def test_march_dispatch_and_stats(world):
 
 
 @pytest.mark.cuda
-def test_grid_kernels_match_plain_on_card():
+@pytest.mark.parametrize("max_per_cell", [16, 32, 48, 128])
+def test_grid_kernels_match_plain_on_card(max_per_cell):
     """On the card, with no batch-level schedule in play (4096 rays, the
     full-coverage schedule without exit fractions), the kernel follows the
     plain march ray for ray: only sums and products round in another
-    order."""
+    order. The kernel spreads a cell's Kc slots over a ray's lanes (a warp
+    for a trace, one to four slots a lane; half a warp for a shadow
+    segment, one to eight), so each lane mapping is run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
     from pathtracer_gaussiansplatting_tpu_torch.kernels import grid_march
@@ -293,7 +303,7 @@ def test_grid_kernels_match_plain_on_card():
 
     dev = torch.device("cuda", 0)
     scene = surface_scene(5000, seed=13, device=dev)
-    accel = tgt.build_grid_accel(scene)
+    accel = tgt.build_grid_accel(scene, max_per_cell=max_per_cell)
     o, d = random_rays(4, 4096, sigma=0.8)
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
     t_end = torch.full((4096,), 2.0, device=dev)
@@ -310,3 +320,63 @@ def test_grid_kernels_match_plain_on_card():
         for g, w in zip(got[:2], want[:2]):
             if w is not None:
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_lanes_swap_applies_once():
+    """The lanes comparison's copy of csrc/grid_march.cu differs from it
+    in the two lanes constants alone; a source without them is refused."""
+    from pathlib import Path
+
+    from pathtracer_gaussiansplatting_tpu_torch.csrc import build
+    from pathtracer_gaussiansplatting_tpu_torch.tools import grid_march_lanes
+
+    text = (Path(build.CSRC_DIR) / "grid_march.cu").read_text()
+    swapped = grid_march_lanes.swapped_source(text)
+    diff = [(a, b) for a, b in zip(text.splitlines(), swapped.splitlines())
+            if a != b]
+    assert len(text.splitlines()) == len(swapped.splitlines())
+    assert [b.strip() for _, b in diff] == [
+        "constexpr int kTraceLanes = 16;", "constexpr int kVisLanes = 32;"]
+    with pytest.raises(ValueError, match="kTraceLanes"):
+        grid_march_lanes.swapped_source(text.replace("kTraceLanes", "kL"))
+
+
+def test_march_chunks_feed_the_march():
+    """The measured chunks (bounce rays, shadow segments to the emissive
+    panel, a 50% active mask) at a small size on the CPU: finite rays of
+    the asked count, segments of positive length where active, and the
+    plain march finishes them all."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
+        BinningConfig,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools import grid_march_lanes
+
+    scene = surface_scene(2000, seed=13, device=CPU)
+    cam = Camera(c2w=look_at((0.0, 0.2, 1.7), (0.0, -0.4, -0.5), device=CPU),
+                 fov_y_deg=60.0, width=32, height=16)
+    settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
+    chunks = grid_march_lanes.march_chunks(scene, cam, settings,
+                                           BinningConfig(), n=128)
+    accel = tgt.build_grid_accel(scene, max_per_cell=32)
+    assert [c[0] for c in chunks] == [
+        "bounce rays", "shadow segments to the emissive panel",
+        "bounce rays, 50% active"]
+    n_active = []
+    for name, o, d, kw in chunks:
+        assert o.shape == d.shape == (128, 3)
+        assert bool(torch.isfinite(o).all() and torch.isfinite(d).all())
+        active = kw["active"]
+        n_active.append(int(active.sum()))
+        if "t_end" in kw:
+            assert bool((kw["t_end"][active] > 0).all())
+        trans, _, frozen = tgt.march(accel, o, d, settings, 192,
+                                     with_features="t_end" not in kw, **kw)
+        assert not bool(frozen.any())
+        assert bool(((trans >= 0) & (trans <= 1)).all())
+    assert 0 < n_active[2] < n_active[0]
