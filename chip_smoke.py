@@ -34,14 +34,26 @@ are built from the checkout at first use. Then:
   phase 5  path tracing on the dense backend (csrc/dense_topk.cu,
            csrc/dense_visibility.cu): surface_scene(50k, seed 13) plus a
            point light, 800x800, depth 4. (a) both kernels against their
-           plain versions on a 65536-ray chunk of primary rays, of bounce
-           rays and of shadow segments; (c) the flat route,
-           make_accumulating_renderer + render_pose in 65536-ray chunks,
-           8 spp (timed, one sample profiled); (d) the tiled route,
-           make_tiled_pose_renderer, 4 spp, the forward tile kernel once
-           per sample; last, (b) one sample of pathtrace and of
+           plain versions (the top-K kernel bit-equal) on 65536-ray chunks
+           of primary rays, bounce rays and the pose seen from 20x as far
+           (thin-far), and of shadow segments to emissive surfels and to
+           the light, and the top-K kernel on four chunks of primary rays
+           in one launch (bit-equal); each kernel timed on each chunk
+           beside the pairs its cull keeps, the pairs with alpha > 0, its
+           bound by code path and the function's bound; (c) the flat
+           route, make_accumulating_renderer + render_pose in 65536-ray
+           chunks, 8 spp (timed, one sample profiled); (d) the tiled
+           route, make_tiled_pose_renderer, 4 spp, the forward tile
+           kernel once per sample, and both dense kernels held to their
+           plain versions with (a)'s gates on the first sample's first
+           bounce trace and shadow march (640000 rays in one launch);
+           both routes must serve every dense call the backend's table
+           (render/pipeline.TABLE_MISSES stays 0); last, (b) one sample
+           of pathtrace and of
            pathtrace_camera on the card against the CPU at 2000 Gaussians,
-           96x64, at depth 1 and depth 4. Both images are written to
+           96x64, at depth 1 and depth 4; (e) gradients of
+           render_radiance_dense through the top-K kernel against the
+           CPU's, at 2000 Gaussians, 64x48. Both images are written to
            chiprun_out/chip_smoke/;
   phase 6  the grid backend (csrc/grid_march.cu) at 500k Gaussians
            (surface_scene(500k, seed 13), built without a device: on the
@@ -128,8 +140,15 @@ HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
 # work is not counted): forward tile composite per (pixel, slot) pair
 # (eval_slot 33, composite_slot 33); backward ~230 (three evaluations, the
 # VJP chain, the per-slot sums); dense top-K and shadow visibility per (ray,
-# Gaussian) pair.
+# Gaussian) pair the exact path kept by the cull, and the cull test
+# (dense_common.cuh: cull_keep) per pair tested: x 3, x.d 5, |x|^2 5, the
+# Lagrange form 3, the radius 4, the compare 1.
 FWD_PAIR_FLOPS, BWD_PAIR_FLOPS, DENSE_PAIR_FLOPS = 66, 230, 60
+DENSE_CULL_FLOPS = 21
+# The group test (dense_common.cuh: group_keep) per (ray, group of 32 rows):
+# x 3, x.d 5, |x|^2 5, the slackened Lagrange form, its division and root
+# 8, |x| 1, the lower bound 5, the upper 2, the reach 5, the compares 3.
+DENSE_GROUP_FLOPS = 37
 # The grid march (csrc/grid_march.cu, grid_common.cuh), by code path: per
 # ray (setup_ray); per probe (the loop test and cell_of); per probe of an
 # empty block (its jump, besides the block exit); per probe of an occupied
@@ -165,11 +184,11 @@ GRID_PROFILE_NAMES = dict(tile_composite_fwd="tile_composite_fwd_kernel",
                           grid_visibility="grid_march_kernel<false")
 DENSE_PROFILE_NAMES = dict(dense_topk="dense_topk",
                            dense_visibility="dense_visibility")
-# Dense top-K: t relative and alpha absolute allowances where the kernel is
-# not bit-equal to its plain version (it is meant to be).
-TOPK_T_RTOL, TOPK_ALPHA_ATOL = 1e-6, 1e-6
-# Shadow visibility: the kernel multiplies in index order, torch.prod in
-# its own reduction order.
+# Phase 5e: the card's dense gradients against the CPU's, per leaf, over its
+# largest CPU gradient (CUDA and the CPU round exp differently).
+DENSE_GRAD_TOL = 1e-3
+# Shadow visibility: the kernel multiplies in Morton order, torch.prod in
+# index order and its own reduction order.
 VIS_RTOL, VIS_ATOL = 1e-5, 1e-6
 # Card vs CPU per path-traced sample: a pixel matches within the kernel
 # tolerance; at depth 1 at least PT_MIN_SHARE of them must. Deeper, each
@@ -181,6 +200,8 @@ VIS_RTOL, VIS_ATOL = 1e-5, 1e-6
 # difference stays under PT_MEAN_FRAC of the image mean.
 PT_MIN_SHARE, PT_DEEP_MIN_SHARE, PT_MEAN_FRAC = 0.99, 0.93, 0.01
 PT_CHUNK = 65536  # render_pose's ray chunk (part of the random stream)
+# The path-trace bench's camera (bench.py:124-128): eye and target.
+PT_EYE, PT_TARGET = (0.0, 0.2, 1.7), (0.0, -0.4, -0.5)
 RTOL, ATOL = 1e-3, 3e-4  # the reference's kernel-vs-oracle tolerances
 # The reference's tolerance for its analytic backward against autodiff
 # (tests/test_pallas_kernels.py, TestAnalyticBackward).
@@ -618,21 +639,29 @@ def pt_world(n: int, width: int, height: int, device):
     light = make_punctual_lights(position=[[0.6, 0.9, -0.4]],
                                  intensity=[4.0], color=[[1.0, 0.95, 0.85]],
                                  light_type=[0], device=device)
-    cam = Camera(c2w=look_at((0.0, 0.2, 1.7), (0.0, -0.4, -0.5),
-                             device=device),
+    cam = Camera(c2w=look_at(PT_EYE, PT_TARGET, device=device),
                  fov_y_deg=60.0, width=width, height=height)
     return scene, light, cam
 
 
-def topk_check(dt, o, d, table, k, settings, name: str) -> float:
-    """dense_topk kernel vs dense_topk_plain: idx equal wherever the key is
-    valid and not tied, t and alpha bit-equal (or, counted, within
-    TOPK_T_RTOL / TOPK_ALPHA_ATOL). Returns the max abs error of alpha."""
-    got = dt.dense_topk(o, d, table, k, settings)
-    want = dt.dense_topk_plain(o, d, table, k, settings)
+def _topk_key(want, sort_depths):
+    """The plain version's sort key per slot: t, or the slot's sort depth."""
+    return want[1] if sort_depths is None \
+        else sort_depths[want[0].long()]
+
+
+def topk_check(dt, args, name: str, phase: str = "5a") -> float:
+    """dense_topk on args (origins, dirs, DenseTable, K, settings[,
+    sort_depths, active]) in one launch against dense_topk_plain on the
+    same rays and the table's rows: idx equal wherever the key is valid and
+    not tied, t and alpha bit-equal (the cull drops only pairs whose exact
+    alpha is 0). Returns the max abs error of alpha (0)."""
+    o, d, table, k, settings, *rest = args
+    got = dt.dense_topk(*args)
+    want = dt.dense_topk_plain(o, d, table.rows, k, settings, *rest)
     torch.cuda.synchronize()
     valid = want[2] > 0
-    key = want[1]
+    key = _topk_key(want, rest[0] if rest else None)
     eq = key[:, 1:] == key[:, :-1]
     tied = torch.zeros_like(valid)
     tied[:, 1:] |= eq
@@ -640,108 +669,219 @@ def topk_check(dt, o, d, table, k, settings, name: str) -> float:
     idx_bad = int((valid & ~tied & (got[0] != want[0])).sum())
     n_t = int((got[1] != want[1]).sum())
     n_a = int((got[2] != want[2]).sum())
-    err_t = compare(got[1], want[1], f"{name} t", rtol=TOPK_T_RTOL, atol=0.0)
-    err_a = compare(got[2], want[2], f"{name} alpha", rtol=0.0,
-                    atol=TOPK_ALPHA_ATOL)
-    log(f"phase 5a {name}: dense_topk R={o.shape[0]}, N={table.shape[0]}, "
-        f"K={k}: {int(valid.sum())} valid slots, {int((valid & tied).sum())} "
-        f"tied; idx mismatches (valid, untied) {idx_bad}; t differs in {n_t} "
-        f"slots (max abs {err_t:.3e}), alpha in {n_a} (max abs {err_a:.3e})")
-    check(idx_bad == 0, f"{name}: {idx_bad} idx mismatches")
+    err_a = float((got[2] - want[2]).abs().max())
+    log(f"phase {phase} {name}: dense_topk R={o.shape[0]}, "
+        f"N={table.rows.shape[0]}, K={k}: {int(valid.sum())} valid slots, "
+        f"{int((valid & tied).sum())} tied; idx mismatches (valid, untied) "
+        f"{idx_bad}; t differs in {n_t} slots, alpha in {n_a} (max abs "
+        f"{err_a:.3e})")
+    check(idx_bad == 0 and n_t == 0 and n_a == 0,
+          f"{phase} {name}: dense_topk not bit-equal to its plain version "
+          f"({idx_bad} idx, {n_t} t, {n_a} alpha)")
     return err_a
 
 
-def vis_check(dt, o, d, t_end, table, settings, active, name: str) -> float:
-    got = dt.dense_visibility(o, d, t_end, table, settings, active)
-    want = dt.dense_visibility_plain(o, d, t_end, table, settings, active)
+def vis_check(dt, args, name: str, phase: str = "5a") -> float:
+    """dense_visibility on args (origins, dirs, t_end, DenseTable,
+    settings[, active]) in one launch against dense_visibility_plain on the
+    same segments, within VIS_RTOL / VIS_ATOL."""
+    o, d, t_end, table, settings, *rest = args
+    got = dt.dense_visibility(*args)
+    want = dt.dense_visibility_plain(o, d, t_end, table.rows, settings, *rest)
     torch.cuda.synchronize()
-    err = compare(got, want, f"{name} vis", rtol=VIS_RTOL, atol=VIS_ATOL)
-    log(f"phase 5a {name}: dense_visibility R={o.shape[0]}: "
-        f"{int(active.sum())} active, {int((got == want).sum())} bit-equal, "
+    err = compare(got, want, f"{phase} {name} vis", rtol=VIS_RTOL,
+                  atol=VIS_ATOL)
+    live = rest[0] if rest and rest[0] is not None \
+        else torch.ones_like(want, dtype=torch.bool)
+    log(f"phase {phase} {name}: dense_visibility R={o.shape[0]}: "
+        f"{int(live.sum())} active, {int((got == want).sum())} bit-equal, "
         f"max abs err {err:.3e} (rtol {VIS_RTOL}, atol {VIS_ATOL}), mean "
-        f"vis {float(want[active].mean()):.5f}")
+        f"vis {float(want[live].mean()):.5f}")
     return err
 
 
+def contributing_pairs(dt, o, d, rows, settings, active=None, t_end=None,
+                       rays_per_pass: int = 1024) -> int:
+    """(live ray, Gaussian) pairs whose exact alpha is > 0 (the plain
+    math, for the trace or, given t_end, for shadow segments), counted in
+    torch over ray chunks on the card."""
+    from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as gops
+
+    mean, m, opac = dt._unpack(rows)
+    count = 0
+    for s in range(0, o.shape[0], rays_per_pass):
+        e = min(s + rays_per_pass, o.shape[0])
+        ro, rd = o[s:e, None], d[s:e, None]
+        if t_end is None:
+            _, gval = gops.peak_response(ro, rd, mean, m, settings.t_min,
+                                         settings.t_max)
+            alpha = gops.alpha_from_response(
+                opac, gval, settings.alpha_min, settings.alpha_max,
+                settings.sigma_cut)
+        else:
+            alpha = gops.segment_transmittance_alpha(
+                ro, rd, mean, m, opac, settings.t_min, t_end[s:e, None],
+                settings.alpha_min, settings.alpha_max)
+        live = alpha > 0
+        if active is not None:
+            live &= active[s:e, None]
+        count += int(live.sum())
+    return count
+
+
+def dense_bound(dt, counts: dict, n_rays: int, n: int, k: int = 0) -> dict:
+    """The bound by code path: the group test on every (live ray, group),
+    the per-pair cull on every pair of a group reached, the exact path's
+    float operations on the pairs kept; bytes: the rays, the DenseTable
+    (sorted rows, order, group spheres) and the outputs once. Beside it two
+    figures that do not depend on the kernel's design: the function's bound
+    (the rays, the (N, 16) table and the outputs once, the exact path on
+    the pairs with alpha > 0 alone) and the all-pairs figure (every live
+    pair charged the exact path, as an unculled kernel does)."""
+    groups = -(-n // dt.GROUP_ROWS) * dt.GROUP_COLS
+    if k:   # rays in, the index-order rows' recount, (R, K) outputs
+        ray_bytes = 4.0 * n_rays * (6 + k * 3)
+        n_bytes = ray_bytes + 4.0 * (n * (2 * dt.TABLE_COLS + 1) + groups)
+    else:   # rays, t_end and the vis out, the active bytes
+        ray_bytes = 4.0 * n_rays * 8 + n_rays
+        n_bytes = ray_bytes + 4.0 * (n * dt.TABLE_COLS + groups)
+    flops = counts["group_tests"] * DENSE_GROUP_FLOPS \
+        + counts["tested"] * DENSE_CULL_FLOPS \
+        + counts["kept"] * DENSE_PAIR_FLOPS
+    res = bound(n_bytes, flops)
+    fn_bytes = ray_bytes + 4.0 * n * dt.TABLE_COLS
+    res["function_bound_ms"] = bound(
+        fn_bytes, counts["contributing"] * DENSE_PAIR_FLOPS)["bound_ms"]
+    res["all_pairs_bound_ms"] = bound(
+        n_bytes, counts["group_tests"] * dt.GROUP_ROWS
+        * DENSE_PAIR_FLOPS)["bound_ms"]
+    return res
+
+
 def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
-    """Phase 5a: both dense kernels against their plain versions on the
-    first 65536-ray chunk of the pose's primary rays, on bounce rays
-    sampled from their hits, and on shadow segments to emissive surfels
-    and to the point light; times on the primary chunk."""
-    from pathtracer_gaussiansplatting_tpu_torch.core import rng
-    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
-        generate_rays,
+    """Phase 5a: both dense kernels against their plain versions on
+    dense_chunks' chunks and on four chunks of primary rays in one launch,
+    each kernel timed on each chunk, with the cull's counts and the bound
+    recounted by code path."""
+    from pathtracer_gaussiansplatting_tpu_torch.tools import (
+        dense_table_order as dto,
     )
-    from pathtracer_gaussiansplatting_tpu_torch.core.types import Rays
-    from pathtracer_gaussiansplatting_tpu_torch.ops import bsdf
-    from pathtracer_gaussiansplatting_tpu_torch.render import lights
+
+    cull_counts = dto.cull_counts
+    ch = dto.dense_chunks(dt, scene, light, cam, settings, PT_CHUNK)
+    table, k, bo = ch["table"], ch["k"], ch["origins"]
+    topk_chunks, vis_chunks = ch["topk"], ch["vis"]
+    n = table.rows.shape[0]
+    o, d = topk_chunks[0][1:]
+    l_dir, t_end_e, act_e = vis_chunks[0][1:]
+    err_a = max(topk_check(dt, (co, cd, table, k, settings), name)
+                for name, co, cd in topk_chunks)
+    err_v = max(vis_check(dt, (bo, cd, te, table, settings, act), name)
+                for name, cd, te, act in vis_chunks)
+    # Four chunks of primary rays in one launch: held to the plain version
+    # as the chunks are, and timed (whether one chunk's wave of blocks
+    # leaves the card idle).
+    wide = (*ch["wide"], table, k, settings)
+    err_a = max(err_a, topk_check(
+        dt, wide, f"the first {4 * PT_CHUNK} primary rays in one launch"))
+
+    res = {}
+    for name, co, cd in topk_chunks:
+        cnt = cull_counts(dt, co, cd, table, settings)
+        cnt["contributing"] = contributing_pairs(dt, co, cd, table.rows,
+                                                 settings)
+        res[name] = dict(ms=cuda_ms(lambda: dt.dense_topk(
+            co, cd, table, k, settings), 5), **cnt,
+            **dense_bound(dt, cnt, PT_CHUNK, n, k))
+    for name, cd, te, act in vis_chunks:
+        cnt = cull_counts(dt, bo, cd, table, settings, act, te)
+        cnt["contributing"] = contributing_pairs(dt, bo, cd, table.rows,
+                                                 settings, act, te)
+        res[name] = dict(ms=cuda_ms(lambda: dt.dense_visibility(
+            bo, cd, te, table, settings, act), 5), **cnt,
+            **dense_bound(dt, cnt, PT_CHUNK, n))
+    for name, r in res.items():
+        kernel = "dense_visibility" if "shadow" in name else "dense_topk"
+        log(f"phase 5a {name}: {kernel} {r['ms']:.3f} ms (CUDA events, 5 "
+            f"launches); warps skip {1 - r['warp_group_share']:.4%} of "
+            f"(warp, group) pairs; the cull tests {r['tested']} pairs and "
+            f"keeps {r['kept']} ({r['kept'] / max(r['tested'], 1):.4%}), "
+            f"{r['contributing']} have alpha > 0; some lane keeps "
+            f"{r['warp'] / r['warps']:.4%} of (warp, row) pairs, the warp's "
+            f"exact-path turns are {r['turns'] / r['warps']:.4%} of them; "
+            f"bound by code path {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"({r['bound_flops']:.4e} flops, {r['bound_bytes']:.4e} bytes), "
+            f"{r['bound_ms'] / r['ms']:.1%} of its rate; the function's "
+            f"bound (the exact path on the pairs with alpha > 0 alone) "
+            f"{r['function_bound_ms']:.4f} ms, "
+            f"{r['function_bound_ms'] / r['ms']:.1%}; all-pairs bound "
+            f"(every pair charged the exact path) "
+            f"{r['all_pairs_bound_ms']:.4f} ms ({card})")
+    wide_ms = cuda_ms(lambda: dt.dense_topk(*wide), 5)
+    log(f"phase 5a: dense_topk on the pose's first {4 * PT_CHUNK} primary "
+        f"rays {wide_ms:.3f} ms, {wide_ms / 4:.3f} ms per {PT_CHUNK} "
+        f"(CUDA events, 5 launches; {card})")
+    topk_plain_ms = cuda_ms(
+        lambda: dt.dense_topk_plain(o, d, table.rows, k, settings), 1)
+    vis_plain_ms = cuda_ms(lambda: dt.dense_visibility_plain(
+        bo, l_dir, t_end_e, table.rows, settings, act_e), 1)
+    topk, vis = res["primary rays"], res["emissive shadow segments"]
+    log(f"phase 5a: dense_topk kernel {topk['ms']:.3f} ms, plain "
+        f"{topk_plain_ms:.3f} ms; dense_visibility kernel {vis['ms']:.3f} "
+        f"ms, plain {vis_plain_ms:.3f} ms (R={PT_CHUNK}, N={n}; CUDA events; "
+        f"{card})")
+    return dict(topk=dict(topk, max_abs_err=err_a, plain_ms=topk_plain_ms),
+                vis=dict(vis, max_abs_err=err_v, plain_ms=vis_plain_ms))
+
+
+def dense_grad_check(dev, card) -> None:
+    """Phase 5e: gradients of render_radiance_dense through the card's
+    kernel (it selects, torch recomputes t and alpha) against the CPU's,
+    at phase 1's small cloud (2000 Gaussians, sigma 0.17-0.45, so no pair
+    sits at a cutoff), 64x48: every leaf within DENSE_GRAD_TOL of its
+    largest CPU gradient, and the geometry's non-zero on the card."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, generate_rays, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        random_cloud,
+    )
     from pathtracer_gaussiansplatting_tpu_torch.render import reference as ref
 
-    rays = generate_rays(cam)
-    o = rays.origins[:PT_CHUNK].contiguous()
-    d = rays.directions[:PT_CHUNK].contiguous()
-    table = dt.gaussian_table(scene)
-    k = min(settings.max_contribs, scene.num_gaussians)
-    err_a = topk_check(dt, o, d, table, k, settings, "primary rays")
-
-    # Bounce rays from the hits, sampled as the bounce loop samples them.
-    with torch.no_grad():
-        inter = ref.trace_dense(scene, Rays(o, d), settings)
-    dkey = rng.fold_in(rng.prng_key(13), 0)
-    u = {dim: rng.ray_uniform(dkey, PT_CHUNK, dim, num, o.device)
-         for dim, num in ((7, 1), (8, 2), (12, 1), (13, 1), (14, 2))}
-    alpha = inter["alpha_acc"].clamp_min(1e-8)
-    n = inter["normal"]
-    scat = bsdf.sample_clearcoated(
-        u[12][:, 0], u[13][:, 0], u[14], n, -d, inter["albedo"] / alpha[:, None],
-        inter["metallic"], inter["roughness"].clamp_min(1e-3),
-        inter["clearcoat"], inter["cc_roughness"])
-    eps = settings.shadow_eps
-    bo = (inter["position"] + n * eps).contiguous()
-    err_a = max(err_a, topk_check(dt, bo, scat["direction"].contiguous(),
-                                  table, k, settings, "bounce rays"))
-
-    # Shadow segments to emissive surfels and to the point light.
-    tables = lights.build_light_tables(scene, light)
-    hit = inter["alpha_acc"] > 1e-4
-    em = lights.sample_emissive(u[7][:, 0], u[8], scene, tables)
-    to_l = em["position"] - inter["position"]
-    dist = torch.sqrt(torch.clamp_min((to_l * to_l).sum(-1), 1e-4))
-    l_dir = (to_l / dist[:, None]).contiguous()
-    act_e = hit & ((n * l_dir).sum(-1) > 1e-3)
-    err_v = vis_check(dt, bo, l_dir, (dist - 2 * eps).contiguous(), table,
-                      settings, act_e, "emissive shadow segments")
-    pl = lights.sample_punctual(u[7][:, 0], light, tables, inter["position"])
-    act_p = hit & ((n * pl["direction"]).sum(-1) > 1e-3)
-    err_v = max(err_v, vis_check(
-        dt, bo, pl["direction"].contiguous(),
-        (pl["dist"] - 2 * eps).contiguous(), table, settings, act_p,
-        "point-light shadow segments"))
-
-    t_end = (dist - 2 * eps).contiguous()
-    topk_ms = cuda_ms(lambda: dt.dense_topk(o, d, table, k, settings), 5)
-    topk_plain_ms = cuda_ms(
-        lambda: dt.dense_topk_plain(o, d, table, k, settings), 1)
-    vis_ms = cuda_ms(lambda: dt.dense_visibility(bo, l_dir, t_end, table,
-                                                 settings, act_e), 5)
-    vis_plain_ms = cuda_ms(lambda: dt.dense_visibility_plain(
-        bo, l_dir, t_end, table, settings, act_e), 1)
-    log(f"phase 5a: dense_topk kernel {topk_ms:.3f} ms, plain "
-        f"{topk_plain_ms:.3f} ms; dense_visibility kernel {vis_ms:.3f} ms, "
-        f"plain {vis_plain_ms:.3f} ms (R={PT_CHUNK}, N={table.shape[0]}; "
-        f"CUDA events; {card})")
-    # Every (ray, Gaussian) pair of the primary chunk, and of the active
-    # shadow segments; rays, the table and the outputs move once.
-    n = table.shape[0]
-    topk_b = bound(4.0 * (PT_CHUNK * 6 + n * dt.TABLE_COLS
-                          + PT_CHUNK * k * 3),
-                   PT_CHUNK * n * DENSE_PAIR_FLOPS)
-    vis_b = bound(4.0 * (PT_CHUNK * 8 + n * dt.TABLE_COLS) + PT_CHUNK,
-                  int(act_e.sum()) * n * DENSE_PAIR_FLOPS)
-    return dict(topk=dict(max_abs_err=err_a, ms=topk_ms,
-                          plain_ms=topk_plain_ms, **topk_b),
-                vis=dict(max_abs_err=err_v, ms=vis_ms,
-                         plain_ms=vis_plain_ms, **vis_b))
+    names = ("means", "log_scales", "quats", "opacity_logits", "sh_coeffs")
+    base = random_cloud(2000, seed=7, spread=1.2, scale_range=(-1.8, -0.8),
+                        device="cpu")
+    settings = RenderSettings(background=(0.1, 0.2, 0.3))
+    w = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (64 * 48, 3)).astype(np.float32))
+    grads = []   # the card's, then the CPU's
+    for device in (dev, torch.device("cpu")):
+        scene = base.to(device).replace(**{
+            k: getattr(base, k).to(device, copy=True).requires_grad_(True)
+            for k in names})
+        rays = generate_rays(Camera(
+            c2w=look_at((0.0, 0.5, 4.0), (0.0, 0.0, 0.0), device=device),
+            fov_y_deg=50.0, width=64, height=48))
+        loss = (w.to(device) * ref.render_radiance_dense(scene, rays,
+                                                         settings)).sum()
+        grads.append([g.cpu() for g in torch.autograd.grad(
+            loss, [getattr(scene, k) for k in names])])
+    errs = []
+    for k, g, c in zip(names, *grads):
+        scale = float(c.abs().max())
+        errs.append(float((g - c).abs().max()) / max(scale, 1e-30))
+        check(float(g.abs().max()) > 0 and scale > 0,
+              f"5e: zero gradient for {k}")
+        check(errs[-1] <= DENSE_GRAD_TOL,
+              f"5e: {k} gradient card vs CPU {errs[-1]:.3e} of its max")
+    log("phase 5e: render_radiance_dense gradients (2000 Gaussians, 64x48) "
+        "card vs CPU, max err over the leaf's max |g|: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in zip(names, errs))
+        + f" (allowed {DENSE_GRAD_TOL}); every leaf non-zero on the card "
+        f"({card})")
 
 
 def small_pt_check(dev, settings, backend: str = "dense",
@@ -922,9 +1062,11 @@ def check_pt_image(img: np.ndarray, settings, name: str) -> float:
 
 def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
     """Phase 5c: make_accumulating_renderer + render_pose, 65536-ray
-    chunks, spp samples; each chunk-sample's pathtrace is timed."""
+    chunks, spp samples; each chunk-sample's pathtrace is timed, and every
+    dense call must be served the backend's table."""
     from pathtracer_gaussiansplatting_tpu_torch.data import capture
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+    from pathtracer_gaussiansplatting_tpu_torch.render import pipeline
 
     w, h = cam.width, cam.height
     n_chunks = -(-w * h // PT_CHUNK)
@@ -932,11 +1074,13 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
                                                    spp, backend="dense")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = pipeline.TABLE_MISSES = 0
     with HostTimer(capture, "pathtrace") as timer:
         img, total_ms = host_ms(lambda: capture.render_pose(
             render_fn, cam.c2w, w, h, cam.fov_y_deg, chunk=PT_CHUNK))
     launches = (dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
+    check(pipeline.TABLE_MISSES == 0, f"5c: {pipeline.TABLE_MISSES} dense "
+          f"calls built their own table")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(len(timer.ms) == spp * n_chunks, "5c: pathtrace calls")
     sample_ms = [sum(timer.ms[c * spp + f] for c in range(n_chunks))
@@ -956,7 +1100,8 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
         f"{w * h * spp / (total_ms * 1e-3):.4e} path-traced rays/s; 512 spp "
         f"would take {512 * med / 6e4:.2f} min; launches per sample "
         f"dense_topk {launches[0] // spp}, dense_visibility "
-        f"{launches[1] // spp}; peak memory {peak_gib:.2f} GiB ({card})")
+        f"{launches[1] // spp}; table cache misses 0; peak memory "
+        f"{peak_gib:.2f} GiB ({card})")
     log(f"phase 5c: image finite, in [0, {settings.firefly_clamp}], mean "
         f"{mean:.5f}, max {img.max():.5f}; saved {os.path.relpath(jpg, ROOT)}")
     one = capture.make_accumulating_renderer(scene, settings, light, 1,
@@ -968,21 +1113,31 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
 
 def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
     """Phase 5d: make_tiled_pose_renderer with dense bounces, spp samples,
-    the forward tile kernel once per sample; bounces must add light over a
-    depth-1 render (emission and direct light only)."""
+    the forward tile kernel once per sample, every dense call served the
+    backend's table; bounces must add light over a depth-1 render
+    (emission and direct light only). Then both dense kernels on the first
+    sample's first bounce trace and first shadow march (the whole image in
+    one launch) against their plain versions with 5a's gates, and timed
+    there."""
     from pathtracer_gaussiansplatting_tpu_torch.data import capture
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+    from pathtracer_gaussiansplatting_tpu_torch.render import pipeline
 
     w, h = cam.width, cam.height
     render = capture.make_tiled_pose_renderer(scene, settings, light, spp,
                                               bounce_backend="dense")
     torch.cuda.synchronize()
     tc.LAUNCHES = dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    pipeline.TABLE_MISSES = 0
     with HostTimer(capture, "prepare_tiles") as prep, \
-            HostTimer(capture, "pathtrace_camera") as samples:
+            HostTimer(capture, "pathtrace_camera") as samples, \
+            FirstCalls(dt, "dense_topk") as traces, \
+            FirstCalls(dt, "dense_visibility") as marches:
         img = render(cam.c2w, w, h, cam.fov_y_deg)
         torch.cuda.synchronize()
     launches = (tc.LAUNCHES, dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
+    check(pipeline.TABLE_MISSES == 0, f"5d: {pipeline.TABLE_MISSES} dense "
+          f"calls built their own table")
     check(launches[0] == spp, f"5d: the forward tile kernel launched "
           f"{launches[0]} times for {spp} samples")
     check(launches[1:] == (spp * (settings.max_depth - 1),
@@ -1002,12 +1157,24 @@ def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
         f"{prep.ms[0]:.1f} ms; sample ms "
         f"{', '.join(f'{m:.1f}' for m in samples.ms)} (median {med:.1f}); "
         f"512 spp would take {(prep.ms[0] + 512 * med) / 6e4:.2f} min; "
-        f"launches (tile fwd, dense_topk, dense_visibility) {launches} "
-        f"({card})")
+        f"launches (tile fwd, dense_topk, dense_visibility) {launches}; "
+        f"table cache misses 0 ({card})")
     log(f"phase 5d: image finite, mean {mean:.5f} against {direct.mean():.5f}"
         f" at depth 1 (bounces add {mean / direct.mean() - 1:.1%}); saved "
         f"{os.path.relpath(jpg, ROOT)}")
-    return dict(launches=launches, median_ms=med)
+    (args, kw), (vargs, vkw) = traces.calls[None], marches.calls[None]
+    check(not kw and not vkw, "5d: the dense kernels were called with "
+          "keywords")
+    err_a = topk_check(dt, args, "the first sample's first bounce trace",
+                       "5d")
+    topk_ms = cuda_ms(lambda: dt.dense_topk(*args), 3)
+    err_v = vis_check(dt, vargs, "the first sample's first shadow march",
+                      "5d")
+    vis_ms = cuda_ms(lambda: dt.dense_visibility(*vargs), 3)
+    log(f"phase 5d: on those launches (R={args[0].shape[0]}) dense_topk "
+        f"{topk_ms:.3f} ms, dense_visibility {vis_ms:.3f} ms (CUDA events, 3 "
+        f"launches; {card})")
+    return dict(launches=launches, median_ms=med, max_abs_err=(err_a, err_v))
 
 
 # ---- bounds: the least time the card could take for a kernel's work ----
@@ -1776,6 +1943,7 @@ def main() -> int:
     del scene5
     small_pt_check(dev, dataclasses.replace(pt_settings, rr_start_depth=2,
                                             opaque_depth=3))
+    dense_grad_check(dev, card)
 
     # ---- phase 6: the grid backend at 500k Gaussians ------------------
     from pathtracer_gaussiansplatting_tpu_torch.csrc import grid_bin
@@ -1848,17 +2016,26 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, res, bnd):
+        all_pairs = "" if "all_pairs_bound_ms" not in bnd else (
+            f"; the function's bound (the exact path on the pairs with "
+            f"alpha > 0 alone) {bnd['function_bound_ms']:.4f} ms; all-pairs "
+            f"bound (every pair charged the exact path) "
+            f"{bnd['all_pairs_bound_ms']:.4f} ms")
         log(f"bound {name}: {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
             f"({bnd['bound_flops']:.4e} flops, {bnd['bound_bytes']:.4e} "
             f"bytes); kernel {res['ms']:.4f} ms = "
-            f"{bnd['bound_ms'] / res['ms']:.1%} of the bound's rate")
+            f"{bnd['bound_ms'] / res['ms']:.1%} of the bound's rate"
+            + all_pairs)
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
                     max_abs_err=res["max_abs_err"], ms=res["ms"],
                     plain_ms=res["plain_ms"], bound_ms=bnd["bound_ms"],
                     bound_by=bnd["bound_by"], library_ms=None)
 
-    topk, vis = dense["topk"], dense["vis"]
+    topk = dict(dense["topk"], max_abs_err=max(
+        dense["topk"]["max_abs_err"], tiled["max_abs_err"][0]))
+    vis = dict(dense["vis"], max_abs_err=max(
+        dense["vis"]["max_abs_err"], tiled["max_abs_err"][1]))
     log(json.dumps({"kernels": [
         entry("tile_composite_fwd", KERNEL_SOURCE, KERNEL_REPLACES,
               launches_p2 + launches_p3 + launches_p4[0]

@@ -9,12 +9,28 @@
 // segment, with the alpha_min cutoff and alpha_max clamp and, unlike the
 // trace, no sigma_cut. An inactive ray writes 1.
 //
-// What bounds it on this card: arithmetic, as for dense_topk.cu (~60
-// float operations, a division and an exp per pair, 52 bytes of Gaussian
-// per pair shared by the block). One thread per segment keeps its product
-// in a register; Gaussians are staged through shared memory 128 at a time.
-// The product runs in index order; the plain version's torch.prod reduces
-// in another order, so the two agree to rounding, not bit for bit.
+// What bounded it: the issue of the per-pair work, as for dense_topk.cu
+// (the exact pair ~110 instructions, a division and an exp, for ~0.1-0.5%
+// of pairs that have alpha > 0). So it evaluates fewer pairs
+// in dense_topk.cu's three conservative steps, with the shadow segment's
+// radii (no sigma_cut; tau = |t_end| where the segment ends before t_min):
+// a warp skips each group of 32 Morton-ordered rows that none of its
+// segments can reach, each segment tests the remaining rows with the
+// per-pair cull, and each lane multiplies in its own kept rows while the
+// warp loops as long as any lane has one left. A skipped pair's factor is
+// exactly 1, so the product over the remaining Gaussians, in Morton order,
+// is the unculled product in that order, bit for bit. One thread per
+// segment keeps its product in a register; the table's 64-byte rows are
+// staged 128 at a time into a double buffer by cp.async. The plain
+// version's torch.prod multiplies in index order and its own reduction
+// order, so the two agree to rounding, not bit for bit.
+//
+// What bounds it now (chip_smoke.py 5a on an NVIDIA H100 80GB HBM3,
+// 700.00 W; 65536 segments, 50k Gaussians): 1.92 ms on segments to
+// emissive surfels and 0.85 ms on segments to the point light, 6.3% and
+// 10.9% of the bound by code path (13.8 ms when every pair ran the exact
+// path). As for dense_topk.cu, a chunk is one wave of ~16 warps an SM and
+// a group costs its busiest lane's kept rows; past that, not measured.
 //
 // Plain C entry point (bound with ctypes); returns cudaGetLastError().
 
@@ -25,16 +41,27 @@
 namespace {
 
 using ptgs_dense::kCols;
+using ptgs_dense::kFullWarp;
 using ptgs_dense::kRays;
 using ptgs_dense::kStage;
+using ptgs_dense::kStageFloats;
+
+__device__ __forceinline__ void stage_async(const float* table, int n_gauss,
+                                            int base, float* sg) {
+  if (base < n_gauss)
+    ptgs_dense::stage_rows_async(table, base, min(kStage, n_gauss - base),
+                                 sg);
+  ptgs_dense::cp_async_commit();  // an empty group past the last stage
+}
 
 __global__ void __launch_bounds__(kRays) dense_visibility_kernel(
     const float* __restrict__ origins, const float* __restrict__ dirs,
-    const float* __restrict__ t_end, const float* __restrict__ table,
+    const float* __restrict__ t_end, const float* __restrict__ sorted_rows,
+    const float* __restrict__ groups,
     const unsigned char* __restrict__ active, float* __restrict__ vis_out,
     int n_rays, int n_gauss, float t_min, float alpha_min,
     float alpha_max) {
-  __shared__ float sg[kCols * kStage];
+  __shared__ __align__(16) float sg[2][kStageFloats];
 
   const int ray = blockIdx.x * kRays + threadIdx.x;
   const bool in_range = ray < n_rays;
@@ -45,42 +72,73 @@ __global__ void __launch_bounds__(kRays) dense_visibility_kernel(
     r = ptgs_dense::load_ray(origins, dirs, ray);
     te = t_end[ray];
   }
+  const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  // The clamped t lies within |t_peak| + tau of 0 (dense_common.cuh).
+  const float tau = te >= t_min ? t_min : fmaxf(t_min, fabsf(te));
+  const float tt = tau * tau * dd;
 
   float vis = 1.0f;
   if (__syncthreads_or(live)) {
-    for (int base = 0; base < n_gauss; base += kStage) {
+    stage_async(sorted_rows, n_gauss, 0, sg[0]);
+    for (int base = 0, buf = 0; base < n_gauss; base += kStage, buf ^= 1) {
       const int cnt = min(kStage, n_gauss - base);
+      stage_async(sorted_rows, n_gauss, base + kStage, sg[buf ^ 1]);
+      ptgs_dense::cp_async_wait<1>();
       __syncthreads();
-      ptgs_dense::stage_rows(table, base, cnt, sg);
-      __syncthreads();
-      if (!live) continue;
-      for (int j = 0; j < cnt; ++j) {
-        const float alpha = ptgs_dense::segment_alpha(
-            r, sg + j, kStage, t_min, te, alpha_min, alpha_max);
-        vis = __fmul_rn(vis, __fsub_rn(1.0f, alpha));
+      const float* g0 = sg[buf];
+      for (int j0 = 0; j0 < cnt; j0 += 32) {
+        // A warp none of whose segments can reach the 32 rows' sphere
+        // skips them.
+        bool reach = live;
+        if (reach) {
+          const float4* sph = reinterpret_cast<const float4*>(
+              groups + ((base + j0) / 32) * ptgs_dense::kGroupCols);
+          const float4 radii = __ldg(sph + 1);
+          reach = ptgs_dense::group_keep(r, dd, tt, __ldg(sph), radii.z,
+                                         radii.y);
+        }
+        if (!__any_sync(kFullWarp, reach)) continue;
+        unsigned pend =
+            reach ? ptgs_dense::cull_mask<3>(r, dd, tt, g0, j0, cnt) : 0u;
+        // Each lane multiplies in its own kept rows in staged order; the
+        // warp loops while any lane has one left (a vote).
+        while (__any_sync(kFullWarp, pend != 0u)) {
+          if (pend == 0u) continue;
+          const int j = j0 + __ffs(pend) - 1;
+          pend &= pend - 1u;
+          const float alpha = ptgs_dense::segment_alpha(
+              r, g0 + j * kCols, t_min, te, alpha_min, alpha_max);
+          vis = __fmul_rn(vis, __fsub_rn(1.0f, alpha));
+        }
       }
+      __syncthreads();  // this buffer is no longer read
     }
+    ptgs_dense::cp_async_wait<0>();
   }
   if (in_range) vis_out[ray] = vis;
 }
 
 }  // namespace
 
-// origins, dirs (R, 3), t_end (R,), table (N, 13), optional active (R,)
-// (bool as bytes; NULL for none) in; vis (R,) out; float32, contiguous.
-// Returns a cudaError_t.
+// origins, dirs (R, 3), t_end (R,), the DenseTable's sorted_rows (N, 16)
+// (kernels/dense_trace.py: dense_table; 16-byte aligned) and groups
+// (ceil(N / 32), 8), optional active (R,) (bool as bytes; NULL for none)
+// in; vis (R,) out; float32, contiguous. Returns a cudaError_t.
 extern "C" int ptgs_dense_visibility(const float* origins, const float* dirs,
-                                     const float* t_end, const float* table,
+                                     const float* t_end,
+                                     const float* sorted_rows,
+                                     const float* groups,
                                      const unsigned char* active, float* vis,
                                      int n_rays, int n_gauss, float t_min,
                                      float alpha_min, float alpha_max,
                                      void* stream) {
-  if (n_rays <= 0 || n_gauss <= 0)
+  if (n_rays <= 0 || n_gauss <= 0 || groups == nullptr ||
+      reinterpret_cast<size_t>(sorted_rows) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n_rays + kRays - 1) / kRays;
   dense_visibility_kernel<<<blocks, kRays, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      origins, dirs, t_end, table, active, vis, n_rays, n_gauss, t_min,
-      alpha_min, alpha_max);
+      origins, dirs, t_end, sorted_rows, groups, active, vis, n_rays,
+      n_gauss, t_min, alpha_min, alpha_max);
   return static_cast<int>(cudaGetLastError());
 }

@@ -98,7 +98,9 @@ def make_tiled_pose_renderer(scene: GaussianScene, settings: RenderSettings,
     backend named ``bounce_backend`` (``backend_kw`` such as ``accel=`` go
     to ``make_trace_backend``, so one grid serves every pose), accumulated.
     ``stats_out`` (a dict) gathers the binning stats and the backend's
-    frozen shadow rays, summed over poses.
+    frozen shadow rays, summed over poses, and, for the grid backend, the
+    grid's truncation stats as ``grid_<key>`` (set, not summed: one grid
+    serves every pose).
     """
     config = binning_config or BinningConfig()
     tables = lights_mod.build_light_tables(scene, punctual)
@@ -135,6 +137,10 @@ def make_tiled_pose_renderer(scene: GaussianScene, settings: RenderSettings,
                     stats_out[k[5:]] = stats_out.get(k[5:], 0.0) + float(v)
             stats_out["frozen_alive"] = (stats_out.get("frozen_alive", 0.0)
                                          + float(frozen))
+            if trace_backend.accel is not None:
+                for k, v in trace_backend.accel.stats_dict.items():
+                    if isinstance(v, (int, float)):
+                        stats_out["grid_" + k] = float(v)
         return acc.reshape(height, width, 3)
 
     return render

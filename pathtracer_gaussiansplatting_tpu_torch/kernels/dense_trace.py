@@ -6,19 +6,32 @@ Counterpart of the (R, N) stages of
 (its ``dense_topk``: every Gaussian against every ray, the K nearest
 contributors kept) and ``dense_visibility`` (its ``visibility_dense`` with
 the active mask of ``render/pipeline.py:_dense_vis``). Both evaluate the
-Gaussians from one (N, 13) table, :func:`gaussian_table`.
+Gaussians from one (N, 16) table, :func:`gaussian_table`.
 
 For CUDA tensors they launch the CUDA kernels ``csrc/dense_topk.cu``
 (counted in ``TOPK_LAUNCHES``) and ``csrc/dense_visibility.cu`` (counted in
 ``VIS_LAUNCHES``); for CPU tensors they run ``dense_topk_plain`` and
-``dense_visibility_plain``. There is no fallback from the card to the
-plain versions: a CUDA input either launches the kernel or raises.
+``dense_visibility_plain``, the unculled math. There is no fallback from
+the card to the plain versions: a CUDA input either launches the kernel or
+raises.
+
+The kernels skip a pair whose mean lies farther from the ray's line than
+the Gaussian can reach (:func:`dense_cull_keep` is the same predicate in
+torch, for the tests; ``csrc/dense_common.cuh`` derives its radii), and a
+warp skips a whole group of 32 rows that none of its rays can reach
+(:func:`dense_group_keep`): the kernels read the rows in Morton order of
+the means, with each group's bounding sphere (:class:`DenseTable`). A
+culled pair has alpha = 0 in the exact math as well, so the top-K kernel
+stays bit-equal to ``dense_topk_plain`` (equal keys go by index, as the
+plain version's stable sort has them) and a culled shadow factor is
+exactly 1.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -30,20 +43,136 @@ from pathtracer_gaussiansplatting_tpu_torch.kernels.tile_composite import (
 )
 from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as gops
 
-TABLE_COLS = 13  # mean (3), M = diag(1/s) R^T row-major (9), opacity (1)
+# mean (3), M = diag(1/s) R^T row-major (9), opacity, and the cull radii:
+# R0 of the trace, R1, R0 of a shadow segment. 64 bytes a row.
+TABLE_COLS = 16
+COL_R0_TRACE, COL_R1, COL_R0_SHADOW = 13, 14, 15
 MAX_K = 128      # the largest list the top-K kernel keeps per ray
+
+# Rows a group sphere bounds (a warp's cull step, csrc/dense_common.cuh),
+# and its columns: center (3), radius, the group's largest R0 of the trace,
+# R1 and R0 of a shadow segment, 0.
+GROUP_ROWS, GROUP_COLS = 32, 8
 
 TOPK_LAUNCHES = 0  # dense_topk kernel launches; read by chip_smoke.py
 VIS_LAUNCHES = 0   # dense_visibility kernel launches; read by chip_smoke.py
 PLAIN_CHUNK_ELEMS = 1 << 24  # (rays, N) pairs per plain-version chunk
 
+# The cull's margins (csrc/dense_common.cuh derives them): the relative
+# slack of both sides, the absolute slack in q for expf and the cutoffs'
+# rounding, and float32's unit roundoff.
+CULL_DELTA, CULL_Q_ABS, _EPS = 0.01, 1e-5, 2.0 ** -24
 
-def gaussian_table(scene: GaussianScene) -> torch.Tensor:
-    """The (N, 13) float32 table both kernels read: mean, the canonical
-    transform M = diag(1/s) R^T row-major, opacity."""
+
+def cull_radii(log_scales: torch.Tensor, opacities: torch.Tensor,
+               settings: RenderSettings):
+    """(R0 of the trace, R1, R0 of a shadow segment), each (N,) float32:
+    a pair is culled where |x × d|^2 > |d|^2 (R0 + R1 (|x|^2 + tau^2
+    |d|^2)), x = o - mean. R0 = sigma_max^2 (q_lim + CULL_Q_ABS), with
+    q_lim = min(sigma_cut^2, 2 ln(opac / alpha_min)) for the trace and
+    2 ln(opac / alpha_min) for a segment; -inf (always culled) where opac
+    lies below alpha_min by more than the slack. Computed in float64 from
+    the float32 inverse scales that M is built from."""
+    inv_s = torch.exp(-log_scales).double()
+    s_max = 1.0 / inv_s.min(dim=-1).values
+    rho = s_max * inv_s.max(dim=-1).values
+    grow = (1.0 + CULL_DELTA) * (1.0 + 32.0 * _EPS * rho)
+    ln_term = 2.0 * torch.log(opacities.double() / settings.alpha_min)
+
+    def r0(q_raw):
+        r = s_max * s_max * (torch.clamp_min(q_raw, 0.0) + CULL_Q_ABS) * grow
+        return torch.where(q_raw < -CULL_Q_ABS, -math.inf, r).float()
+
+    per_x2 = 56.0 * _EPS + 108.0 * _EPS * _EPS * (1.0 + rho) ** 2 / CULL_DELTA
+    r1 = (rho * rho * per_x2 * (1.0 + 1e-4) + 16.0 * _EPS) * grow
+    return (r0(torch.clamp_max(ln_term, settings.sigma_cut ** 2)), r1.float(),
+            r0(ln_term))
+
+
+def gaussian_table(scene: GaussianScene,
+                   settings: RenderSettings) -> torch.Tensor:
+    """The (N, 16) float32 table both kernels read: mean, the canonical
+    transform M = diag(1/s) R^T row-major, opacity, and the cull radii of
+    :func:`cull_radii` for ``settings``' sigma_cut and alpha_min. A table
+    serves only the scene (and the sigma_cut and alpha_min) it was built
+    from. The plain versions differentiate through its first 13 columns;
+    the kernels' outputs carry no gradient."""
     m = gops.canonical_transforms(scene.log_scales, scene.quats)
-    return torch.cat([scene.means, m.reshape(-1, 9),
-                      scene.opacities[:, None]], dim=-1).contiguous()
+    opac = scene.opacities
+    with torch.no_grad():
+        radii = cull_radii(scene.log_scales, opac, settings)
+    return torch.cat([scene.means, m.reshape(-1, 9), opac[:, None],
+                      *(x[:, None] for x in radii)], dim=-1).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseTable:
+    """A :func:`gaussian_table` as the kernels read it (:func:`dense_table`).
+
+    rows (N, 16): the table in index order (the plain versions' and the
+    top-K kernel's final t and alpha); sorted_rows (N, 16): the rows in
+    Morton order of the means, which the kernels stage; order (N,) int32:
+    each sorted row's index; groups (ceil(N / 32), 8): each 32 rows of
+    sorted_rows as a sphere around all their means (center, radius) and
+    their largest R0 of the trace, R1 and R0 of a shadow segment.
+    """
+
+    rows: torch.Tensor
+    sorted_rows: torch.Tensor
+    order: torch.Tensor
+    groups: torch.Tensor
+
+
+def _spread_bits(v: torch.Tensor) -> torch.Tensor:
+    """10-bit integers with two zero bits after each bit (a Morton axis)."""
+    v = v & 0x3FF
+    for shift, mask in ((16, 0x30000FF), (8, 0x300F00F), (4, 0x30C30C3),
+                        (2, 0x9249249)):
+        v = (v | (v << shift)) & mask
+    return v
+
+
+def morton_order(means: torch.Tensor) -> torch.Tensor:
+    """(N,) int64: the permutation that sorts (N, 3) ``means`` by the
+    30-bit Morton code of their place in the means' bounding box, equal
+    codes by index."""
+    with torch.no_grad():
+        mean = means.double()
+        lo, hi = mean.amin(0), mean.amax(0)
+        q = torch.clamp(((mean - lo) / torch.clamp_min(hi - lo, 1e-30)
+                         * 1023.0).long(), 0, 1023)
+        code = _spread_bits(q[:, 0]) | (_spread_bits(q[:, 1]) << 1) \
+            | (_spread_bits(q[:, 2]) << 2)
+        return torch.argsort(code, stable=True)
+
+
+def dense_table(table: torch.Tensor) -> DenseTable:
+    """The :class:`DenseTable` the kernels read, of a (N, 16)
+    :func:`gaussian_table`: its rows in :func:`morton_order` of their
+    means (:func:`table_in_order`)."""
+    return table_in_order(table, morton_order(table[:, :3]))
+
+
+def table_in_order(table: torch.Tensor, order: torch.Tensor) -> DenseTable:
+    """The :class:`DenseTable` of a (N, 16) :func:`gaussian_table` with its
+    rows staged in ``order`` (a permutation of N), and each 32-row group's
+    sphere, computed in float64 and rounded outward."""
+    with torch.no_grad():
+        n = table.shape[0]
+        sorted_rows = table.detach()[order].contiguous()
+        n_groups = -(-n // GROUP_ROWS)
+        padded = torch.cat([sorted_rows, sorted_rows[-1:].expand(
+            n_groups * GROUP_ROWS - n, -1)]).reshape(
+                n_groups, GROUP_ROWS, TABLE_COLS).double()
+        m = padded[..., :3]
+        center = ((m.amin(1) + m.amax(1)) / 2).float().double()
+        radius = (m - center[:, None]).norm(dim=-1).amax(1) * (1.0 + 1e-6)
+        groups = torch.cat([center, radius[:, None],
+                            padded[..., COL_R0_TRACE:].amax(1),
+                            torch.zeros_like(radius[:, None])], dim=-1)
+        return DenseTable(rows=table, sorted_rows=sorted_rows,
+                          order=order.to(torch.int32),
+                          groups=groups.float().contiguous())
 
 
 def _unpack(table: torch.Tensor):
@@ -120,28 +249,114 @@ def dense_visibility_plain(origins: torch.Tensor, dirs: torch.Tensor,
     return vis
 
 
+def _ray_terms(dirs: torch.Tensor, settings: RenderSettings,
+               t_end: Optional[torch.Tensor]):
+    """(|d|^2, tau^2 |d|^2), each (R, 1): tau = t_min, or for a segment
+    that ends before t_min, |t_end| (csrc/dense_common.cuh)."""
+    d0, d1, d2 = (dirs[:, i:i + 1] for i in range(3))
+    dd = d0 * d0 + d1 * d1 + d2 * d2
+    if t_end is None:
+        tau = torch.full_like(dd, settings.t_min)
+    else:
+        te = t_end[:, None]
+        tau = torch.where(te >= settings.t_min, settings.t_min,
+                          torch.clamp_min(te.abs(), settings.t_min))
+    return dd, tau * tau * dd
+
+
+def _line_terms(origins: torch.Tensor, dirs: torch.Tensor,
+                points: torch.Tensor):
+    """(x.d, |x|^2), each (R, P), x = o - point."""
+    x = origins[:, None, :] - points[None]
+    x0, x1, x2 = x[..., 0], x[..., 1], x[..., 2]
+    d0, d1, d2 = (dirs[:, i:i + 1] for i in range(3))
+    return x0 * d0 + x1 * d1 + x2 * d2, x0 * x0 + x1 * x1 + x2 * x2
+
+
+def dense_cull_keep(origins: torch.Tensor, dirs: torch.Tensor,
+                    table: torch.Tensor, settings: RenderSettings,
+                    t_end: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(R, N) bool: the pairs that the kernels' cull keeps (evaluate
+    exactly), for the trace or, given ``t_end`` (R,), for shadow segments.
+    The predicate of ``csrc/dense_common.cuh:cull_keep`` in torch, for the
+    tests and for counting the kernels' work; the card's FMA contraction
+    may round it differently, which the radii allow for. Unchunked."""
+    dd, tt = _ray_terms(dirs, settings, t_end)
+    xd, xx = _line_terms(origins, dirs, table[:, 0:3])
+    r0 = table[None, :, COL_R0_TRACE if t_end is None else COL_R0_SHADOW]
+    r1 = table[None, :, COL_R1]
+    return ~(xx * dd - xd * xd > dd * (r0 + r1 * (xx + tt)))
+
+
+def dense_group_keep(origins: torch.Tensor, dirs: torch.Tensor,
+                     table: DenseTable, settings: RenderSettings,
+                     t_end: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(R, groups) bool: the 32-row groups of ``table.sorted_rows`` that
+    each ray may reach (``csrc/dense_common.cuh:group_keep`` in torch);
+    for the trace or, given ``t_end``, for shadow segments."""
+    dd, tt = _ray_terms(dirs, settings, t_end)
+    st = table.groups
+    xd, xx = _line_terms(origins, dirs, st[:, 0:3])
+    rad = st[None, :, 3]
+    r0 = st[None, :, 4 if t_end is None else 6]
+    dist = torch.sqrt(torch.clamp_min(xx * dd - xd * xd - 1e-5 * xx * dd, 0.0)
+                      / dd)
+    length = torch.sqrt(xx)
+    lo = dist * (1.0 - 1e-6) - rad * (1.0 + 1e-6) - 1e-6 * length
+    far = length * (1.0 + 1e-5) + rad
+    return ~((lo > 0.0)
+             & (lo * lo > (r0 + st[None, :, 5] * (far * far + tt)) * 1.001))
+
+
 def _check(name: str, tensors: dict, expect: dict) -> None:
     for key, x in tensors.items():
-        dtype = torch.bool if key == "active" else torch.float32
+        dtype = dict(active=torch.bool, order=torch.int32).get(
+            key, torch.float32)
         if tuple(x.shape) != expect[key] or x.dtype != dtype \
                 or not x.is_contiguous():
             raise ValueError(
                 f"{name}: {key} must be a contiguous {dtype} tensor of shape "
                 f"{expect[key]}, got {x.dtype} {tuple(x.shape)} "
                 f"contiguous={x.is_contiguous()}")
+    # The kernels stage the rows with 16-byte copies.
+    if tensors["sorted_rows"].data_ptr() % 16:
+        raise ValueError(f"{name}: the sorted rows must start on a 16-byte "
+                         f"boundary")
 
 
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
 
 
-_TOPK_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+def _dense(name: str, table, tensors: dict):
+    """(the table's rows, its DenseTable on the card or None on the CPU);
+    a bare (N, 16) table is staged here, on every call."""
+    rows = table.rows if isinstance(table, DenseTable) else table
+    if _on_cpu(name, dict(tensors, table=rows)):
+        return rows, None
+    return rows, table if isinstance(table, DenseTable) else dense_table(rows)
+
+
+def _check_table(name: str, dtab: DenseTable, tensors: dict,
+                 expect: dict) -> None:
+    """Checks the kernel's inputs and the DenseTable's tensors."""
+    n = dtab.rows.shape[0]
+    tensors = dict(tensors, rows=dtab.rows, sorted_rows=dtab.sorted_rows,
+                   order=dtab.order, groups=dtab.groups)
+    _check(name, tensors, dict(
+        expect, rows=(n, TABLE_COLS), sorted_rows=(n, TABLE_COLS),
+        order=(n,), groups=(-(-n // GROUP_ROWS), GROUP_COLS)))
+
+
+_TOPK_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-_VIS_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+_VIS_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
+Table = Union[torch.Tensor, DenseTable]
 
-def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
+
+def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: Table,
                k: int, settings: RenderSettings,
                sort_depths: Optional[torch.Tensor] = None,
                active: Optional[torch.Tensor] = None):
@@ -149,23 +364,24 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
     :func:`dense_topk_plain` for the outputs). CPU tensors run the plain
     version; CUDA tensors launch ``csrc/dense_topk.cu``, bit-equal to it.
 
-    Args: origins, dirs (R, 3); table (N, 13) from :func:`gaussian_table`;
-    1 <= k <= min(N, 128); sort_depths (N,) to order by in place of t;
-    active (R,) bool.
+    Args: origins, dirs (R, 3); table: the (N, 16) :func:`gaussian_table`
+    for this scene and ``settings``, or its :func:`dense_table` (built once
+    for the card); 1 <= k <= min(N, 128); sort_depths (N,) to order by in
+    place of t; active (R,) bool.
     """
     global TOPK_LAUNCHES
-    tensors = dict(origins=origins, dirs=dirs, table=table)
+    tensors = dict(origins=origins, dirs=dirs)
     if sort_depths is not None:
         tensors["sort_depths"] = sort_depths
     if active is not None:
         tensors["active"] = active
-    if _on_cpu("dense_topk", tensors):
-        return dense_topk_plain(origins, dirs, table, k, settings,
+    rows, dtab = _dense("dense_topk", table, tensors)
+    if dtab is None:
+        return dense_topk_plain(origins, dirs, rows, k, settings,
                                 sort_depths, active)
-    r, n = origins.shape[0], table.shape[0]
-    _check("dense_topk", tensors, dict(
-        origins=(r, 3), dirs=(r, 3), table=(n, TABLE_COLS),
-        sort_depths=(n,), active=(r,)))
+    r, n = origins.shape[0], rows.shape[0]
+    _check_table("dense_topk", dtab, tensors, dict(
+        origins=(r, 3), dirs=(r, 3), sort_depths=(n,), active=(r,)))
     if not 1 <= k <= min(n, MAX_K):
         raise ValueError(f"dense_topk: K={k} must lie in [1, min(N={n}, "
                          f"{MAX_K})]")
@@ -175,12 +391,16 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
     alpha = torch.empty((r, k), dtype=torch.float32, device=dev)
     if r == 0:
         return idx, t, alpha
+    # The kernel reads the sort depths in the staged (sorted) order.
+    sd = None if sort_depths is None \
+        else sort_depths.index_select(0, dtab.order)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn("ptgs_dense_topk", _TOPK_ARGTYPES)(
-            origins.data_ptr(), dirs.data_ptr(), table.data_ptr(),
-            _ptr(sort_depths), _ptr(active), idx.data_ptr(), t.data_ptr(),
-            alpha.data_ptr(), r, n, k, settings.t_min, settings.t_max,
+            origins.data_ptr(), dirs.data_ptr(), rows.data_ptr(),
+            dtab.sorted_rows.data_ptr(), dtab.order.data_ptr(),
+            dtab.groups.data_ptr(), _ptr(sd), _ptr(active), idx.data_ptr(),
+            t.data_ptr(), alpha.data_ptr(), r, n, k, settings.t_min, settings.t_max,
             settings.alpha_min, settings.alpha_max, _gval_cut(settings),
             stream)
     if err != 0:
@@ -191,23 +411,24 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: torch.Tensor,
 
 
 def dense_visibility(origins: torch.Tensor, dirs: torch.Tensor,
-                     t_end: torch.Tensor, table: torch.Tensor,
+                     t_end: torch.Tensor, table: Table,
                      settings: RenderSettings,
                      active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Shadow visibility (R,) of the segments [t_min, t_end] (see
-    :func:`dense_visibility_plain`). CPU tensors run the plain version;
-    CUDA tensors launch ``csrc/dense_visibility.cu``."""
+    :func:`dense_visibility_plain`; ``table`` as for :func:`dense_topk`).
+    CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/dense_visibility.cu``."""
     global VIS_LAUNCHES
-    tensors = dict(origins=origins, dirs=dirs, t_end=t_end, table=table)
+    tensors = dict(origins=origins, dirs=dirs, t_end=t_end)
     if active is not None:
         tensors["active"] = active
-    if _on_cpu("dense_visibility", tensors):
-        return dense_visibility_plain(origins, dirs, t_end, table, settings,
+    rows, dtab = _dense("dense_visibility", table, tensors)
+    if dtab is None:
+        return dense_visibility_plain(origins, dirs, t_end, rows, settings,
                                       active)
-    r, n = origins.shape[0], table.shape[0]
-    _check("dense_visibility", tensors, dict(
-        origins=(r, 3), dirs=(r, 3), t_end=(r,), table=(n, TABLE_COLS),
-        active=(r,)))
+    r, n = origins.shape[0], rows.shape[0]
+    _check_table("dense_visibility", dtab, tensors, dict(
+        origins=(r, 3), dirs=(r, 3), t_end=(r,), active=(r,)))
     vis = torch.empty((r,), dtype=torch.float32, device=origins.device)
     if r == 0 or n == 0:
         return vis.fill_(1.0)
@@ -215,8 +436,9 @@ def dense_visibility(origins: torch.Tensor, dirs: torch.Tensor,
         stream = torch.cuda.current_stream(origins.device).cuda_stream
         err = _kernel_fn("ptgs_dense_visibility", _VIS_ARGTYPES)(
             origins.data_ptr(), dirs.data_ptr(), t_end.data_ptr(),
-            table.data_ptr(), _ptr(active), vis.data_ptr(), r, n,
-            settings.t_min, settings.alpha_min, settings.alpha_max, stream)
+            dtab.sorted_rows.data_ptr(), dtab.groups.data_ptr(), _ptr(active),
+            vis.data_ptr(), r, n, settings.t_min, settings.alpha_min,
+            settings.alpha_max, stream)
     if err != 0:
         raise RuntimeError(f"dense_visibility: kernel launch failed with "
                            f"CUDA error {err}")

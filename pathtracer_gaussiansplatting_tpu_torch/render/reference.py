@@ -26,21 +26,60 @@ from pathtracer_gaussiansplatting_tpu_torch.ops.safe_math import (
 )
 
 
+def _geometry_needs_grad(scene: GaussianScene) -> bool:
+    """Whether autograd wants t and alpha: grad mode is on and a geometry
+    or opacity leaf requires grad."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in (scene.means, scene.log_scales, scene.quats,
+                                  scene.opacity_logits))
+
+
+def selected_peaks(scene: GaussianScene, origins: torch.Tensor,
+                   dirs: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor,
+                   settings: RenderSettings):
+    """(t, alpha) (R, K) of the selected pairs ``idx`` recomputed in torch
+    from the scene's parameters, so differentiable: the plain version's
+    operations on the same operands (bit-equal to it on the CPU); t_max
+    and 0 where ``valid`` is false."""
+    i = idx.long()
+    m = gops.canonical_transforms(scene.log_scales[i], scene.quats[i])
+    t, gval = gops.peak_response(origins[:, None], dirs[:, None],
+                                 scene.means[i], m, settings.t_min,
+                                 settings.t_max)
+    alpha = gops.alpha_from_response(scene.opacities[i], gval,
+                                     settings.alpha_min, settings.alpha_max,
+                                     settings.sigma_cut)
+    return (torch.where(valid, t, settings.t_max),
+            torch.where(valid, alpha, 0.0))
+
+
 def dense_topk(scene: GaussianScene, rays: Rays, settings: RenderSettings,
                sort_depths: Optional[torch.Tensor] = None,
-               active: Optional[torch.Tensor] = None):
+               active: Optional[torch.Tensor] = None,
+               table: Optional[dense_trace.Table] = None):
     """Top-K nearest contributing Gaussians per ray, front to back, K =
     min(max_contribs, N).
 
     ``sort_depths`` (N,) orders by per-Gaussian depths in place of the
-    per-ray peak t (the tile path's mean-depth order). Returns idx (R, K)
+    per-ray peak t (the tile path's mean-depth order). ``table`` is
+    ``dense_trace.gaussian_table(scene, settings)`` or its ``dense_table``,
+    built once by the caller (built here when None). Returns idx (R, K)
     int32 (0 where invalid), t (R, K) (t_max where invalid) and alpha
-    (R, K) (0 where invalid or where ``active`` (R,) is false).
+    (R, K) (0 where invalid or where ``active`` (R,) is false). Where
+    autograd wants them (a geometry or opacity leaf requires grad), t and
+    alpha are recomputed from the scene for the selected pairs
+    (:func:`selected_peaks`), since the kernel's outputs carry no
+    gradient; only idx and validity come from the kernel.
     """
     k = min(settings.max_contribs, scene.num_gaussians)
-    return dense_trace.dense_topk(
-        rays.origins.contiguous(), rays.directions.contiguous(),
-        dense_trace.gaussian_table(scene), k, settings, sort_depths, active)
+    if table is None:
+        table = dense_trace.gaussian_table(scene, settings)
+    o, d = rays.origins.contiguous(), rays.directions.contiguous()
+    idx, t, alpha = dense_trace.dense_topk(o, d, table, k, settings,
+                                           sort_depths, active)
+    if _geometry_needs_grad(scene):
+        t, alpha = selected_peaks(scene, o, d, idx, alpha > 0, settings)
+    return idx, t, alpha
 
 
 def _gather_features(scene: GaussianScene, rays: Rays, idx: torch.Tensor,
@@ -64,14 +103,17 @@ def _gather_features(scene: GaussianScene, rays: Rays, idx: torch.Tensor,
 
 def trace_dense(scene: GaussianScene, rays: Rays, settings: RenderSettings,
                 sort_depths: Optional[torch.Tensor] = None,
-                active: Optional[torch.Tensor] = None
+                active: Optional[torch.Tensor] = None,
+                table: Optional[dense_trace.Table] = None
                 ) -> Dict[str, torch.Tensor]:
     """Trace rays against the whole scene and composite one aggregate
     surface interaction per ray: (R, ...) radiance_emitted, albedo,
     normal, position, depth, metallic, roughness, clearcoat, cc_roughness,
     transmission, alpha_acc, trans and hit. A ray that ``active`` masks
-    out composites nothing (alpha 0 everywhere)."""
-    idx, t, alpha = dense_topk(scene, rays, settings, sort_depths, active)
+    out composites nothing (alpha 0 everywhere). ``table`` as in
+    :func:`dense_topk`."""
+    idx, t, alpha = dense_topk(scene, rays, settings, sort_depths, active,
+                               table)
     feats = _gather_features(scene, rays, idx, t, settings)
     weights, trans = composite_weights(alpha)
     alpha_acc = 1.0 - trans
@@ -99,11 +141,13 @@ def trace_dense(scene: GaussianScene, rays: Rays, settings: RenderSettings,
 
 def render_radiance_dense(scene: GaussianScene, rays: Rays,
                           settings: RenderSettings,
-                          sort_depths: Optional[torch.Tensor] = None
+                          sort_depths: Optional[torch.Tensor] = None,
+                          table: Optional[dense_trace.Table] = None
                           ) -> torch.Tensor:
     """Radiance-field rendering (R, 3): composited SH color + emission
-    over the background."""
-    idx, _, alpha = dense_topk(scene, rays, settings, sort_depths)
+    over the background; ``table`` as in :func:`dense_topk`."""
+    idx, _, alpha = dense_topk(scene, rays, settings, sort_depths,
+                               table=table)
     idx = idx.long()
     d = rays.directions[:, None, :].expand(idx.shape[0], idx.shape[1], 3)
     color = sh_mod.eval_sh(scene.sh_coeffs[idx], d, settings.sh_degree) \
@@ -117,9 +161,23 @@ def render_radiance_dense(scene: GaussianScene, rays: Rays,
 def visibility_dense(scene: GaussianScene, origins: torch.Tensor,
                      directions: torch.Tensor, t_end: torch.Tensor,
                      settings: RenderSettings,
-                     active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     active: Optional[torch.Tensor] = None,
+                     table: Optional[dense_trace.Table] = None
+                     ) -> torch.Tensor:
     """Soft-shadow transmittance (R,) prod(1 - alpha_i) from origins along
-    directions up to t_end; 1 where ``active`` (R,) is false."""
+    directions up to t_end; 1 where ``active`` (R,) is false; ``table`` as
+    in :func:`dense_topk`. On the CPU it differentiates through the plain
+    version, as the JAX reference does. The card's kernel output carries no
+    gradient, so on the card it raises where autograd wants the geometry
+    (a geometry or opacity leaf requires grad): run it under
+    ``torch.no_grad()`` or on detached leaves there."""
+    if origins.device.type != "cpu" and _geometry_needs_grad(scene):
+        raise NotImplementedError(
+            "visibility_dense: the shadow kernel passes no gradient to the "
+            "geometry or opacity; call it under torch.no_grad() or with "
+            "detached geometry leaves on the card")
+    if table is None:
+        table = dense_trace.gaussian_table(scene, settings)
     return dense_trace.dense_visibility(
         origins.contiguous(), directions.contiguous(), t_end.contiguous(),
-        dense_trace.gaussian_table(scene), settings, active)
+        table, settings, active)

@@ -81,6 +81,38 @@ def test_grid_pose_renderer_runs():
     assert float(img.mean()) > 0.0 and "frozen_alive" in stats
 
 
+def test_grid_pose_renderer_reports_grid_stats():
+    """stats_out carries the grid's truncation stats as grid_<key> under
+    the JAX package's key names (its numeric ones, as its capture copies
+    them), set from the accel, beside the binning stats."""
+    from pathtracer_gaussiansplatting_tpu.models.scene import (
+        surface_scene as j_surface_scene,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data import capture
+
+    js = j_surface_scene(1000, seed=13)
+    ts = to_torch_scene(js)
+    want = {"grid_" + k: float(v) for k, v in
+            jgt.build_grid_accel(js, max_per_cell=32).stats_dict.items()
+            if isinstance(v, (int, float))}
+    accel = tgt.build_grid_accel(ts, max_per_cell=32)
+    render = capture.make_tiled_pose_renderer(
+        ts, RenderSettings(max_depth=1), None, 1, bounce_backend="grid",
+        accel=accel)
+    stats = {}
+    for _ in range(2):   # set, not summed, over poses
+        render(look_at((0.0, 0.2, 1.7), (0.0, -0.4, -0.5), device=CPU),
+               16, 8, 60.0, stats_out=stats)
+    got = {k: v for k, v in stats.items() if k.startswith("grid_")}
+    assert set(got) == set(want) and "grid_dropped_frac" in got
+    for k, v in accel.stats_dict.items():
+        if isinstance(v, (int, float)):
+            assert got["grid_" + k] == float(v)
+            assert abs(got["grid_" + k] - want["grid_" + k]) <= 1e-6 * max(
+                1.0, abs(want["grid_" + k])), k
+    assert "frozen_alive" in stats and "grid_dims" not in stats
+
+
 def test_grid_accuracy_against_dense_matches_reference():
     """benchmarks/grid_accuracy.py's measure (the grid's primary
     interaction against the dense oracle, albedo PSNR) at a reduced size,

@@ -239,7 +239,7 @@ def test_plain_chunked_equals_unchunked(scene_rays, monkeypatch):
     """Chunks of 7 rays, bit-equal to one chunk, with sort depths and an
     active mask."""
     ts, tr = scene_rays["tscene"], scene_rays["trays"]
-    table = dt.gaussian_table(ts)
+    table = dt.gaussian_table(ts, RenderSettings())
     rng = np.random.default_rng(12)
     active = torch.from_numpy(rng.uniform(0, 1, tr.num_rays) < 0.5)
     t_end = torch.from_numpy(rng.uniform(0.1, 6, tr.num_rays)
@@ -267,7 +267,7 @@ def test_plain_chunked_equals_unchunked(scene_rays, monkeypatch):
 
 def test_dispatch_cpu_and_no_fallback(scene_rays):
     ts, tr = scene_rays["tscene"], scene_rays["trays"]
-    table = dt.gaussian_table(ts)
+    table = dt.gaussian_table(ts, RenderSettings())
     s = RenderSettings()
     before = (dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
     got = dt.dense_topk(tr.origins, tr.directions, table, 64, s)
@@ -286,46 +286,69 @@ def test_dispatch_cpu_and_no_fallback(scene_rays):
         dt.dense_visibility(meta[0], tr.directions, t_end, table, s)
 
 
-def _card_inputs(n_rays=4096):
+def _card_inputs(n_rays=4096, thin_far=False):
     """Surface-scene rays on the card: half camera rays, half from the
-    surfaces in random directions."""
+    surfaces in random directions; or (thin_far) rays of a camera 20 times
+    farther than chip_smoke.py phase 5's at surfels 50 times thinner than
+    wide."""
     from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
         surface_scene,
     )
 
     dev = torch.device("cuda", 0)
-    scene = surface_scene(5000, seed=13, device=dev)
+    scene = surface_scene(5000, seed=13, flatness=0.02 if thin_far else 0.1,
+                          device=dev)
     rng = np.random.default_rng(14)
-    o = np.tile([[0.0, 0.2, 1.7]], (n_rays, 1))
-    o[::2] = np.asarray(scene.means.cpu())[:n_rays // 2] + 0.05
+    eye = np.array([0.0, 0.2, 1.7])
+    if thin_far:   # phase 5's eye, 20x farther from its target
+        eye = np.array([0.0, -0.4, -0.5]) + 20.0 * (eye - [0.0, -0.4, -0.5])
+    o = np.tile(eye[None], (n_rays, 1))
     d = rng.normal(size=(n_rays, 3))
+    if thin_far:   # towards the room
+        d = rng.uniform(-1.5, 1.5, (n_rays, 3)) - eye
+    else:
+        o[::2] = np.asarray(scene.means.cpu())[:n_rays // 2] + 0.05
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     f = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa
-    return dt.gaussian_table(scene), f(o), f(d), f(rng.uniform(
-        0.1, 3.0, n_rays)), torch.from_numpy(rng.uniform(
+    return scene, dt.gaussian_table(scene, RenderSettings()), f(o), f(d), \
+        f(rng.uniform(0.1, 3.0, n_rays)), torch.from_numpy(rng.uniform(
             0, 1, n_rays) < 0.8).to(dev)
 
 
 @pytest.mark.cuda
-def test_dense_topk_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("case", ["k32", "k64", "k128", "tied_depths",
+                                  "thin_far"])
+def test_dense_topk_kernel_matches_plain_on_card(case):
+    """The culled kernel against the unculled plain version: every output
+    bit-equal, at K = 32, 64 and 128, ordered by sort depths with ties, and
+    for thin surfels seen from far."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
-    table, o, d, _, active = _card_inputs()
+    scene, table, o, d, _, active = _card_inputs(thin_far=case == "thin_far")
+    k = dict(k32=32, k128=128).get(case, 64)
+    sd = None
+    if case == "tied_depths":   # quarter-unit steps: many equal keys
+        sd = torch.round(scene.means[:, 2] * 4.0) / 4.0
     s = RenderSettings()
     before = dt.TOPK_LAUNCHES
-    got = dt.dense_topk(o, d, table, 64, s, active=active)
+    got = dt.dense_topk(o, d, table, k, s, sort_depths=sd, active=active)
     torch.cuda.synchronize()
     assert dt.TOPK_LAUNCHES == before + 1
-    want = dt.dense_topk_plain(o, d, table, 64, s, active=active)
+    want = dt.dense_topk_plain(o, d, table, k, s, sort_depths=sd,
+                               active=active)
+    assert int((want[2] > 0).sum()) > 0
     for g, w in zip(got, want):   # the same operations, rounded alike
         assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
-def test_dense_visibility_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("case", ["segments", "thin_far"])
+def test_dense_visibility_kernel_matches_plain_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
-    table, o, d, t_end, active = _card_inputs()
+    _, table, o, d, t_end, active = _card_inputs(thin_far=case == "thin_far")
+    if case == "thin_far":
+        t_end = t_end * 20.0
     s = RenderSettings()
     before = dt.VIS_LAUNCHES
     got = dt.dense_visibility(o, d, t_end, table, s, active)
