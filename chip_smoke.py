@@ -23,14 +23,19 @@ are built from the checkout at first use. Then:
            against its plain version at these shapes, then one
            prepare_tiles and 4 jittered samples; the image is written to
            chiprun_out/chip_smoke/, and one sample is profiled;
-  phase 4  training: (a) the backward kernel against its plain version at
-           the packets of phases 2 and 3, with no transmittance cutoff
-           everywhere and, at the default cutoff, exact zeros on the chunks
-           it skips; (b) fit_scene_tiled on the headline cloud, 800x800,
-           K=256, 8 steps over two poses (timed, one step profiled), and a
-           color-only fit at the same size that must learn; (c) the
-           training step on the card against the CPU at phase 1's small
-           size;
+  phase 4  training: (a) the backward kernel, with and without d_dirs,
+           against its plain version at the packets of phases 2 and 3,
+           with no transmittance cutoff everywhere and, at the default
+           cutoff, exact zeros on the chunks it skips; d_geom and d_featsT
+           the same bits either way; both launches timed, and the share of
+           (warp, slot) pairs with a live pixel counted, with both
+           bounds (the yardstick and the function's); (b)
+           fit_scene_tiled on the headline cloud, 800x800, K=256, 8 steps
+           over two poses (timed, one step profiled and its device time
+           split into the backward kernel, the packet gather's backward and
+           the rest), and a color-only fit at the same size that must
+           learn; (c) the training step on the card against the CPU at
+           phase 1's small size;
   phase 5  path tracing on the dense backend (csrc/dense_topk.cu,
            csrc/dense_visibility.cu): surface_scene(50k, seed 13) plus a
            point light, 800x800, depth 4. (a) both kernels against their
@@ -40,7 +45,10 @@ are built from the checkout at first use. Then:
            the light, and the top-K kernel on four chunks of primary rays
            in one launch (bit-equal); each kernel timed on each chunk
            beside the pairs its cull keeps, the pairs with alpha > 0, its
-           bound by code path and the function's bound; (c) the flat
+           bound by code path and the function's bound; the shadow
+           kernel's listing modes (visibility_dense's gradient) on each
+           shadow chunk: vis bit-equal to the plain launch, exactly the
+           pairs with alpha > 0 listed, timed; (c) the flat
            route, make_accumulating_renderer + render_pose in 65536-ray
            chunks, 8 spp (timed, one sample profiled); (d) the tiled
            route, make_tiled_pose_renderer, 4 spp, the forward tile
@@ -53,7 +61,9 @@ are built from the checkout at first use. Then:
            pathtrace_camera on the card against the CPU at 2000 Gaussians,
            96x64, at depth 1 and depth 4; (e) gradients of
            render_radiance_dense through the top-K kernel against the
-           CPU's, at 2000 Gaussians, 64x48. Both images are written to
+           CPU's, at 2000 Gaussians, 64x48, and of visibility_dense
+           through the shadow kernel's pair list on segments into the
+           same cloud. Both images are written to
            chiprun_out/chip_smoke/;
   phase 6  the grid backend (csrc/grid_march.cu) at 500k Gaussians
            (surface_scene(500k, seed 13), built without a device: on the
@@ -92,7 +102,13 @@ each kernel with its launches on the main path, its error against its
 plain version, its time, its plain version's, and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its float operations over
 67 TFLOP/s (the H100 SXM's published HBM rate and float32 peak), from the
-inputs of this run.
+inputs of this run. For the tile kernels bound_ms keeps the yardstick
+(FWD_PAIR_FLOPS, BWD_PAIR_FLOPS on every pair evaluated); phases 1, 3, 4a
+and 7 print beside it the function's bound (the evaluation on every pair,
+the rest on the pairs with alpha > 0 alone), and the kernel table carries
+it as function_bound_ms wherever it is counted. A kernel whose launches
+come from another run than the render and training paths names it in
+launches_in.
 """
 from __future__ import annotations
 
@@ -138,12 +154,23 @@ HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
 # Float operations per unit of work, counted from the kernels' sources (a
 # division, an exp, a floor, a min or max or a compare counts one; integer
 # work is not counted): forward tile composite per (pixel, slot) pair
-# (eval_slot 33, composite_slot 33); backward ~230 (three evaluations, the
-# VJP chain, the per-slot sums); dense top-K and shadow visibility per (ray,
+# (eval_slot 33, composite_slot 33); backward ~230 (counted for its first
+# design: three evaluations, the VJP chain, the per-slot sums; kept as the
+# yardstick while the design changes); dense top-K and shadow visibility per (ray,
 # Gaussian) pair the exact path kept by the cull, and the cull test
 # (dense_common.cuh: cull_keep) per pair tested: x 3, x.d 5, |x|^2 5, the
 # Lagrange form 3, the radius 4, the compare 1.
 FWD_PAIR_FLOPS, BWD_PAIR_FLOPS, DENSE_PAIR_FLOPS = 66, 230, 60
+# The tile kernels' bound by the function's own work, which no design can
+# avoid (printed beside the yardsticks above, which bound_ms keeps): the
+# evaluation (33) on every pair the kernels evaluate; the forward's
+# composite step (33) only on the pairs with alpha > 0; the backward's
+# work on those pairs: the forward step again for T and w (3), g_out .
+# feats (28), d_w (2), the suffix sum (2), d_alpha (5), the alpha_max test
+# (1), d_q (4), d_t (1), the two t clip tests (2), 1/a (1), d_t2 (4), d_a
+# (6), d_b (4), and its share of the slot's 25 sums as FMAs (49). A pair
+# clamped at alpha_max is charged the whole chain.
+PAIR_EVAL_FLOPS, PAIR_COMPOSITE_FLOPS, BWD_LIVE_PAIR_FLOPS = 33, 33, 112
 DENSE_CULL_FLOPS = 21
 # The group test (dense_common.cuh: group_keep) per (ray, group of 32 rows):
 # x 3, x.d 5, |x|^2 5, the slackened Lagrange form, its division and root
@@ -383,11 +410,74 @@ def dirs_term_mass(tc, packets, dirs, cot, settings):
     return torch.cat(parts)[..., None]
 
 
+def live_share(tc, packets, dirs, settings):
+    """(live, evaluated, live pairs): the (warp, slot) pairs that the
+    kernels evaluate (slots under count in the chunks they run,
+    chunk_schedule's skips), those of them where any of the warp's 32
+    pixels has alpha > 0, and the (pixel, slot) pairs evaluated with alpha
+    > 0, counted in torch from the plain version's alpha. The backward's
+    phase 2 works on the live (warp, slot)s alone, and the forward's
+    composite step runs only there."""
+    geom = packets["geom"]
+    t_total, p, _ = dirs.shape
+    k = geom.shape[-1]
+    _, skip_from, kc = chunk_schedule(tc, packets, dirs, settings)
+    slot = torch.arange(k, device=dirs.device)
+    run = (slot[None] < torch.ceil(packets["count"]).long()[:, None]) \
+        & (slot[None] // kc < skip_from[:, None])               # (T, K)
+    step = max(1, tc.PLAIN_CHUNK_ELEMS // (p * k))
+    live = live_pairs = 0
+    for s in range(0, t_total, step):
+        g = geom[s:s + step]
+        _, alpha = tc._t_alpha(*tc._quadratic_ab(dirs[s:s + step], g), g,
+                               settings)
+        pair_live = (alpha > 0) & run[s:s + step, None]
+        live_pairs += int(pair_live.sum())
+        live += int(pair_live.reshape(g.shape[0], p // 32, 32, k).any(2)
+                    .sum())
+    return live, int(run.sum()) * (p // 32), live_pairs
+
+
+def tile_bounds(tc, packets, dirs, settings) -> dict:
+    """Both tile kernels' bounds on these packets: the yardsticks that
+    bound_ms reports (FWD_PAIR_FLOPS, BWD_PAIR_FLOPS on every pair
+    evaluated) and the function's (PAIR_EVAL_FLOPS on every pair evaluated,
+    the rest on the pairs with alpha > 0 alone), with tile_bytes; and the
+    live shares."""
+    pairs = tile_pairs(tc, packets, dirs, settings)
+    live, n_ws, live_pairs = live_share(tc, packets, dirs, settings)
+    fwd_bytes = tile_bytes(packets, dirs)
+    bwd_bytes = tile_bytes(packets, dirs, backward=True)
+    fwd = bound(fwd_bytes, pairs * FWD_PAIR_FLOPS)
+    bwd = bound(bwd_bytes, pairs * BWD_PAIR_FLOPS)
+    fwd["function_bound_ms"] = bound(
+        fwd_bytes, pairs * PAIR_EVAL_FLOPS
+        + live_pairs * PAIR_COMPOSITE_FLOPS)["bound_ms"]
+    bwd["function_bound_ms"] = bound(
+        bwd_bytes, pairs * PAIR_EVAL_FLOPS
+        + live_pairs * BWD_LIVE_PAIR_FLOPS)["bound_ms"]
+    return dict(fwd=fwd, bwd=bwd, pairs=pairs, live_pairs=live_pairs,
+                warp_live=live, warp_slots=n_ws)
+
+
+def bound_text(bnd: dict, ms: float) -> str:
+    """A tile kernel's time against both of its bounds, labelled."""
+    return (f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (the "
+            f"yardstick: {bnd['bound_flops']:.3e} flops, "
+            f"{bnd['bound_bytes']:.3e} bytes) = "
+            f"{bnd['bound_ms'] / ms:.1%} of its rate; the function's bound "
+            f"{bnd['function_bound_ms']:.4f} ms = "
+            f"{bnd['function_bound_ms'] / ms:.1%}")
+
+
 def bwd_check(tc, packets, dirs, settings, name: str, card: str) -> dict:
-    """The backward kernel against tile_composite_bwd_plain on a seeded
-    cotangent (the depth cotangent masked where alpha_acc <= 1e-3): at
-    transmittance_min=0 everywhere; at the given settings, exact zeros on
-    the chunks the kernel skips and a match on tiles with none skipped."""
+    """The backward kernel, with and without d_dirs, against
+    tile_composite_bwd_plain on a seeded cotangent (the depth cotangent
+    masked where alpha_acc <= 1e-3): at transmittance_min=0 everywhere; at
+    the given settings, exact zeros on the chunks the kernel skips and a
+    match on tiles with none skipped. Both launches are held to the same
+    gates, and d_geom and d_featsT must not depend on whether d_dirs was
+    asked for. Returns the launch without d_dirs (training's)."""
     t_total, p, _ = dirs.shape
     k = packets["geom"].shape[-1]
     rng = np.random.default_rng(17)
@@ -404,49 +494,79 @@ def bwd_check(tc, packets, dirs, settings, name: str, card: str) -> dict:
     # The plain version has no chunk skip, so one run serves both checks.
     want = tc.tile_composite_bwd_plain(packets, dirs, cot, settings)
     full = dataclasses.replace(settings, transmittance_min=0.0)
-    got = tc.tile_composite_bwd(packets, dirs, cot, full)
-    torch.cuda.synchronize()
-    err = max(compare(g, w, f"{name} {n}, transmittance_min=0",
-                      rtol=BWD_RTOL, atol=BWD_ATOL)
-              for g, w, n in zip(got[:2], want[:2], names))
-    # d_dirs sums terms that cancel: beside the tolerance above, allow
-    # DIRS_MASS_RTOL of their L1 mass (~84 float32 ulps of it).
-    mass = dirs_term_mass(tc, packets, dirs, cot, full)
-    dirs_err = compare(got[2], want[2], f"{name} d_dirs, transmittance_min=0",
-                       rtol=BWD_RTOL, atol=BWD_ATOL,
-                       extra=DIRS_MASS_RTOL * mass.double())
-    dirs_rel = float(((got[2] - want[2]).abs() / mass.clamp_min(1e-30)).max())
-
-    got = tc.tile_composite_bwd(packets, dirs, cot, settings)
-    torch.cuda.synchronize()
     no_skip, skip_from, kc = chunk_schedule(tc, packets, dirs, settings)
-    for g, w, n in zip(got, want, names):
-        compare(g[no_skip], w[no_skip], f"{name} {n}, tiles with no skipped "
-                "chunk", rtol=BWD_RTOL, atol=BWD_ATOL,
-                extra=DIRS_MASS_RTOL * mass[no_skip].double()
-                if n == "d_dirs" else None)
     slot_chunk = torch.arange(k, device=dev) // kc            # (K,)
     dead = slot_chunk[None, :] >= skip_from[:, None]          # (T, K)
     n_dead = int(dead.sum())
-    for g, n in zip(got[:2], names):
-        check(bool((g.masked_select(dead[:, None, :]) == 0).all()),
-              f"{name} {n}: a slot of a skipped chunk is not exactly 0")
-    check(bool(torch.isfinite(got[2]).all()), f"{name} d_dirs not finite")
+    # d_dirs sums terms that cancel: beside the tolerance above, allow
+    # DIRS_MASS_RTOL of their L1 mass (~84 float32 ulps of it).
+    mass = dirs_term_mass(tc, packets, dirs, cot, full)
+    err = dirs_err = dirs_rel = 0.0
+    for want_dirs in (True, False):
+        tag = f"{name}{'' if want_dirs else ' (no d_dirs)'}"
+        got = tc.tile_composite_bwd(packets, dirs, cot, full, want_dirs)
+        torch.cuda.synchronize()
+        err = max([err] + [compare(g, w, f"{tag} {n}, transmittance_min=0",
+                                   rtol=BWD_RTOL, atol=BWD_ATOL)
+                           for g, w, n in zip(got[:2], want[:2], names)])
+        if want_dirs:
+            dirs_err = compare(got[2], want[2],
+                               f"{tag} d_dirs, transmittance_min=0",
+                               rtol=BWD_RTOL, atol=BWD_ATOL,
+                               extra=DIRS_MASS_RTOL * mass.double())
+            dirs_rel = float(((got[2] - want[2]).abs()
+                              / mass.clamp_min(1e-30)).max())
+            with_dirs = got
+        else:
+            check(got[2] is None, f"{tag}: d_dirs returned when not asked")
+            check(all(torch.equal(g, w) for g, w in zip(got[:2],
+                                                        with_dirs[:2])),
+                  f"{tag}: d_geom / d_featsT differ from the launch with "
+                  "d_dirs")
 
-    ms = cuda_ms(lambda: tc.tile_composite_bwd(packets, dirs, cot, settings),
-                 10)
+        got = tc.tile_composite_bwd(packets, dirs, cot, settings, want_dirs)
+        torch.cuda.synchronize()
+        for g, w, n in zip(got, want, names):
+            if g is None:
+                continue
+            compare(g[no_skip], w[no_skip], f"{tag} {n}, tiles with no "
+                    "skipped chunk", rtol=BWD_RTOL, atol=BWD_ATOL,
+                    extra=DIRS_MASS_RTOL * mass[no_skip].double()
+                    if n == "d_dirs" else None)
+        for g, n in zip(got[:2], names):
+            check(bool((g.masked_select(dead[:, None, :]) == 0).all()),
+                  f"{tag} {n}: a slot of a skipped chunk is not exactly 0")
+        if want_dirs:
+            check(bool(torch.isfinite(got[2]).all()),
+                  f"{tag} d_dirs not finite")
+
+    ms = cuda_ms(lambda: tc.tile_composite_bwd(packets, dirs, cot, settings,
+                                               False), 10)
+    dirs_ms = cuda_ms(lambda: tc.tile_composite_bwd(packets, dirs, cot,
+                                                    settings), 10)
     plain_ms = cuda_ms(
         lambda: tc.tile_composite_bwd_plain(packets, dirs, cot, settings), 2)
+    bnd = tile_bounds(tc, packets, dirs, settings)
+    live, n_ws = bnd["warp_live"], bnd["warp_slots"]
     log(f"phase 4a {name}: T={t_total}, K={k}: backward kernel vs plain at "
-        f"transmittance_min=0: d_geom, d_featsT max abs err {err:.3e} (rtol "
-        f"{BWD_RTOL}, atol {BWD_ATOL}); d_dirs max abs err {dirs_err:.3e}, "
-        f"max err / term mass {dirs_rel:.3e} (allowed {DIRS_MASS_RTOL}, term "
-        f"mass up to {float(mass.max()):.3e}); default settings: "
-        f"{int(no_skip.sum())} tiles with no "
-        f"skipped chunk match, {int((skip_from < k // kc).sum())} tiles skip "
-        f"chunks ({n_dead} slots, all exactly 0); kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms (CUDA events; {card})")
-    return dict(max_abs_err=max(err, dirs_err), ms=ms, plain_ms=plain_ms)
+        f"transmittance_min=0, with and without d_dirs: d_geom, d_featsT max "
+        f"abs err {err:.3e} (rtol {BWD_RTOL}, atol {BWD_ATOL}), the same "
+        f"bits either way; d_dirs max abs err {dirs_err:.3e}, max err / term "
+        f"mass {dirs_rel:.3e} (allowance {DIRS_MASS_RTOL} of the mass beside "
+        f"rtol/atol, term mass up to {float(mass.max()):.3e}); default "
+        f"settings: {int(no_skip.sum())} tiles with no skipped chunk match, "
+        f"{int((skip_from < k // kc).sum())} tiles skip chunks ({n_dead} "
+        f"slots, all exactly 0, with and without d_dirs)")
+    log(f"phase 4a {name}: kernel {ms:.3f} ms without d_dirs (training's), "
+        f"{dirs_ms:.3f} ms with d_dirs, plain {plain_ms:.3f} ms (CUDA "
+        f"events; {card}); live (warp, slot) pairs {live} of {n_ws} "
+        f"evaluated = {live / max(n_ws, 1):.4f}; (pixel, slot) pairs with "
+        f"alpha > 0 {bnd['live_pairs']} of {bnd['pairs']} = "
+        f"{bnd['live_pairs'] / max(bnd['pairs'], 1):.4f}")
+    log(f"phase 4a {name}: without d_dirs, {bound_text(bnd['bwd'], ms)}")
+    return dict(max_abs_err=max(err, dirs_err), ms=ms, dirs_ms=dirs_ms,
+                plain_ms=plain_ms, live_share=live / max(n_ws, 1),
+                bound=bnd["bwd"])
 
 
 def noised_start(scene, noise: float, seed: int = 5):
@@ -750,8 +870,9 @@ def dense_bound(dt, counts: dict, n_rays: int, n: int, k: int = 0) -> dict:
         + counts["kept"] * DENSE_PAIR_FLOPS
     res = bound(n_bytes, flops)
     fn_bytes = ray_bytes + 4.0 * n * dt.TABLE_COLS
-    res["function_bound_ms"] = bound(
-        fn_bytes, counts["contributing"] * DENSE_PAIR_FLOPS)["bound_ms"]
+    res["function"] = bound(fn_bytes,
+                            counts["contributing"] * DENSE_PAIR_FLOPS)
+    res["function_bound_ms"] = res["function"]["bound_ms"]
     res["all_pairs_bound_ms"] = bound(
         n_bytes, counts["group_tests"] * dt.GROUP_ROWS
         * DENSE_PAIR_FLOPS)["bound_ms"]
@@ -825,16 +946,68 @@ def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
         lambda: dt.dense_topk_plain(o, d, table.rows, k, settings), 1)
     vis_plain_ms = cuda_ms(lambda: dt.dense_visibility_plain(
         bo, l_dir, t_end_e, table.rows, settings, act_e), 1)
+    pairs = {}
+    for name, cd, te, act in vis_chunks:
+        pairs[name] = pairs_check(dt, (bo, cd, te, table, settings, act),
+                                  name, res[name], card)
     topk, vis = res["primary rays"], res["emissive shadow segments"]
+    pairs_plain_ms = cuda_ms(lambda: dt.dense_visibility_pairs_plain(
+        bo, l_dir, t_end_e, table.rows, settings, act_e), 1)
     log(f"phase 5a: dense_topk kernel {topk['ms']:.3f} ms, plain "
         f"{topk_plain_ms:.3f} ms; dense_visibility kernel {vis['ms']:.3f} "
         f"ms, plain {vis_plain_ms:.3f} ms (R={PT_CHUNK}, N={n}; CUDA events; "
         f"{card})")
     return dict(topk=dict(topk, max_abs_err=err_a, plain_ms=topk_plain_ms),
-                vis=dict(vis, max_abs_err=err_v, plain_ms=vis_plain_ms))
+                vis=dict(vis, max_abs_err=err_v, plain_ms=vis_plain_ms),
+                pairs=dict(pairs["emissive shadow segments"],
+                           plain_ms=pairs_plain_ms))
 
 
-def dense_grad_check(dev, card) -> None:
+def pairs_check(dt, args, name: str, res: dict, card: str) -> dict:
+    """Phase 5a, the shadow kernel's listing modes (visibility_dense's
+    gradient on the card): dense_visibility_pairs on args (origins, dirs,
+    t_end, DenseTable, settings, active) gives vis bit-equal to the plain
+    launch's and exactly the pairs with alpha > 0 of the plain version;
+    timed beside the plain launch (``res``, its 5a result). Its bound by
+    code path charges the plain launch's work (``res``) once for the
+    counting launch and once more for the listing launch where there is a
+    pair, with the counts, the offsets and the list; the function's bound
+    is the plain launch's with the counts and the list written once."""
+    o, d, t_end, table, settings, act = args
+    got = dt.dense_visibility_pairs(*args)
+    plain_launch = dt.dense_visibility(*args)
+    want = dt.dense_visibility_pairs_plain(o, d, t_end, table.rows,
+                                           settings, act)
+    torch.cuda.synchronize()
+    n = table.rows.shape[0]
+    key_got = torch.sort(got[1] * n + got[2]).values
+    key_want = torch.sort(want[1] * n + want[2]).values
+    check(torch.equal(got[0], plain_launch),
+          f"5a {name}: the counting launch's vis differs from the plain "
+          "launch's")
+    check(key_got.shape == key_want.shape and torch.equal(key_got, key_want),
+          f"5a {name}: listed {key_got.numel()} pairs, the plain version "
+          f"has {key_want.numel()} with alpha > 0 (or others)")
+    ms = cuda_ms(lambda: dt.dense_visibility_pairs(*args), 5)
+    r, m = o.shape[0], key_got.numel()
+    passes = 2 if m else 1
+    bnd = bound(passes * res["bound_bytes"] + 4.0 * r
+                + (8.0 * r + 4.0 * m if m else 0.0),
+                passes * res["bound_flops"])
+    fn = res["function"]
+    bnd["function_bound_ms"] = bound(fn["bound_bytes"] + 4.0 * (r + m),
+                                     fn["bound_flops"])["bound_ms"]
+    log(f"phase 5a {name}: dense_visibility_pairs: vis bit-equal to the "
+        f"plain launch, the {m} pairs with alpha > 0 listed exactly; "
+        f"{ms:.3f} ms for its {passes} launch(es) against {res['ms']:.3f} "
+        f"ms for the plain launch; bound by code path ({passes} pass(es)) "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, the function's "
+        f"{bnd['function_bound_ms']:.4f} ms (CUDA events; {card})")
+    return dict(ms=ms, max_abs_err=float((got[0] - want[0]).abs().max()),
+                **bnd)
+
+
+def dense_grad_check(dev, card) -> dict:
     """Phase 5e: gradients of render_radiance_dense through the card's
     kernel (it selects, torch recomputes t and alpha) against the CPU's,
     at phase 1's small cloud (2000 Gaussians, sigma 0.17-0.45, so no pair
@@ -882,6 +1055,78 @@ def dense_grad_check(dev, card) -> None:
         + ", ".join(f"{k} {e:.3e}" for k, e in zip(names, errs))
         + f" (allowed {DENSE_GRAD_TOL}); every leaf non-zero on the card "
         f"({card})")
+    return shadow_grad_check(base, dev, card)
+
+
+def shadow_grad_check(base, dev, card) -> dict:
+    """Phase 5e, shadows: gradients of visibility_dense on the card (the
+    kernel's value, the listed pairs' alpha recomputed in torch) against
+    the CPU's (autograd through the plain version), on 5e's cloud: 3072
+    segments from a sphere of radius 2.4 around it toward its first 200
+    Gaussians (the ones random_cloud makes emissive at emissive_frac 0.1),
+    a quarter of the way (the cloud is opaque deeper in). Geometry and
+    opacity within DENSE_GRAD_TOL of each leaf's largest CPU gradient and
+    non-zero on the card, the value equal to the no-grad launch's; the
+    pair-listing launches counted."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import (
+        dense_trace as dt,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render import reference as ref
+
+    names = ("means", "log_scales", "quats", "opacity_logits")
+    settings = RenderSettings(background=(0.1, 0.2, 0.3))
+    rng = np.random.default_rng(11)
+    n = 3072
+    u = rng.normal(size=(n, 3))
+    o = torch.from_numpy((2.4 * u / np.linalg.norm(u, axis=-1, keepdims=True))
+                         .astype(np.float32))
+    v = base.means[torch.arange(n) % 200] - o
+    t_end = 0.25 * v.norm(dim=-1)
+    d = v / v.norm(dim=-1, keepdim=True)
+    w = torch.from_numpy(np.random.default_rng(8).uniform(
+        -1, 1, n).astype(np.float32))
+    grads, vis = [], []
+    dt.VIS_PAIR_LAUNCHES = 0
+    for device in (dev, torch.device("cpu")):
+        scene = base.to(device).replace(**{
+            k: getattr(base, k).to(device, copy=True).requires_grad_(True)
+            for k in names})
+        args = (o.to(device), d.to(device), t_end.to(device), settings)
+        vis.append(ref.visibility_dense(scene, *args))
+        grads.append([g.cpu() for g in torch.autograd.grad(
+            (w.to(device) * vis[-1]).sum(),
+            [getattr(scene, k) for k in names])])
+        if device == dev:
+            launches = dt.VIS_PAIR_LAUNCHES
+            with torch.no_grad():
+                check(torch.equal(vis[-1], ref.visibility_dense(scene,
+                                                                *args)),
+                      "5e: the grad path's vis differs from the no-grad "
+                      "launch's")
+    check(launches == 2, f"5e: {launches} pair-listing launches, not 2")
+    vis_err = compare(vis[0].detach().cpu(), vis[1].detach(),
+                      "5e shadow vis, card vs CPU", rtol=VIS_RTOL,
+                      atol=VIS_ATOL)
+    errs = []
+    for k, g, c in zip(names, *grads):
+        scale = float(c.abs().max())
+        errs.append(float((g - c).abs().max()) / max(scale, 1e-30))
+        check(float(g.abs().max()) > 0 and scale > 0,
+              f"5e: zero shadow gradient for {k}")
+        check(errs[-1] <= DENSE_GRAD_TOL,
+              f"5e: {k} shadow gradient card vs CPU {errs[-1]:.3e} of its "
+              "max")
+    vv = vis[1].detach()
+    log(f"phase 5e: visibility_dense gradients ({n} segments, mean vis "
+        f"{float(vv.mean()):.4f}, {float(((vv > 0.05) & (vv < 0.95)).float().mean()):.1%}"
+        f" in (0.05, 0.95)) card vs CPU, max err over the leaf's max |g|: "
+        + ", ".join(f"{k} {e:.3e}" for k, e in zip(names, errs))
+        + f" (allowed {DENSE_GRAD_TOL}); vis max abs err {vis_err:.3e}; "
+        f"{launches} pair-listing launches ({card})")
+    return dict(launches=launches, max_abs_err=vis_err)
 
 
 def small_pt_check(dev, settings, backend: str = "dense",
@@ -992,13 +1237,18 @@ class FirstCalls:
         return False
 
 
+PT_OP_RANGES = dict(rng="ptgs.rng", bsdf_nee="ptgs.shade")
+
+
 def profile_split(name: str, fn, wall_ms: float, card: str,
-                  names=DENSE_PROFILE_NAMES) -> dict:
+                  names=DENSE_PROFILE_NAMES,
+                  op_ranges=PT_OP_RANGES) -> dict:
     """One run of fn under torch.profiler (the second of two): device time
     split into the hand-written kernels (``names``: label -> a substring of
-    the kernel's name), the random draws (kernels of ops inside the range
-    ptgs.rng), shading (of ops inside ptgs.shade) and the rest. The op table
-    goes to OUT_DIR."""
+    the kernel's name), the kernels of the ops inside host ranges
+    (``op_ranges``: label -> a substring of the range's name; by default
+    the random draws, ptgs.rng, and shading, ptgs.shade) and the rest. The
+    op table goes to OUT_DIR."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1016,26 +1266,38 @@ def profile_split(name: str, fn, wall_ms: float, card: str,
                    if sub is None or sub in e.key) / 1e3
 
     total = kern()
-    # A kernel launched by an aten op is linked to it; an op counts as RNG
-    # or shading when its host interval lies inside one of those ranges.
-    # The hand-written kernels, launched through ctypes, are linked to no
-    # op and are counted by name.
+    # A kernel launched by an aten op is linked to it; an op counts toward
+    # a range when its host interval lies inside one (nested or
+    # overlapping ranges merged). The hand-written kernels, launched
+    # through ctypes, are linked to no op and are counted by name.
     raw = [e for e in prof.events() if e.device_type == DeviceType.CPU]
-    ranges = {r: sorted((e.time_range.start, e.time_range.end) for e in raw
-                        if e.name == r) for r in ("ptgs.rng", "ptgs.shade")}
 
-    def inside(e, r):
-        i = bisect.bisect_right(ranges[r], (e.time_range.start, math.inf))
-        return i > 0 and e.time_range.end <= ranges[r][i - 1][1]
+    def merged(sub):
+        spans = sorted((e.time_range.start, e.time_range.end) for e in raw
+                       if sub in e.name)
+        out = []
+        for a, b in spans:
+            if out and a <= out[-1][1]:
+                out[-1] = (out[-1][0], max(out[-1][1], b))
+            else:
+                out.append((a, b))
+        return out
+
+    ranges = {label: merged(sub) for label, sub in op_ranges.items()}
+
+    def inside(e, label):
+        r = ranges[label]
+        i = bisect.bisect_right(r, (e.time_range.start, math.inf))
+        return i > 0 and e.time_range.end <= r[i - 1][1]
 
     split = {label: kern(sub) for label, sub in names.items()}
-    split.update(rng=0.0, bsdf_nee=0.0)
+    split.update({label: 0.0 for label in op_ranges})
     for e in raw:
         ms = sum(k.duration for k in e.kernels) / 1e3
-        if ms and inside(e, "ptgs.rng"):
-            split["rng"] += ms
-        elif ms and inside(e, "ptgs.shade"):
-            split["bsdf_nee"] += ms
+        for label in op_ranges:
+            if ms and inside(e, label):
+                split[label] += ms
+                break
     split["rest"] = total - sum(split.values())
     os.makedirs(OUT_DIR, exist_ok=True)
     table = os.path.join(OUT_DIR, f"profile_{name}.txt")
@@ -1625,7 +1887,7 @@ def ablation(tc, tv, card) -> dict:
         check(float(d[..., :tc.FEATURE_DIM].max()) <= 1.01 * tmin * fmax
               + ATOL and float(d[..., tv.FP].max()) <= 1.01 * tmin + ATOL,
               f"7 {mode}: beyond the transmittance_min bound of full")
-    pairs = tile_pairs(tc, dict(geom=geom, featsT=featsT, count=count),
+    bnds = tile_bounds(tc, dict(geom=geom, featsT=featsT, count=count),
                        dirs, settings)
     plain_ms = cuda_ms(lambda: tv.tile_composite_variant_plain(
         "full", *inputs), 2)
@@ -1648,8 +1910,7 @@ def ablation(tc, tv, card) -> dict:
     return dict(launches=launches, ms=full_ms, plain_ms=plain_ms,
                 max_abs_err=max(e for m, e in errs.items()
                                 if m not in tv.TENSOR_CORE),
-                **bound(tile_bytes(dict(geom=geom, featsT=featsT), dirs),
-                        pairs * FWD_PAIR_FLOPS))
+                **bnds["fwd"])
 
 
 def main() -> int:
@@ -1734,15 +1995,12 @@ def main() -> int:
         lambda: tc.tile_composite_plain(packets, dirs_t, settings), 3)
     log(f"phase 1: kernel vs plain max abs err out {err_out:.3e} alpha_acc "
         f"{err_acc:.3e} depth {err_depth:.3e} (rtol {RTOL}, atol {ATOL})")
-    pairs = tile_pairs(tc, packets, dirs_t, settings)
-    fwd_bound = bound(tile_bytes(packets, dirs_t), pairs * FWD_PAIR_FLOPS)
-    bwd_bound = bound(tile_bytes(packets, dirs_t, backward=True),
-                      pairs * BWD_PAIR_FLOPS)
+    bnds = tile_bounds(tc, packets, dirs_t, settings)
+    fwd_bound = bnds["fwd"]
     log(f"phase 1: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"(CUDA events; {card}); bound {fwd_bound['bound_ms']:.4f} ms by "
-        f"{fwd_bound['bound_by']} ({pairs} pixel-slot pairs, "
-        f"{fwd_bound['bound_flops']:.3e} flops, "
-        f"{fwd_bound['bound_bytes']:.3e} bytes)")
+        f"(CUDA events; {card}); {bnds['pairs']} pixel-slot pairs, "
+        f"{bnds['live_pairs']} with alpha > 0; "
+        f"{bound_text(fwd_bound, kernel_ms)}")
 
     # The slice end to end at a small size: card (kernel) vs CPU (plain).
     # Splats large against the camera distance keep q = c - b^2/a well
@@ -1843,9 +2101,12 @@ def main() -> int:
         lambda: tc.tile_composite(pt_packets, pt_dirs, pt_settings), 20)
     pt_plain_ms = cuda_ms(
         lambda: tc.tile_composite_plain(pt_packets, pt_dirs, pt_settings), 3)
+    pt_bnds = tile_bounds(tc, pt_packets, pt_dirs, pt_settings)
     log(f"phase 3: kernel vs plain at T={pt_dirs.shape[0]}, K=512: max abs "
         f"err {pt_err:.3e}; kernel {pt_kernel_ms:.3f} ms, plain "
-        f"{pt_plain_ms:.3f} ms (CUDA events; {card})")
+        f"{pt_plain_ms:.3f} ms (CUDA events; {card}); {pt_bnds['pairs']} "
+        f"pixel-slot pairs, {pt_bnds['live_pairs']} with alpha > 0; "
+        f"{bound_text(pt_bnds['fwd'], pt_kernel_ms)}")
     del got, want
 
     tc.LAUNCHES = 0
@@ -1907,8 +2168,13 @@ def main() -> int:
     opt = train.make_optimizer(2e-2)
     opt_state = opt(params.parameters())
     step = train.make_tiled_train_step(settings, opt, config=cfg)
-    profile_once("phase4_train_step", lambda: step(
-        params, opt_state, cams[0], tr["targets"][0]), pose0_ms, card)
+    # The step's device split: the backward kernel, the packet gather's
+    # backward (the kernels of autograd's IndexBackward0) and the rest.
+    profile_split("phase4_train_step", lambda: step(
+        params, opt_state, cams[0], tr["targets"][0]), pose0_ms, card,
+        names=dict(tile_composite_bwd="tile_composite_bwd",
+                   tile_composite_fwd="tile_composite_fwd"),
+        op_ranges=dict(gather_bwd="IndexBackward0"))
     del params, opt_state, tr
     # On this cloud a step of Adam on every leaf raises the loss: it moves
     # each mean by ~lr, which reorders the depth-sorted composite. The
@@ -1943,7 +2209,7 @@ def main() -> int:
     del scene5
     small_pt_check(dev, dataclasses.replace(pt_settings, rr_start_depth=2,
                                             opaque_depth=3))
-    dense_grad_check(dev, card)
+    shadow = dense_grad_check(dev, card)
 
     # ---- phase 6: the grid backend at 500k Gaussians ------------------
     from pathtracer_gaussiansplatting_tpu_torch.csrc import grid_bin
@@ -2015,22 +2281,26 @@ def main() -> int:
     check("jax" not in sys.modules, "jax was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    def entry(name, source, replaces, launches, res, bnd):
+    def entry(name, source, replaces, launches, res, bnd, **extra):
+        fn = "" if "function_bound_ms" not in bnd else (
+            f"; the function's bound {bnd['function_bound_ms']:.4f} ms = "
+            f"{bnd['function_bound_ms'] / res['ms']:.1%}")
         all_pairs = "" if "all_pairs_bound_ms" not in bnd else (
-            f"; the function's bound (the exact path on the pairs with "
-            f"alpha > 0 alone) {bnd['function_bound_ms']:.4f} ms; all-pairs "
-            f"bound (every pair charged the exact path) "
+            f"; all-pairs bound (every pair charged the exact path) "
             f"{bnd['all_pairs_bound_ms']:.4f} ms")
         log(f"bound {name}: {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
             f"({bnd['bound_flops']:.4e} flops, {bnd['bound_bytes']:.4e} "
             f"bytes); kernel {res['ms']:.4f} ms = "
             f"{bnd['bound_ms'] / res['ms']:.1%} of the bound's rate"
-            + all_pairs)
+            + fn + all_pairs)
+        fn_key = {} if "function_bound_ms" not in bnd else dict(
+            function_bound_ms=bnd["function_bound_ms"])
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
                     max_abs_err=res["max_abs_err"], ms=res["ms"],
                     plain_ms=res["plain_ms"], bound_ms=bnd["bound_ms"],
-                    bound_by=bnd["bound_by"], library_ms=None)
+                    bound_by=bnd["bound_by"], library_ms=None, **fn_key,
+                    **extra)
 
     topk = dict(dense["topk"], max_abs_err=max(
         dense["topk"]["max_abs_err"], tiled["max_abs_err"][0]))
@@ -2046,11 +2316,18 @@ def main() -> int:
               launches_p4[1],
               dict(max_abs_err=max(bwd["max_abs_err"],
                                    bwd_pt["max_abs_err"]),
-                   ms=bwd["ms"], plain_ms=bwd["plain_ms"]), bwd_bound),
+                   ms=bwd["ms"], plain_ms=bwd["plain_ms"]), bwd["bound"]),
         entry("dense_topk", TOPK_SOURCE, TOPK_REPLACES,
               flat["launches"][0] + tiled["launches"][1], topk, topk),
         entry("dense_visibility", VIS_SOURCE, VIS_REPLACES,
               flat["launches"][1] + tiled["launches"][2], vis, vis),
+        # The listing modes serve visibility_dense's gradient (5e), which
+        # no rendering path asks for: their launches are 5e's.
+        entry("dense_visibility_pairs", VIS_SOURCE, VIS_REPLACES,
+              shadow["launches"], dict(dense["pairs"], max_abs_err=max(
+                  dense["pairs"]["max_abs_err"], shadow["max_abs_err"])),
+              dense["pairs"], launches_in="phase 5e: visibility_dense's "
+              "gradient on the card (0 on the render paths)"),
         entry("grid_trace", GRID_SOURCE, GRID_TRACE_REPLACES,
               g_pt["launches"][0] + g_pose["launches"][0],
               dict(g_res[0], max_abs_err=max(g_res[0]["max_abs_err"],

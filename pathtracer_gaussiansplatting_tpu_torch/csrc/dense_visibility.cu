@@ -32,7 +32,17 @@
 // path). As for dense_topk.cu, a chunk is one wave of ~16 warps an SM and
 // a group costs its busiest lane's kept rows; past that, not measured.
 //
-// Plain C entry point (bound with ctypes); returns cudaGetLastError().
+// Where autograd wants the geometry (render/reference.py:
+// visibility_dense), the same kernel runs in two more modes, instantiated
+// apart so the plain launch keeps its code: kCount writes vis and each
+// segment's number of Gaussians with alpha > 0, and kPairs, given each
+// segment's offset into a list (the counts' exclusive prefix sum), writes
+// those Gaussians' indices there, in the order it met them. Both walk the
+// rows as the plain launch does, so they meet the same pairs; torch
+// recomputes those pairs' alpha from the scene and differentiates the
+// product through them.
+//
+// Plain C entry points (bound with ctypes); each returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -54,11 +64,18 @@ __device__ __forceinline__ void stage_async(const float* table, int n_gauss,
   ptgs_dense::cp_async_commit();  // an empty group past the last stage
 }
 
+// What a launch writes: vis alone (the plain launch), vis and the pair
+// counts, or the pairs' Gaussian indices.
+enum Mode { kVis, kCount, kPairs };
+
+template <int M>
 __global__ void __launch_bounds__(kRays) dense_visibility_kernel(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ t_end, const float* __restrict__ sorted_rows,
     const float* __restrict__ groups,
     const unsigned char* __restrict__ active, float* __restrict__ vis_out,
+    const int* __restrict__ order, int* __restrict__ pair_count,
+    const long long* __restrict__ pair_offset, int* __restrict__ pair_gid,
     int n_rays, int n_gauss, float t_min, float alpha_min,
     float alpha_max) {
   __shared__ __align__(16) float sg[2][kStageFloats];
@@ -78,6 +95,9 @@ __global__ void __launch_bounds__(kRays) dense_visibility_kernel(
   const float tt = tau * tau * dd;
 
   float vis = 1.0f;
+  int n_pairs = 0;
+  int* gid_out = nullptr;
+  if (M == kPairs && in_range) gid_out = pair_gid + pair_offset[ray];
   if (__syncthreads_or(live)) {
     stage_async(sorted_rows, n_gauss, 0, sg[0]);
     for (int base = 0, buf = 0; base < n_gauss; base += kStage, buf ^= 1) {
@@ -109,13 +129,37 @@ __global__ void __launch_bounds__(kRays) dense_visibility_kernel(
           const float alpha = ptgs_dense::segment_alpha(
               r, g0 + j * kCols, t_min, te, alpha_min, alpha_max);
           vis = __fmul_rn(vis, __fsub_rn(1.0f, alpha));
+          if (M != kVis && alpha > 0.0f) {
+            if (M == kPairs) gid_out[n_pairs] = order[base + j];
+            ++n_pairs;
+          }
         }
       }
       __syncthreads();  // this buffer is no longer read
     }
     ptgs_dense::cp_async_wait<0>();
   }
-  if (in_range) vis_out[ray] = vis;
+  if (in_range && M != kPairs) vis_out[ray] = vis;
+  if (in_range && M == kCount) pair_count[ray] = n_pairs;
+}
+
+template <int M>
+int launch(const float* origins, const float* dirs, const float* t_end,
+           const float* sorted_rows, const float* groups,
+           const unsigned char* active, float* vis, const int* order,
+           int* pair_count, const long long* pair_offset, int* pair_gid,
+           int n_rays, int n_gauss, float t_min, float alpha_min,
+           float alpha_max, void* stream) {
+  if (n_rays <= 0 || n_gauss <= 0 || groups == nullptr ||
+      reinterpret_cast<size_t>(sorted_rows) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n_rays + kRays - 1) / kRays;
+  dense_visibility_kernel<M><<<blocks, kRays, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      origins, dirs, t_end, sorted_rows, groups, active, vis, order,
+      pair_count, pair_offset, pair_gid, n_rays, n_gauss, t_min, alpha_min,
+      alpha_max);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -132,13 +176,37 @@ extern "C" int ptgs_dense_visibility(const float* origins, const float* dirs,
                                      int n_rays, int n_gauss, float t_min,
                                      float alpha_min, float alpha_max,
                                      void* stream) {
-  if (n_rays <= 0 || n_gauss <= 0 || groups == nullptr ||
-      reinterpret_cast<size_t>(sorted_rows) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n_rays + kRays - 1) / kRays;
-  dense_visibility_kernel<<<blocks, kRays, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      origins, dirs, t_end, sorted_rows, groups, active, vis, n_rays,
-      n_gauss, t_min, alpha_min, alpha_max);
-  return static_cast<int>(cudaGetLastError());
+  return launch<kVis>(origins, dirs, t_end, sorted_rows, groups, active, vis,
+                      nullptr, nullptr, nullptr, nullptr, n_rays, n_gauss,
+                      t_min, alpha_min, alpha_max, stream);
+}
+
+// As ptgs_dense_visibility, with the DenseTable's order (N,) int32 in;
+// vis (R,) and pair_count (R,) int32 out: each segment's number of
+// Gaussians with alpha > 0.
+extern "C" int ptgs_dense_visibility_count(
+    const float* origins, const float* dirs, const float* t_end,
+    const float* sorted_rows, const float* groups,
+    const unsigned char* active, float* vis, int* pair_count, int n_rays,
+    int n_gauss, float t_min, float alpha_min, float alpha_max,
+    void* stream) {
+  return launch<kCount>(origins, dirs, t_end, sorted_rows, groups, active,
+                        vis, nullptr, pair_count, nullptr, nullptr, n_rays,
+                        n_gauss, t_min, alpha_min, alpha_max, stream);
+}
+
+// As ptgs_dense_visibility_count, with order (N,) int32 and pair_offset
+// (R,) int64 (the exclusive prefix sum of the counts) in; pair_gid (the
+// counts' total,) int32 out: segment r's Gaussian indices (into the
+// table's index order) at [pair_offset[r], pair_offset[r] + count[r]).
+extern "C" int ptgs_dense_visibility_pairs(
+    const float* origins, const float* dirs, const float* t_end,
+    const float* sorted_rows, const float* groups, const int* order,
+    const unsigned char* active, const long long* pair_offset,
+    int* pair_gid, int n_rays, int n_gauss, float t_min, float alpha_min,
+    float alpha_max, void* stream) {
+  return launch<kPairs>(origins, dirs, t_end, sorted_rows, groups, active,
+                        nullptr, order, nullptr, pair_offset, pair_gid,
+                        n_rays, n_gauss, t_min, alpha_min, alpha_max,
+                        stream);
 }

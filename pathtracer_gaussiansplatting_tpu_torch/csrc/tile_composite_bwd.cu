@@ -4,10 +4,10 @@
 // pathtracer_gaussiansplatting_tpu/kernels/tile_composite.py:_bwd_kernel.
 // Given the forward's inputs (count, dirs, geom, feats) and the cotangents
 // of its outputs (g_out (T, P, F), g_alpha (T, P), g_depth (T, P)), it
-// writes d_dirs (T, P, 3), d_geom (T, 16, K) and d_feats (T, F, K), with
-// the forward's chunk schedule: slots of chunks the forward skipped get no
-// gradient (the caller zero-fills d_geom and d_feats; rows 11-15 of d_geom
-// stay zero).
+// writes d_geom (T, 16, K), d_feats (T, F, K) and, where asked, d_dirs
+// (T, P, 3), with the forward's chunk schedule: slots of chunks the
+// forward skipped get no gradient (the caller zero-fills d_geom and
+// d_feats; rows 11-15 of d_geom stay zero).
 //
 // For w_k = T_k alpha_k, T_k = prod_{j<k} (1 - alpha_j), the compositing
 // VJP is the suffix-sum form
@@ -19,33 +19,42 @@
 // from d_alpha the chain through the alpha cutoffs, q(t), t = -b/a, and
 // a = d^T Q d, b = d^T Q (o - mu) to the packet rows and the ray direction.
 //
-// What bounds it on this card: per (pixel, slot) pair it evaluates the
-// forward's math three times (phase 1, and twice in phase 2) plus the VJP,
-// ~300 flops and three exps, and it reduces 25 per-slot sums over the
-// tile's pixels. Memory traffic is one read of the packets and one write
-// of the gradients. The design:
+// What bounds it on this card: instruction issue. Per (pixel, slot) pair
+// the VJP is ~230 flops with the forward's evaluation, and each slot's 25
+// sums are reduced over the tile's 256 pixels; memory traffic is one read
+// of the packets and one write of the gradients. The design:
 //
-//   * One thread block per tile, one thread per pixel (P <= 256), as in
-//     the forward. Per-pixel state (direction, cotangents, the suffix
-//     carry, the d_dirs partial sums) lives in registers.
-//   * Phase 1 walks the chunks in forward order with the forward's exact
-//     arithmetic (the shared header) and skip tests, so it reaches the same
-//     T and the same skip decisions. It records T at the entry of every
-//     32-slot sub-block in shared memory and counts the chunks that ran.
-//   * Phase 2 walks the sub-blocks of the chunks that ran in reverse. For
-//     each it recomputes T before every slot into shared memory (from the
-//     recorded entry T, with the forward's products: no division by
-//     1 - alpha, which would drift from them), then walks the slots
-//     backwards carrying the suffix sum.
-//   * Per-slot sums (d_q6 (6), d_wb (3), d_c, d_opac, d_feats (F)) are
-//     owned by the block: a transposing butterfly over the warp (31
-//     shuffles for 32 values) leaves lane l with value l's warp sum, the
-//     warps' partials meet in shared memory, and the block writes each
-//     (tile, slot) once. No atomics, so the result is deterministic.
+//   * One thread block per tile, one thread per pixel (P <= 256). The
+//     slots are staged as the forward stages them (tile_composite_common
+//     .cuh: slot-major, 7 float4 broadcasts a pair, stages of 32 slots
+//     double-buffered by cp.async).
+//   * Phase 1 replays the forward in slot order with its exact arithmetic
+//     and chunk skip, so it reaches the same T and the same decisions. It
+//     records, per (slot, warp), whether any of the warp's pixels has
+//     alpha > 0 (a ballot), and sums in double, over the slots,
+//     A = sum_i (g_out . feats_i) w_i and B = sum_i t_i w_i.
+//   * Phase 2 walks the same slots in the same order a second time, so T
+//     before every slot is the forward's running product, and the suffix
+//     sum is (A - A_k) + d_s (B - B_k) from the same double prefix sums:
+//     one evaluation per pair in phase 2 (was two, and a reverse walk
+//     behind a T rebuild in shared memory).
+//   * A (warp, slot) with no pixel at alpha > 0 contributes exactly zero
+//     to every output and to the suffix sums (w = 0, d_alpha0 = 0), so
+//     phase 2 skips it: no evaluation, no VJP, no reduction.
+//   * A live (warp, slot) reduces its 25 per-slot sums (d_q6 (6), d_wb
+//     (3), d_c, d_opac, d_feats (F)) through a per-warp scratch in shared
+//     memory: each lane stores its 25 values as 7 float4, and lane r adds
+//     column r over the 32 rows into a shared-memory partial; after each
+//     stage one thread per (row, slot) adds the live warps' partials in
+//     warp order and writes the slot. No atomics, so the result is
+//     deterministic. (A transposing shuffle butterfly over a 32-float
+//     array was 4x slower: its selects between two array entries put the
+//     array in local memory.)
+//   * d_dirs sums terms of ~1/sigma^2 that cancel, so it runs in double,
+//     and only in the DIRS instantiation (the caller asks for it where
+//     dirs requires grad; training does not).
 //
-// Everything is float32 but the per-pixel sums over slots (double, see
-// phase 2). Plain C entry point (bound with ctypes); returns
-// cudaGetLastError().
+// Plain C entry point (bound with ctypes); returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -54,63 +63,60 @@
 namespace {
 
 using ptgs::block_max;
+using ptgs::kFullWarp;
 using ptgs::kGeomRows;
 using ptgs::kGeomUsed;
 using ptgs::kMaxPixels;
+using ptgs::kStage;
 using ptgs::Params;
 
-constexpr int kSub = 32;  // slots per sub-block of phase 2
+constexpr int kPartStride = kStage + 1;  // a partial row, padded
+// A scratch row: one pixel's 25 per-slot values as 7 float4 (28 floats);
+// the stride keeps both its float4 stores and its column reads free of
+// bank conflicts.
+constexpr int kRedRow = 28;
 
-// Leaves in lane l the sum over the warp of v[l]; v is clobbered.
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[32],
-                                                    int lane) {
+template <int F>
+__device__ __forceinline__ float dot_feats(const float* go, const float* fv) {
+  float s = 0.0f;
 #pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) {
-    const bool upper = (lane & off) != 0;
-#pragma unroll
-    for (int i = 0; i < off; ++i) {
-      const float send = upper ? v[i] : v[i + off];
-      const float keep = upper ? v[i + off] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-  }
-  return v[0];
+  for (int f = 0; f < F; ++f) s = __fmaf_rn(go[f], fv[f], s);
+  return s;
 }
 
-// Stages geometry rows 0-10 and the F feature rows of slots
-// [s0, s0 + n) into sg[kGeomUsed][kSub] and sf[F][kSub].
+// The partials' floats, rounded up to whole 16-byte words so that the
+// scratch after them stays aligned for its float4 rows.
 template <int F>
-__device__ __forceinline__ void stage(const float* g_tile,
-                                      const float* f_tile, int k, int s0,
-                                      int n, float* sg, float* sf) {
-  for (int i = threadIdx.x; i < (kGeomUsed + F) * kSub; i += blockDim.x) {
-    const int r = i / kSub, j = i % kSub;
-    float v = 0.0f;
-    if (j < n)
-      v = r < kGeomUsed ? g_tile[r * k + s0 + j]
-                        : f_tile[(r - kGeomUsed) * k + s0 + j];
-    (r < kGeomUsed ? sg[r * kSub + j] : sf[(r - kGeomUsed) * kSub + j]) = v;
-  }
+__host__ __device__ constexpr int part_floats(int n_warps) {
+  return (n_warps * (kGeomUsed + F) * kPartStride + 3) / 4 * 4;
 }
 
 template <int F>
-__global__ void __launch_bounds__(kMaxPixels) tile_composite_bwd_kernel(
-    const float* __restrict__ count, const float* __restrict__ dirs,
-    const float* __restrict__ geom, const float* __restrict__ feats,
-    const float* __restrict__ g_out, const float* __restrict__ g_alpha,
-    const float* __restrict__ g_depth, float* __restrict__ d_dirs,
-    float* __restrict__ d_geom, float* __restrict__ d_feats, int p, int k,
-    int kc, Params prm) {
+__host__ __device__ constexpr size_t smem_floats(int n_warps) {
+  return 2 * kStage * ptgs::slot_floats<F>()                  // stages
+         + part_floats<F>(n_warps)                            // partials
+         + static_cast<size_t>(n_warps) * 32 * kRedRow;       // scratch
+}
+
+template <int F, bool DIRS>
+__global__ void __launch_bounds__(kMaxPixels, DIRS ? 2 : 3)
+    tile_composite_bwd_kernel(
+        const float* __restrict__ count, const float* __restrict__ dirs,
+        const float* __restrict__ geom, const float* __restrict__ feats,
+        const float* __restrict__ g_out, const float* __restrict__ g_alpha,
+        const float* __restrict__ g_depth, float* __restrict__ d_dirs,
+        float* __restrict__ d_geom, float* __restrict__ d_feats, int p, int k,
+        int kc, Params prm) {
+  constexpr int kS = ptgs::slot_floats<F>();
   constexpr int kSums = kGeomUsed + F;  // per-slot sums: geom rows, feats
-  static_assert(kSums <= 32, "one warp lane per per-slot sum");
-  const int n_sub = (k + kSub - 1) / kSub;
+  static_assert(F == 14, "the scratch rows are written for 14 features");
   const int n_warps = p >> 5;
-  extern __shared__ float smem[];
-  float* sg = smem;                   // [kGeomUsed][kSub]
-  float* sf = sg + kGeomUsed * kSub;  // [F][kSub]
-  float* s_tex = sf + F * kSub;       // [kSub][p]: T before each slot
-  float* s_tsub = s_tex + kSub * p;   // [n_sub][p]: T at sub-block entry
-  float* s_part = s_tsub + n_sub * p; // [kSub][n_warps][kSums]
+  extern __shared__ __align__(16) float smem[];
+  float* stage = smem;                          // [2][kStage * kS]
+  float* s_part = smem + 2 * kStage * kS;       // [warp][kSums][kPartStride]
+  float* s_red = s_part + part_floats<F>(n_warps);  // [warp][32][kRedRow]
+  unsigned char* s_live = reinterpret_cast<unsigned char*>(
+      smem + smem_floats<F>(n_warps));          // [K][warp]
   __shared__ float red[32];
 
   const int tile = blockIdx.x;
@@ -118,37 +124,50 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_bwd_kernel(
   const int lane = pix & 31, warp = pix >> 5;
   const size_t px = static_cast<size_t>(tile) * p + pix;
   const ptgs::PixelDir pd = ptgs::load_dir(dirs + px * 3);
-  const float cnt = count[tile];
-  const int n_valid = min(k, max(0, static_cast<int>(ceilf(cnt))));
+  const int n_valid = min(k, max(0, static_cast<int>(ceilf(count[tile]))));
   const float* g_tile = geom + static_cast<size_t>(tile) * kGeomRows * k;
   const float* f_tile = feats + static_cast<size_t>(tile) * F * k;
+  float go[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) go[f] = g_out[px * F + f];
 
-  // ---- phase 1 (forward order): T at sub-block entries, s_depth ------
+  // ---- phase 1 (the forward replayed): T, s_depth, A, B, live flags ----
   float trans = 1.0f, s_depth = 0.0f;
-  int n_run = 0;  // chunks the forward ran
-  const int n_chunks = k / kc;
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const int start = ci * kc;
-    if (!(cnt > static_cast<float>(start))) break;
-    if (ci > 0 && !(block_max(trans, red) > prm.transmittance_min)) break;
-    n_run = ci + 1;
-    // start is 0 or a multiple of 128, so sub-blocks align with chunks.
-    for (int s0 = start; s0 < start + kc; s0 += kSub) {
-      s_tsub[(s0 / kSub) * p + pix] = trans;
-      // The forward stops at count: slots past it have alpha 0.
-      const int n = min(min(kSub, start + kc - s0), n_valid - s0);
-      if (n <= 0) continue;  // uniform over the block
-      __syncthreads();       // the previous sub-block is no longer read
-      stage<F>(g_tile, f_tile, k, s0, n, sg, sf);
-      __syncthreads();
-      for (int j = 0; j < n; ++j) {
-        const ptgs::SlotEval e = ptgs::eval_slot(pd, sg, kSub, j, prm);
-        const float w = trans * e.alpha;
+  double sum_a = 0.0, sum_b = 0.0;
+  int k_run = 0;  // slots of the chunks the forward ran, under count
+  ptgs::stage_async<F>(g_tile, f_tile, k, 0, min(kStage, n_valid), stage);
+  for (int s0 = 0, buf = 0; s0 < n_valid; s0 += kStage, buf ^= 1) {
+    if (s0 > 0 && s0 % kc == 0 &&
+        !(block_max(trans, red) > prm.transmittance_min))
+      break;
+    ptgs::stage_async<F>(g_tile, f_tile, k, s0 + kStage,
+                         min(kStage, n_valid - s0 - kStage),
+                         stage + (buf ^ 1) * kStage * kS);
+    ptgs::cp_async_wait<1>();
+    __syncthreads();
+    const float* sb = stage + buf * kStage * kS;
+    const int n = min(kStage, n_valid - s0);
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const ptgs::SlotEval e =
+          ptgs::eval_geom(pd, ptgs::stage_geom(sb, kS, j), prm);
+      const bool live = __any_sync(kFullWarp, e.live);
+      if (lane == 0) s_live[(s0 + j) * n_warps + warp] = live;
+      if (live) {
+        float fv[F];
+        ptgs::stage_feats<F>(sb, j, fv);
+        const float w = __fmul_rn(trans, e.alpha);
         trans = ptgs::trans_after(trans, e.alpha);
-        s_depth += w * e.t;
+        s_depth = __fmaf_rn(w, e.t, s_depth);
+        sum_a = fma(static_cast<double>(dot_feats<F>(go, fv)),
+                    static_cast<double>(w), sum_a);
+        sum_b = fma(static_cast<double>(e.t), static_cast<double>(w), sum_b);
       }
     }
+    k_run = s0 + n;
+    __syncthreads();  // sb is no longer read
   }
+  ptgs::cp_async_wait<0>();
 
   const float t_last = trans;
   const float aa = 1.0f - t_last;
@@ -158,90 +177,110 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_bwd_kernel(
   const float d_aa =
       g_alpha[px] + (aa > 1e-8f ? -gd * s_depth / (denom * denom) : 0.0f);
   const float d_aa_t = d_aa * t_last;  // every slot's share of alpha_acc
-  float go[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) go[f] = g_out[px * F + f];
+  const double d_s64 = d_s;
 
-  // ---- phase 2 (reverse order): recompute + VJP -----------------------
-  // The per-pixel sums over up to K slots run in double: their terms are
-  // large (q6 ~ 1/sigma^2) and cancel, and a float32 running sum loses
-  // the small result (d_dirs) or feeds its error through 1 / (1 - alpha)
-  // (the suffix carry). A dozen double adds per slot cost little.
-  double carry = 0.0;  // sum over later slots of d_w w
-  double ddq[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};  // sum d_a q6
+  // ---- phase 2 (slot order again): the VJP of the live (warp, slot)s ----
+  float tr = 1.0f;
+  double pre_a = 0.0, pre_b = 0.0;  // prefix sums of phase 1's A and B
+  double ddq[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};  // sum d_a q6 (DIRS)
   double ddb[3] = {0.0, 0.0, 0.0};                 // sum d_b Q(o-mu)
-  const int k_run = min(n_run * kc, k);
-  for (int sb = (k_run + kSub - 1) / kSub - 1; sb >= 0; --sb) {
-    const int s0 = sb * kSub;
-    const int n = min(kSub, k_run - s0);
-    __syncthreads();  // sg, sf, s_tex and s_part are no longer read
-    stage<F>(g_tile, f_tile, k, s0, n, sg, sf);
-    __syncthreads();
-    float tr = s_tsub[sb * p + pix];
+  __syncthreads();  // phase 1's stages are no longer read
+  ptgs::stage_async<F>(g_tile, f_tile, k, 0, min(kStage, k_run), stage);
+  for (int s0 = 0, buf = 0; s0 < k_run; s0 += kStage, buf ^= 1) {
+    ptgs::stage_async<F>(g_tile, f_tile, k, s0 + kStage,
+                         min(kStage, k_run - s0 - kStage),
+                         stage + (buf ^ 1) * kStage * kS);
+    ptgs::cp_async_wait<1>();
+    __syncthreads();  // also: the previous stage's partials are read
+    const float* sb = stage + buf * kStage * kS;
+    const int n = min(kStage, k_run - s0);
     for (int j = 0; j < n; ++j) {
-      s_tex[j * p + pix] = tr;
-      tr = ptgs::trans_after(tr, ptgs::eval_slot(pd, sg, kSub, j, prm).alpha);
-    }
-    for (int j = n - 1; j >= 0; --j) {
-      const ptgs::SlotEval e = ptgs::eval_slot(pd, sg, kSub, j, prm);
-      const float t_ex = s_tex[j * p + pix];
-      const float w = t_ex * e.alpha;
-      float d_w = 0.0f;
-#pragma unroll
-      for (int f = 0; f < F; ++f) d_w += go[f] * sf[f * kSub + j];
-      d_w += d_s * e.t;
+      if (!s_live[(s0 + j) * n_warps + warp]) continue;  // uniform
+      const ptgs::SlotGeom g = ptgs::stage_geom(sb, kS, j);
+      const ptgs::SlotEval e = ptgs::eval_geom(pd, g, prm);
+      float fv[F];
+      ptgs::stage_feats<F>(sb, j, fv);
+      const float t_ex = tr;
+      const float w = __fmul_rn(tr, e.alpha);
+      tr = ptgs::trans_after(tr, e.alpha);
+      const float gf = dot_feats<F>(go, fv);
+      pre_a = fma(static_cast<double>(gf), static_cast<double>(w), pre_a);
+      pre_b = fma(static_cast<double>(e.t), static_cast<double>(w), pre_b);
+      // sum over later slots of d_w w, from the prefix sums.
+      const float carry =
+          static_cast<float>((sum_a - pre_a) + d_s64 * (sum_b - pre_b));
+      const float d_w = gf + d_s * e.t;
       const float d_t = d_s * w;  // depth chain
-      const float d_log_om = static_cast<float>(carry) - d_aa_t;
-      carry += static_cast<double>(d_w) * w;
       const float d_alpha =
-          d_w * t_ex - d_log_om / fmaxf(1.0f - e.alpha, 1e-6f);
+          d_w * t_ex - __fdividef(carry - d_aa_t, fmaxf(1.0f - e.alpha, 1e-6f));
       const bool grad_live = e.live && e.alpha0 <= prm.alpha_max;
       const float d_alpha0 = grad_live ? d_alpha : 0.0f;
-      const float opac = sg[ptgs::kRowOpac * kSub + j];
       // The clamps pass the gradient at their bounds, as the plain
       // version's do. For q that matters: q = c - b^2/a cancels, and for a
       // ray through a splat's center float32 often rounds it to exactly 0
       // (the JAX kernel's q > 0 drops the term there; float64 keeps it).
       const float d_qv =
-          e.qv >= 0.0f ? -0.5f * (d_alpha0 * opac) * e.gval : 0.0f;
+          e.qv >= 0.0f ? -0.5f * (d_alpha0 * g.opac) * e.gval : 0.0f;
       // q chain: t picks up 2(a t + b) (zero at the interior peak,
       // nonzero where t is clipped); t = -b/a only where not clipped.
       const bool t_in = e.t_raw >= prm.t_min && e.t_raw <= prm.t_max;
+      const float inv_a = __fdividef(1.0f, e.a);
       const float d_t2 = d_t + d_qv * 2.0f * (e.a * e.t + e.b);
       const float d_a =
-          d_qv * e.t * e.t + (t_in ? d_t2 * (e.b / (e.a * e.a)) : 0.0f);
-      const float d_b = d_qv * 2.0f * e.t + (t_in ? -d_t2 / e.a : 0.0f);
+          d_qv * e.t * e.t + (t_in ? d_t2 * (e.b * inv_a * inv_a) : 0.0f);
+      const float d_b = d_qv * 2.0f * e.t + (t_in ? -d_t2 * inv_a : 0.0f);
+      if (DIRS) {
 #pragma unroll
-      for (int r = 0; r < 6; ++r)
-        ddq[r] += static_cast<double>(d_a) * sg[r * kSub + j];
+        for (int r = 0; r < 6; ++r)
+          ddq[r] += static_cast<double>(d_a) * g.q[r];
 #pragma unroll
-      for (int r = 0; r < 3; ++r)
-        ddb[r] += static_cast<double>(d_b) * sg[(6 + r) * kSub + j];
+        for (int r = 0; r < 3; ++r)
+          ddb[r] += static_cast<double>(d_b) * g.w[r];
+      }
 
       // This pixel's share of the slot's sums, in d_geom / d_feats row
-      // order: q6 (0-5), Q(o-mu) (6-8), c (9), opac (10), feats (11-).
-      float v[32];
+      // order: q6 (0-5), Q(o-mu) (6-8), c (9), opac (10), feats (11-),
+      // as one row of the warp's scratch; lane r < kSums then adds column
+      // r over the warp's 32 rows, in four interleaved chains.
+      float* rw = s_red + warp * 32 * kRedRow;
+      float4* row = reinterpret_cast<float4*>(rw + lane * kRedRow);
+      row[0] = make_float4(pd.dd[0] * d_a, pd.dd[1] * d_a, pd.dd[2] * d_a,
+                           pd.dd[3] * d_a);
+      row[1] = make_float4(pd.dd[4] * d_a, pd.dd[5] * d_a, pd.dx * d_b,
+                           pd.dy * d_b);
+      row[2] = make_float4(pd.dz * d_b, d_qv, d_alpha0 * e.gval, go[0] * w);
+      row[3] = make_float4(go[1] * w, go[2] * w, go[3] * w, go[4] * w);
+      row[4] = make_float4(go[5] * w, go[6] * w, go[7] * w, go[8] * w);
+      row[5] = make_float4(go[9] * w, go[10] * w, go[11] * w, go[12] * w);
+      row[6] = make_float4(go[13] * w, 0.0f, 0.0f, 0.0f);
+      __syncwarp();
+      if (lane < kSums) {
+        float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
 #pragma unroll
-      for (int r = 0; r < 6; ++r) v[r] = pd.dd[r] * d_a;
-      v[6] = pd.dx * d_b;
-      v[7] = pd.dy * d_b;
-      v[8] = pd.dz * d_b;
-      v[9] = d_qv;
-      v[10] = d_alpha0 * e.gval;
-#pragma unroll
-      for (int f = 0; f < F; ++f) v[kGeomUsed + f] = go[f] * w;
-#pragma unroll
-      for (int r = kSums; r < 32; ++r) v[r] = 0.0f;
-      const float sum = warp_transpose_sum(v, lane);
-      if (lane < kSums) s_part[(j * n_warps + warp) * kSums + lane] = sum;
+        for (int q = 0; q < 32; q += 4) {
+          a0 += rw[q * kRedRow + lane];
+          a1 += rw[(q + 1) * kRedRow + lane];
+          a2 += rw[(q + 2) * kRedRow + lane];
+          a3 += rw[(q + 3) * kRedRow + lane];
+        }
+        s_part[(warp * kSums + lane) * kPartStride + j] = (a0 + a1) + (a2 + a3);
+      }
+      __syncwarp();  // the scratch is no longer read
     }
     __syncthreads();
-    // One thread per (row, slot): add the warps' partials and write.
+    // One thread per (row, slot): add the live warps' partials in warp
+    // order and write. A slot no warp reached stays zero-filled.
     for (int i = threadIdx.x; i < kSums * n; i += blockDim.x) {
       const int r = i / n, j = i % n;
+      const unsigned char* lv = s_live + (s0 + j) * n_warps;
       float s = 0.0f;
-      for (int w = 0; w < n_warps; ++w)
-        s += s_part[(j * n_warps + w) * kSums + r];
+      bool any = false;
+      for (int wp = 0; wp < n_warps; ++wp) {
+        if (!lv[wp]) continue;
+        s += s_part[(wp * kSums + r) * kPartStride + j];
+        any = true;
+      }
+      if (!any) continue;
       if (r < kGeomUsed)
         d_geom[(static_cast<size_t>(tile) * kGeomRows + r) * k + s0 + j] = s;
       else
@@ -249,41 +288,36 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_bwd_kernel(
             s;
     }
   }
+  ptgs::cp_async_wait<0>();
 
-  // a = sum_r dd_r q6_r and b = d . Q(o-mu): chain to the direction.
-  const double dx = pd.dx, dy = pd.dy, dz = pd.dz;
-  float* dd_out = d_dirs + px * 3;
-  dd_out[0] = static_cast<float>(2.0 * dx * ddq[0] + dy * ddq[3] +
-                                 dz * ddq[4] + ddb[0]);
-  dd_out[1] = static_cast<float>(2.0 * dy * ddq[1] + dx * ddq[3] +
-                                 dz * ddq[5] + ddb[1]);
-  dd_out[2] = static_cast<float>(2.0 * dz * ddq[2] + dx * ddq[4] +
-                                 dy * ddq[5] + ddb[2]);
+  if (DIRS) {
+    // a = sum_r dd_r q6_r and b = d . Q(o-mu): chain to the direction.
+    const double dx = pd.dx, dy = pd.dy, dz = pd.dz;
+    float* dd_out = d_dirs + px * 3;
+    dd_out[0] = static_cast<float>(2.0 * dx * ddq[0] + dy * ddq[3] +
+                                   dz * ddq[4] + ddb[0]);
+    dd_out[1] = static_cast<float>(2.0 * dy * ddq[1] + dx * ddq[3] +
+                                   dz * ddq[5] + ddb[1]);
+    dd_out[2] = static_cast<float>(2.0 * dz * ddq[2] + dx * ddq[4] +
+                                   dy * ddq[5] + ddb[2]);
+  }
 }
 
-size_t smem_bytes(int f, int p, int k) {
-  const int n_sub = (k + kSub - 1) / kSub;
-  return sizeof(float) *
-         (static_cast<size_t>(kGeomUsed + f) * kSub            // sg, sf
-          + static_cast<size_t>(kSub) * p                      // s_tex
-          + static_cast<size_t>(n_sub) * p                     // s_tsub
-          + static_cast<size_t>(kSub) * (p / 32) * (kGeomUsed + f));
-}
-
-template <int F>
+template <int F, bool DIRS>
 cudaError_t launch(const float* count, const float* dirs, const float* geom,
                    const float* feats, const float* g_out,
                    const float* g_alpha, const float* g_depth, float* d_dirs,
                    float* d_geom, float* d_feats, int n_tiles, int p, int k,
                    int kc, Params prm, cudaStream_t stream) {
-  const size_t smem = smem_bytes(F, p, k);
-  if (smem > 48 * 1024) {
+  const size_t smem = sizeof(float) * smem_floats<F>(p / 32)
+                      + static_cast<size_t>(k) * (p / 32);
+  if (smem > 40 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tile_composite_bwd_kernel<F>,
+        tile_composite_bwd_kernel<F, DIRS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  tile_composite_bwd_kernel<F><<<n_tiles, p, smem, stream>>>(
+  tile_composite_bwd_kernel<F, DIRS><<<n_tiles, p, smem, stream>>>(
       count, dirs, geom, feats, g_out, g_alpha, g_depth, d_dirs, d_geom,
       d_feats, p, k, kc, prm);
   return cudaGetLastError();
@@ -292,30 +326,31 @@ cudaError_t launch(const float* count, const float* dirs, const float* geom,
 }  // namespace
 
 // count (T,), dirs (T, P, 3), geom (T, 16, K), feats (T, F, K),
-// g_out (T, P, F), g_alpha (T, P), g_depth (T, P) in; d_dirs (T, P, 3),
-// d_geom (T, 16, K), d_feats (T, F, K) out, d_geom and d_feats zero-filled
-// by the caller; all float32, contiguous. P must be a multiple of 32 and
-// at most 256, kc must divide K and be K or a multiple of 32, and F must
-// be 14 (the packet features). Returns a cudaError_t.
+// g_out (T, P, F), g_alpha (T, P), g_depth (T, P) in; d_geom (T, 16, K),
+// d_feats (T, F, K) out, zero-filled by the caller, and d_dirs (T, P, 3)
+// out where want_dirs is nonzero (NULL allowed otherwise); all float32,
+// contiguous. P must be a multiple of 32 and at most 256, kc must divide K
+// and be K or a multiple of 32, and F must be 14 (the packet features).
+// Returns a cudaError_t.
 extern "C" int ptgs_tile_composite_bwd(
     const float* count, const float* dirs, const float* geom,
     const float* feats, const float* g_out, const float* g_alpha,
     const float* g_depth, float* d_dirs, float* d_geom, float* d_feats,
-    int n_tiles, int p, int k, int f, int kc, float t_min, float t_max,
-    float alpha_min, float alpha_max, float gval_cut,
+    int n_tiles, int p, int k, int f, int kc, int want_dirs, float t_min,
+    float t_max, float alpha_min, float alpha_max, float gval_cut,
     float transmittance_min, void* stream) {
   if (n_tiles <= 0 || p <= 0 || p > kMaxPixels || p % 32 != 0 || kc <= 0 ||
-      k % kc != 0 || (kc != k && kc % kSub != 0))
+      k % kc != 0 || (kc != k && kc % kStage != 0) ||
+      (want_dirs && d_dirs == nullptr) || f != 14)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{t_min, t_max, alpha_min, alpha_max, gval_cut,
                    transmittance_min};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (f) {
-    case 14:
-      return static_cast<int>(launch<14>(
-          count, dirs, geom, feats, g_out, g_alpha, g_depth, d_dirs, d_geom,
-          d_feats, n_tiles, p, k, kc, prm, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(
+      want_dirs ? launch<14, true>(count, dirs, geom, feats, g_out, g_alpha,
+                                   g_depth, d_dirs, d_geom, d_feats, n_tiles,
+                                   p, k, kc, prm, s)
+                : launch<14, false>(count, dirs, geom, feats, g_out, g_alpha,
+                                    g_depth, d_dirs, d_geom, d_feats, n_tiles,
+                                    p, k, kc, prm, s));
 }

@@ -7,7 +7,9 @@
 // where one ulp can switch a ~1% contribution on or off, so both kernels
 // take the same code from here: a, b, t, q, exp and alpha round op by op
 // (no FMA contraction), in the plain PyTorch version's order, and come out
-// bit-equal to it and to each other.
+// bit-equal to it and to each other. The forward and backward kernels
+// stage their slots slot-major and double-buffered (the helpers at the
+// end); the harness keeps the row-major chunk it was written against.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +21,7 @@ constexpr int kGeomUsed = 11;    // q6 (0-5), Q(o-mu) (6-8), c (9), opac (10)
 constexpr int kRowC = 9;
 constexpr int kRowOpac = 10;
 constexpr int kMaxPixels = 256;  // one 16x16 tile per block
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 struct Params {
   float t_min, t_max, alpha_min, alpha_max, gval_cut, transmittance_min;
@@ -67,31 +70,50 @@ struct SlotEval {
   bool live;
 };
 
-// Evaluates slot j of geometry rows staged as sg[row * stride + j].
-__device__ __forceinline__ SlotEval eval_slot(const PixelDir& p,
-                                              const float* sg, int stride,
-                                              int j, const Params& prm) {
+// One slot's geometry: Q's upper triangle q6, Q (o - mu), c and opacity
+// (the packet rows 0-10).
+struct SlotGeom {
+  float q[6], w[3], c, opac;
+};
+
+// Evaluates one (pixel, slot) pair. Every kernel takes alpha from here.
+__device__ __forceinline__ SlotEval eval_geom(const PixelDir& p,
+                                              const SlotGeom& g,
+                                              const Params& prm) {
   SlotEval e;
-  float a = __fmul_rn(p.dd[0], sg[0 * stride + j]);
-  a = __fadd_rn(a, __fmul_rn(p.dd[1], sg[1 * stride + j]));
-  a = __fadd_rn(a, __fmul_rn(p.dd[2], sg[2 * stride + j]));
-  a = __fadd_rn(a, __fmul_rn(p.dd[3], sg[3 * stride + j]));
-  a = __fadd_rn(a, __fmul_rn(p.dd[4], sg[4 * stride + j]));
-  a = __fadd_rn(a, __fmul_rn(p.dd[5], sg[5 * stride + j]));
+  float a = __fmul_rn(p.dd[0], g.q[0]);
+  a = __fadd_rn(a, __fmul_rn(p.dd[1], g.q[1]));
+  a = __fadd_rn(a, __fmul_rn(p.dd[2], g.q[2]));
+  a = __fadd_rn(a, __fmul_rn(p.dd[3], g.q[3]));
+  a = __fadd_rn(a, __fmul_rn(p.dd[4], g.q[4]));
+  a = __fadd_rn(a, __fmul_rn(p.dd[5], g.q[5]));
   e.a = fmaxf(a, 1e-12f);
-  float b = __fadd_rn(__fmul_rn(p.dx, sg[6 * stride + j]),
-                      __fmul_rn(p.dy, sg[7 * stride + j]));
-  e.b = __fadd_rn(b, __fmul_rn(p.dz, sg[8 * stride + j]));
+  float b = __fadd_rn(__fmul_rn(p.dx, g.w[0]), __fmul_rn(p.dy, g.w[1]));
+  e.b = __fadd_rn(b, __fmul_rn(p.dz, g.w[2]));
   e.t_raw = __fdiv_rn(-e.b, e.a);
   e.t = fminf(fmaxf(e.t_raw, prm.t_min), prm.t_max);
   e.qv = __fadd_rn(
       __fmul_rn(__fadd_rn(__fmul_rn(e.a, e.t), __fmul_rn(2.0f, e.b)), e.t),
-      sg[kRowC * stride + j]);
+      g.c);
   e.gval = expf(__fmul_rn(-0.5f, fmaxf(e.qv, 0.0f)));
-  e.alpha0 = __fmul_rn(sg[kRowOpac * stride + j], e.gval);
+  e.alpha0 = __fmul_rn(g.opac, e.gval);
   e.live = (e.gval >= prm.gval_cut) && (e.alpha0 >= prm.alpha_min);
   e.alpha = e.live ? fminf(e.alpha0, prm.alpha_max) : 0.0f;
   return e;
+}
+
+// Evaluates slot j of geometry rows staged as sg[row * stride + j].
+__device__ __forceinline__ SlotEval eval_slot(const PixelDir& p,
+                                              const float* sg, int stride,
+                                              int j, const Params& prm) {
+  SlotGeom g;
+#pragma unroll
+  for (int r = 0; r < 6; ++r) g.q[r] = sg[r * stride + j];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) g.w[r] = sg[(6 + r) * stride + j];
+  g.c = sg[kRowC * stride + j];
+  g.opac = sg[kRowOpac * stride + j];
+  return eval_geom(p, g, prm);
 }
 
 // Transmittance past a slot: T * (1 - alpha), rounded as the forward does.
@@ -99,20 +121,110 @@ __device__ __forceinline__ float trans_after(float trans, float alpha) {
   return __fmul_rn(trans, __fsub_rn(1.0f, alpha));
 }
 
-// The forward's step over slot j of a chunk staged as sf[f * kc + j]:
-// w = T alpha, T *= 1 - alpha, and w added into the depth and F feature
-// sums by explicit FMAs, so every kernel that takes this step (the forward
-// and the harness's production modes) rounds it the same way.
+// The forward's step over one slot with features feat(f): w = T alpha,
+// T *= 1 - alpha, and w added into the depth and F feature sums by
+// explicit FMAs, so every kernel that takes this step (the forward, the
+// backward's replay and the harness's production modes) rounds it the
+// same way.
+template <int F, class Feat>
+__device__ __forceinline__ void composite_step(const SlotEval& e, Feat feat,
+                                               float& trans, float& s_depth,
+                                               float* acc) {
+  const float w = __fmul_rn(trans, e.alpha);
+  trans = trans_after(trans, e.alpha);
+  s_depth = __fmaf_rn(w, e.t, s_depth);
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = __fmaf_rn(w, feat(f), acc[f]);
+}
+
+// composite_step over slot j of a chunk staged as sf[f * kc + j].
 template <int F>
 __device__ __forceinline__ void composite_slot(const SlotEval& e,
                                                const float* sf, int kc,
                                                int j, float& trans,
                                                float& s_depth, float* acc) {
-  const float w = __fmul_rn(trans, e.alpha);
-  trans = trans_after(trans, e.alpha);
-  s_depth = __fmaf_rn(w, e.t, s_depth);
+  composite_step<F>(e, [&](int f) { return sf[f * kc + j]; }, trans,
+                    s_depth, acc);
+}
+
+// ---- slot-major staging (the forward and backward kernels) -------------
+//
+// A stage of kStage slots lies in shared memory slot by slot, each slot a
+// kSlotFloats-float row of 16-byte words: q6 (0-5), Q(o-mu) (6-8), c (9),
+// opac (10), a pad (11), then the features (12-), padded to a multiple of
+// four. One pair reads its slot as kSlotFloats / 4 broadcast float4 loads.
+constexpr int kStage = 32;
+constexpr int kFeatCol = 12;
+template <int F>
+__host__ __device__ constexpr int slot_floats() {
+  return kFeatCol + (F + 3) / 4 * 4;
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Starts copying packet rows 0-10 and the F feature rows of slots
+// [s0, s0 + n) (n <= kStage) into the slot-major stage buf, 4 bytes a
+// copy: consecutive threads read consecutive slots of one row. Commits a
+// group (an empty one where n <= 0), so every thread commits one group a
+// stage.
+template <int F>
+__device__ __forceinline__ void stage_async(const float* g_tile,
+                                            const float* f_tile, int k,
+                                            int s0, int n, float* buf) {
+  constexpr int kS = slot_floats<F>();
+  for (int i = threadIdx.x; i < (kGeomUsed + F) * kStage; i += blockDim.x) {
+    const int r = i / kStage, j = i % kStage;
+    if (j < n) {
+      if (r < kGeomUsed)
+        cp_async4(buf + j * kS + r, g_tile + r * k + s0 + j);
+      else
+        cp_async4(buf + j * kS + kFeatCol + r - kGeomUsed,
+                  f_tile + (r - kGeomUsed) * k + s0 + j);
+    }
+  }
+  cp_async_commit();
+}
+
+// Slot j's geometry from a slot-major stage, as three float4 loads.
+__device__ __forceinline__ SlotGeom stage_geom(const float* buf, int kS,
+                                               int j) {
+  const float4* row = reinterpret_cast<const float4*>(buf + j * kS);
+  const float4 v0 = row[0], v1 = row[1], v2 = row[2];
+  SlotGeom g;
+  g.q[0] = v0.x; g.q[1] = v0.y; g.q[2] = v0.z; g.q[3] = v0.w;
+  g.q[4] = v1.x; g.q[5] = v1.y; g.w[0] = v1.z; g.w[1] = v1.w;
+  g.w[2] = v2.x; g.c = v2.y; g.opac = v2.z;
+  return g;
+}
+
+// Slot j's F features from a slot-major stage, as float4 loads.
+template <int F>
+__device__ __forceinline__ void stage_feats(const float* buf, int j,
+                                            float* out) {
+  constexpr int kS = slot_floats<F>();
+  const float4* row = reinterpret_cast<const float4*>(buf + j * kS + kFeatCol);
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = __fmaf_rn(w, sf[f * kc + j], acc[f]);
+  for (int q = 0; q < (F + 3) / 4; ++q) {
+    const float4 v = row[q];
+    const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (4 * q + i < F) out[4 * q + i] = x[i];
+  }
 }
 
 }  // namespace ptgs

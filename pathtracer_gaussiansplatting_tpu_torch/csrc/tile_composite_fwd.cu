@@ -13,21 +13,32 @@
 //
 // and writes out (T, P, F), alpha_acc = 1 - T and depth = s / alpha_acc.
 //
-// What bounds it on this card: exp and FMA throughput, not memory. Each
-// (pixel, slot) pair costs ~85 flops and one exp, while a slot's 25 packet
-// floats are read once per tile and reused by all 256 pixels. The design
-// follows from that: one thread block per tile, one thread per pixel, the pixel's
-// direction, T, 14 feature sums and depth sum kept in registers; K is
-// walked in chunks of 128 slots whose 11 geometry rows and F feature rows
-// (~13 KB) are staged in shared memory, where every slot value is read by
-// all threads of the block as a broadcast.
+// What bounds it on this card: instruction issue, not memory. Each
+// (pixel, slot) pair costs ~66 flops, a division and an exp, while a
+// slot's 25 packet floats are read once per tile and reused by all 256
+// pixels. The design:
 //
-// The chunk schedule is the reference's: a chunk is skipped when the
-// tile's count is at or below its start, and every chunk after the first
-// is skipped once the block-wide max of T is at or below
-// transmittance_min. Pixels do not stop on their own. Everything is
-// float32; no TF32 or bf16 anywhere (exp of the quadratic amplifies
-// truncated operands).
+//   * One thread block per tile, one thread per pixel; the pixel's
+//     direction, T, 14 feature sums and depth sum stay in registers.
+//   * K is walked in stages of kStage = 32 slots (a compile-time constant)
+//     staged slot-major in shared memory (tile_composite_common.cuh), 28
+//     floats a slot padded to 16-byte words: a pair reads its slot as 7
+//     broadcast float4 loads (was 25 strided 4-byte loads).
+//   * The stages are double-buffered: cp.async copies the next stage
+//     while the block evaluates this one; the slot loop is unrolled.
+//   * A warp none of whose pixels has alpha > 0 at a slot skips the
+//     composite step (14 feature FMAs, depth and T): alpha = 0 gives w = 0,
+//     T (1 - 0) = T and fma(0, x, s) = s, so no bit changes.
+//
+// The chunk schedule is the reference's: chunks of kc slots (128, or K
+// when 128 does not divide it); one is skipped when the tile's count is at
+// or below its start, and every chunk after the first is skipped once the
+// block-wide max of T is at or below transmittance_min. Pixels do not stop
+// on their own. The per-pixel arithmetic and the slot order are those of
+// the shared header, so the outputs are bit-equal to the plain version's
+// alpha and to the ablation harness's full mode. Everything is float32;
+// no TF32 or bf16 anywhere (exp of the quadratic amplifies truncated
+// operands).
 //
 // Plain C entry point (bound with ctypes); returns cudaGetLastError().
 
@@ -38,10 +49,12 @@
 namespace {
 
 using ptgs::block_max;
+using ptgs::kFullWarp;
 using ptgs::kGeomRows;
-using ptgs::kGeomUsed;
 using ptgs::kMaxPixels;
+using ptgs::kStage;
 using ptgs::Params;
+
 
 template <int F>
 __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
@@ -49,9 +62,8 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
     const float* __restrict__ geom, const float* __restrict__ feats,
     float* __restrict__ out, float* __restrict__ alpha_acc,
     float* __restrict__ depth, int p, int k, int kc, Params prm) {
-  extern __shared__ float smem[];
-  float* sg = smem;                   // [kGeomUsed][kc]
-  float* sf = smem + kGeomUsed * kc;  // [F][kc]
+  constexpr int kS = ptgs::slot_floats<F>();
+  __shared__ __align__(16) float stage[2][kStage * kS];
   __shared__ float red[32];
 
   const int tile = blockIdx.x;
@@ -64,33 +76,38 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = 0.0f;
 
-  const float cnt = count[tile];
+  // Slots at or past count are masked (opacity 0, alpha 0): leaving them
+  // out changes nothing, and a chunk that starts there is skipped.
+  const int n_valid = min(k, max(0, static_cast<int>(ceilf(count[tile]))));
   const float* g_tile = geom + static_cast<size_t>(tile) * kGeomRows * k;
   const float* f_tile = feats + static_cast<size_t>(tile) * F * k;
-  const int n_chunks = k / kc;
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    const int start = ci * kc;
-    // count and the block max are uniform over the block, and neither
-    // test can pass again once it fails: skipping the rest is exact.
-    if (!(cnt > static_cast<float>(start))) break;
-    if (ci > 0 && !(block_max(trans, red) > prm.transmittance_min)) break;
-
-    __syncthreads();  // the previous chunk's slots are no longer read
-    for (int i = threadIdx.x; i < kGeomUsed * kc; i += blockDim.x)
-      sg[i] = g_tile[(i / kc) * k + start + i % kc];
-    for (int i = threadIdx.x; i < F * kc; i += blockDim.x)
-      sf[i] = f_tile[(i / kc) * k + start + i % kc];
+  ptgs::stage_async<F>(g_tile, f_tile, k, 0, min(kStage, n_valid), stage[0]);
+  for (int s0 = 0, buf = 0; s0 < n_valid; s0 += kStage, buf ^= 1) {
+    // The block max is uniform over the block, and the test cannot pass
+    // again once it fails: skipping the rest is exact.
+    if (s0 > 0 && s0 % kc == 0 &&
+        !(block_max(trans, red) > prm.transmittance_min))
+      break;
+    ptgs::stage_async<F>(g_tile, f_tile, k, s0 + kStage,
+                         min(kStage, n_valid - s0 - kStage), stage[buf ^ 1]);
+    ptgs::cp_async_wait<1>();
     __syncthreads();
-
-    // Slots at or past count are masked (opacity 0, alpha 0): leaving
-    // them out changes nothing.
-    const int n = min(kc, static_cast<int>(ceilf(cnt)) - start);
+    const float* sb = stage[buf];
+    const int n = min(kStage, n_valid - s0);
+#pragma unroll 4
     for (int j = 0; j < n; ++j) {
-      // alpha is bit-equal to the plain version's (see the shared header).
-      const ptgs::SlotEval e = ptgs::eval_slot(pd, sg, kc, j, prm);
-      ptgs::composite_slot<F>(e, sf, kc, j, trans, s_depth, acc);
+      const ptgs::SlotEval e =
+          ptgs::eval_geom(pd, ptgs::stage_geom(sb, kS, j), prm);
+      if (__any_sync(kFullWarp, e.live)) {
+        float fv[F];
+        ptgs::stage_feats<F>(sb, j, fv);
+        ptgs::composite_step<F>(e, [&](int f) { return fv[f]; }, trans,
+                                s_depth, acc);
+      }
     }
+    __syncthreads();  // sb is no longer read: the next stage may refill it
   }
+  ptgs::cp_async_wait<0>();
 
   const size_t px = static_cast<size_t>(tile) * p + pix;
   const float aa = 1.0f - trans;
@@ -105,14 +122,7 @@ cudaError_t launch(const float* count, const float* dirs, const float* geom,
                    const float* feats, float* out, float* alpha_acc,
                    float* depth, int n_tiles, int p, int k, int kc,
                    Params prm, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kGeomUsed + F) * kc * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tile_composite_fwd_kernel<F>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  tile_composite_fwd_kernel<F><<<n_tiles, p, smem, stream>>>(
+  tile_composite_fwd_kernel<F><<<n_tiles, p, 0, stream>>>(
       count, dirs, geom, feats, out, alpha_acc, depth, p, k, kc, prm);
   return cudaGetLastError();
 }
@@ -122,7 +132,8 @@ cudaError_t launch(const float* count, const float* dirs, const float* geom,
 // count (T,), dirs (T, P, 3), geom (T, 16, K), feats (T, F, K) in;
 // out (T, P, F), alpha_acc (T, P), depth (T, P) out; all float32,
 // contiguous. P must be a multiple of 32 and at most 256, kc must divide
-// K, and F must be 14 (the packet features). Returns a cudaError_t.
+// K and be K or a multiple of 32, and F must be 14 (the packet features).
+// Returns a cudaError_t.
 extern "C" int ptgs_tile_composite_fwd(
     const float* count, const float* dirs, const float* geom,
     const float* feats, float* out, float* alpha_acc, float* depth,
@@ -130,7 +141,7 @@ extern "C" int ptgs_tile_composite_fwd(
     float alpha_min, float alpha_max, float gval_cut,
     float transmittance_min, void* stream) {
   if (n_tiles <= 0 || p <= 0 || p > kMaxPixels || p % 32 != 0 || kc <= 0 ||
-      k % kc != 0)
+      k % kc != 0 || (kc != k && kc % kStage != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{t_min, t_max, alpha_min, alpha_max, gval_cut,
                    transmittance_min};

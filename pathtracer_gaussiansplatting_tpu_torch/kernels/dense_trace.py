@@ -11,7 +11,10 @@ Gaussians from one (N, 16) table, :func:`gaussian_table`.
 For CUDA tensors they launch the CUDA kernels ``csrc/dense_topk.cu``
 (counted in ``TOPK_LAUNCHES``) and ``csrc/dense_visibility.cu`` (counted in
 ``VIS_LAUNCHES``); for CPU tensors they run ``dense_topk_plain`` and
-``dense_visibility_plain``, the unculled math. There is no fallback from
+``dense_visibility_plain``, the unculled math. ``dense_visibility_pairs``
+(the shadow product with the list of its pairs with alpha > 0, for its
+gradient) launches the visibility kernel in its two listing modes (counted
+in ``VIS_PAIR_LAUNCHES``), or runs ``dense_visibility_pairs_plain``. There is no fallback from
 the card to the plain versions: a CUDA input either launches the kernel or
 raises.
 
@@ -56,6 +59,9 @@ GROUP_ROWS, GROUP_COLS = 32, 8
 
 TOPK_LAUNCHES = 0  # dense_topk kernel launches; read by chip_smoke.py
 VIS_LAUNCHES = 0   # dense_visibility kernel launches; read by chip_smoke.py
+# dense_visibility_pairs' launches of the same kernel (two a call: the
+# counts, then the pairs); read by chip_smoke.py
+VIS_PAIR_LAUNCHES = 0
 PLAIN_CHUNK_ELEMS = 1 << 24  # (rays, N) pairs per plain-version chunk
 
 # The cull's margins (csrc/dense_common.cuh derives them): the relative
@@ -249,6 +255,29 @@ def dense_visibility_plain(origins: torch.Tensor, dirs: torch.Tensor,
     return vis
 
 
+def dense_visibility_pairs_plain(origins: torch.Tensor, dirs: torch.Tensor,
+                                 t_end: torch.Tensor, table: torch.Tensor,
+                                 settings: RenderSettings,
+                                 active: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of :func:`dense_visibility_pairs`: (vis (R,)
+    as :func:`dense_visibility_plain`, seg (M,) int64, gid (M,) int64),
+    the (segment, Gaussian) pairs with alpha > 0 in index order."""
+    mean, m, opac = _unpack(table)
+    vis, segs, gids = [], [], []
+    for s, e in _ray_chunks(origins.shape[0], table.shape[0]):
+        alpha = gops.segment_transmittance_alpha(
+            origins[s:e, None], dirs[s:e, None], mean, m, opac,
+            settings.t_min, t_end[s:e, None], settings.alpha_min,
+            settings.alpha_max)
+        if active is not None:
+            alpha = torch.where(active[s:e, None], alpha, 0.0)
+        vis.append(torch.prod(1.0 - alpha, dim=-1))
+        seg, gid = torch.nonzero(alpha > 0.0, as_tuple=True)
+        segs.append(seg + s)
+        gids.append(gid)
+    return torch.cat(vis), torch.cat(segs), torch.cat(gids)
+
+
 def _ray_terms(dirs: torch.Tensor, settings: RenderSettings,
                t_end: Optional[torch.Tensor]):
     """(|d|^2, tau^2 |d|^2), each (R, 1): tau = t_min, or for a segment
@@ -352,6 +381,10 @@ _TOPK_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 _VIS_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+_VIS_COUNT_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+_VIS_PAIRS_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 Table = Union[torch.Tensor, DenseTable]
 
@@ -444,3 +477,62 @@ def dense_visibility(origins: torch.Tensor, dirs: torch.Tensor,
                            f"CUDA error {err}")
     VIS_LAUNCHES += 1
     return vis
+
+
+def dense_visibility_pairs(origins: torch.Tensor, dirs: torch.Tensor,
+                           t_end: torch.Tensor, table: Table,
+                           settings: RenderSettings,
+                           active: Optional[torch.Tensor] = None):
+    """The shadow visibility with its pairs: (vis (R,), seg (M,) int64,
+    gid (M,) int64), vis as :func:`dense_visibility` gives it and the
+    (segment, Gaussian) pairs with alpha > 0, grouped by segment (each
+    segment's in the order the kernel met them). CPU tensors run
+    :func:`dense_visibility_pairs_plain`; CUDA tensors launch
+    ``csrc/dense_visibility.cu`` twice: its counting mode (vis and each
+    segment's count), then, at the counts' prefix sum, its listing mode.
+    Every pair is listed: the list is sized from the counts."""
+    global VIS_PAIR_LAUNCHES
+    tensors = dict(origins=origins, dirs=dirs, t_end=t_end)
+    if active is not None:
+        tensors["active"] = active
+    rows, dtab = _dense("dense_visibility_pairs", table, tensors)
+    if dtab is None:
+        return dense_visibility_pairs_plain(origins, dirs, t_end, rows,
+                                            settings, active)
+    r, n = origins.shape[0], rows.shape[0]
+    _check_table("dense_visibility_pairs", dtab, tensors, dict(
+        origins=(r, 3), dirs=(r, 3), t_end=(r,), active=(r,)))
+    dev = origins.device
+    vis = torch.ones((r,), dtype=torch.float32, device=dev)
+    counts = torch.zeros((r,), dtype=torch.int32, device=dev)
+    if r == 0 or n == 0:
+        empty = torch.zeros((0,), dtype=torch.int64, device=dev)
+        return vis, empty, empty
+    args = (settings.t_min, settings.alpha_min, settings.alpha_max)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn("ptgs_dense_visibility_count", _VIS_COUNT_ARGTYPES)(
+            origins.data_ptr(), dirs.data_ptr(), t_end.data_ptr(),
+            dtab.sorted_rows.data_ptr(), dtab.groups.data_ptr(), _ptr(active),
+            vis.data_ptr(), counts.data_ptr(), r, n, *args, stream)
+        if err != 0:
+            raise RuntimeError(f"dense_visibility_pairs: count launch failed "
+                               f"with CUDA error {err}")
+        VIS_PAIR_LAUNCHES += 1
+        ends = torch.cumsum(counts, 0, dtype=torch.int64)
+        offsets = (ends - counts).contiguous()
+        gid = torch.empty((int(ends[-1]),), dtype=torch.int32, device=dev)
+        if gid.numel():
+            err = _kernel_fn("ptgs_dense_visibility_pairs",
+                             _VIS_PAIRS_ARGTYPES)(
+                origins.data_ptr(), dirs.data_ptr(), t_end.data_ptr(),
+                dtab.sorted_rows.data_ptr(), dtab.groups.data_ptr(),
+                dtab.order.data_ptr(), _ptr(active), offsets.data_ptr(),
+                gid.data_ptr(), r, n, *args, stream)
+            if err != 0:
+                raise RuntimeError(f"dense_visibility_pairs: pair launch "
+                                   f"failed with CUDA error {err}")
+            VIS_PAIR_LAUNCHES += 1
+    seg = torch.repeat_interleave(
+        torch.arange(r, device=dev), counts.long(), output_size=gid.numel())
+    return vis, seg, gid.long()

@@ -126,10 +126,10 @@ def _quadratic_ab(dirs: torch.Tensor, geom: torch.Tensor):
     return a, b
 
 
-def _composite_from_ab(a: torch.Tensor, b: torch.Tensor, geom: torch.Tensor,
-                       featsT: torch.Tensor, settings: RenderSettings):
-    """Full-K composite (no chunking, no early exit) of a batch of tiles
-    from their quadratic forms (:func:`_quadratic_ab`)."""
+def _t_alpha(a: torch.Tensor, b: torch.Tensor, geom: torch.Tensor,
+             settings: RenderSettings):
+    """(t, alpha) (B, P, K) of every (pixel, slot) pair from the quadratic
+    forms (:func:`_quadratic_ab`), with the cutoffs and clamp."""
     g = geom[:, :, None, :]
     a = torch.clamp_min(a, 1e-12)
     t = torch.clamp(-b / a, settings.t_min, settings.t_max)
@@ -140,6 +140,14 @@ def _composite_from_ab(a: torch.Tensor, b: torch.Tensor, geom: torch.Tensor,
     live = (gval >= cut) & (alpha0 >= settings.alpha_min)
     alpha = torch.where(live, torch.clamp_max(alpha0, settings.alpha_max),
                         torch.zeros_like(alpha0))
+    return t, alpha
+
+
+def _composite_from_ab(a: torch.Tensor, b: torch.Tensor, geom: torch.Tensor,
+                       featsT: torch.Tensor, settings: RenderSettings):
+    """Full-K composite (no chunking, no early exit) of a batch of tiles
+    from their quadratic forms (:func:`_quadratic_ab`)."""
+    t, alpha = _t_alpha(a, b, geom, settings)
     om = 1.0 - alpha
     excl = _cumprod_excl(om)
     w = excl * alpha
@@ -177,7 +185,8 @@ def tile_composite_plain(packets, dirs: torch.Tensor,
 
 
 def tile_composite_bwd_plain(packets, dirs: torch.Tensor, cot,
-                             settings: RenderSettings):
+                             settings: RenderSettings,
+                             want_dirs: bool = True):
     """Plain PyTorch version of the backward: the VJP of
     :func:`tile_composite_plain` (full K, no chunk skipping), by autograd
     through :func:`_composite_math` recomputed chunk by chunk of tiles (the
@@ -185,7 +194,8 @@ def tile_composite_bwd_plain(packets, dirs: torch.Tensor, cot,
 
     Args:
       packets: geom (T, 16, K), featsT (T, F, K); dirs: (T, P, 3);
-      cot: cotangents (g_out (T, P, F), g_alpha (T, P), g_depth (T, P)).
+      cot: cotangents (g_out (T, P, F), g_alpha (T, P), g_depth (T, P));
+      want_dirs: False drops d_dirs (None in its place).
 
     Returns (d_geom (T, 16, K), d_featsT (T, F, K), d_dirs (T, P, 3)).
     """
@@ -201,12 +211,13 @@ def tile_composite_bwd_plain(packets, dirs: torch.Tensor, cot,
             outs = _composite_math(ins[2], ins[0], ins[1], settings)
             parts.append(torch.autograd.grad(
                 outs, ins, tuple(c[s:s + step] for c in cot)))
-    return tuple(torch.cat(x, dim=0) for x in zip(*parts))
+    d_geom, d_featsT, d_dirs = (torch.cat(x, dim=0) for x in zip(*parts))
+    return d_geom, d_featsT, d_dirs if want_dirs else None
 
 
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                  + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                  + [ctypes.c_float] * 6 + [ctypes.c_void_p])
 
 
@@ -291,13 +302,15 @@ def _fwd(geom, featsT, dirs, count, settings: RenderSettings):
 
 
 def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
-                       settings: RenderSettings):
+                       settings: RenderSettings, want_dirs: bool = True):
     """Analytic VJP of :func:`tile_composite`.
 
     Args:
       packets: geom (T, 16, K), featsT (T, F, K), count (T,);
       dirs: (T, P, 3); cot: (g_out (T, P, F), g_alpha (T, P),
-        g_depth (T, P)).
+        g_depth (T, P)); want_dirs: False skips d_dirs (None in its place;
+        the kernel then leaves out its double-precision sums, and d_geom
+        and d_featsT come out the same).
 
     Returns (d_geom, d_featsT, d_dirs). CPU tensors go through
     :func:`tile_composite_bwd_plain` (full K); CUDA tensors launch the
@@ -310,7 +323,8 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
     tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count,
                    g_out=g_out, g_alpha=g_alpha, g_depth=g_depth)
     if _on_cpu("tile_composite_bwd", tensors):
-        return tile_composite_bwd_plain(packets, dirs, cot, settings)
+        return tile_composite_bwd_plain(packets, dirs, cot, settings,
+                                        want_dirs)
     t_total, p, _ = dirs.shape
     k = geom.shape[-1]
     _check_shapes("tile_composite_bwd", tensors, {
@@ -321,7 +335,7 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
     dev = dirs.device
     d_geom = torch.zeros_like(geom)
     d_featsT = torch.zeros_like(featsT)
-    d_dirs = torch.empty_like(dirs)
+    d_dirs = torch.empty_like(dirs) if want_dirs else None
     if t_total == 0:
         return d_geom, d_featsT, d_dirs
     with torch.cuda.device(dev):
@@ -329,8 +343,9 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
         err = _kernel_fn("ptgs_tile_composite_bwd", _BWD_ARGTYPES)(
             count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
             featsT.data_ptr(), g_out.data_ptr(), g_alpha.data_ptr(),
-            g_depth.data_ptr(), d_dirs.data_ptr(), d_geom.data_ptr(),
-            d_featsT.data_ptr(), t_total, p, k, FEATURE_DIM, _chunk_size(k),
+            g_depth.data_ptr(), None if d_dirs is None else d_dirs.data_ptr(),
+            d_geom.data_ptr(), d_featsT.data_ptr(), t_total, p, k,
+            FEATURE_DIM, _chunk_size(k), int(want_dirs),
             *_kernel_settings(settings), stream)
     if err != 0:
         raise RuntimeError(f"tile_composite_bwd: kernel launch failed with "
@@ -342,7 +357,9 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
 class TileComposite(torch.autograd.Function):
     """The fused composite with its analytic backward (the JAX package's
     ``_packed_composite`` custom VJP). Saves only its inputs, as the JAX
-    residual does; the backward recomputes the forward chunk by chunk."""
+    residual does; the backward recomputes the forward chunk by chunk. It
+    computes d_dirs only where dirs requires grad (training's directions,
+    built from the camera, do not), and returns None for it otherwise."""
 
     @staticmethod
     def forward(ctx, geom, featsT, dirs, count, settings):
@@ -356,7 +373,7 @@ class TileComposite(torch.autograd.Function):
         d_geom, d_featsT, d_dirs = tile_composite_bwd(
             dict(geom=geom, featsT=featsT, count=count), dirs,
             (g_out.contiguous(), g_alpha.contiguous(), g_depth.contiguous()),
-            ctx.settings)
+            ctx.settings, want_dirs=ctx.needs_input_grad[2])
         return d_geom, d_featsT, d_dirs, None, None
 
 

@@ -158,6 +158,27 @@ def render_radiance_dense(scene: GaussianScene, rays: Rays,
     return torch.einsum("rk,rkc->rc", weights, color) + trans[:, None] * bg
 
 
+def shadow_product(scene: GaussianScene, origins: torch.Tensor,
+                   dirs: torch.Tensor, t_end: torch.Tensor,
+                   seg: torch.Tensor, gid: torch.Tensor, vis: torch.Tensor,
+                   settings: RenderSettings) -> torch.Tensor:
+    """``vis`` (R,) carrying the gradient of prod(1 - alpha) over the
+    (segment, Gaussian) pairs ``seg``, ``gid`` (M,): the pairs' alpha
+    recomputed in torch from the scene's parameters with the plain
+    version's operations (as :func:`selected_peaks` does for the trace),
+    their product taken as exp(sum log(1 - alpha)) per segment, and
+    ``vis`` + (product - product.detach()): the value is ``vis``'s, bit
+    for bit, and the gradient the product's. Pairs left out have alpha =
+    0, where the reference's gradient is 0 as well."""
+    m = gops.canonical_transforms(scene.log_scales[gid], scene.quats[gid])
+    alpha = gops.segment_transmittance_alpha(
+        origins[seg], dirs[seg], scene.means[gid], m, scene.opacities[gid],
+        settings.t_min, t_end[seg], settings.alpha_min, settings.alpha_max)
+    log_t = torch.zeros_like(vis).index_add(0, seg, torch.log1p(-alpha))
+    prod = torch.exp(log_t)
+    return vis.detach() + (prod - prod.detach())
+
+
 def visibility_dense(scene: GaussianScene, origins: torch.Tensor,
                      directions: torch.Tensor, t_end: torch.Tensor,
                      settings: RenderSettings,
@@ -167,17 +188,16 @@ def visibility_dense(scene: GaussianScene, origins: torch.Tensor,
     """Soft-shadow transmittance (R,) prod(1 - alpha_i) from origins along
     directions up to t_end; 1 where ``active`` (R,) is false; ``table`` as
     in :func:`dense_topk`. On the CPU it differentiates through the plain
-    version, as the JAX reference does. The card's kernel output carries no
-    gradient, so on the card it raises where autograd wants the geometry
-    (a geometry or opacity leaf requires grad): run it under
-    ``torch.no_grad()`` or on detached leaves there."""
-    if origins.device.type != "cpu" and _geometry_needs_grad(scene):
-        raise NotImplementedError(
-            "visibility_dense: the shadow kernel passes no gradient to the "
-            "geometry or opacity; call it under torch.no_grad() or with "
-            "detached geometry leaves on the card")
+    version, as the JAX reference does. On the card, where autograd wants
+    the geometry (a geometry or opacity leaf requires grad), the kernel
+    also lists the pairs with alpha > 0 (``dense_trace
+    .dense_visibility_pairs``) and :func:`shadow_product` gives its value
+    their gradient."""
     if table is None:
         table = dense_trace.gaussian_table(scene, settings)
-    return dense_trace.dense_visibility(
-        origins.contiguous(), directions.contiguous(), t_end.contiguous(),
-        table, settings, active)
+    o, d, te = (x.contiguous() for x in (origins, directions, t_end))
+    if origins.device.type == "cpu" or not _geometry_needs_grad(scene):
+        return dense_trace.dense_visibility(o, d, te, table, settings, active)
+    vis, seg, gid = dense_trace.dense_visibility_pairs(o, d, te, table,
+                                                       settings, active)
+    return shadow_product(scene, o, d, te, seg, gid, vis, settings)

@@ -243,6 +243,34 @@ def test_bwd_dispatch_cpu_and_no_fallback(multi_chunk):
     assert tc.BWD_LAUNCHES == before
 
 
+def test_function_d_dirs_only_where_asked(multi_chunk):
+    """TileComposite passes down whether dirs requires grad: d_geom and
+    d_featsT are identical either way, and no d_dirs comes back (dirs.grad
+    stays None) where it is not asked; tile_composite_bwd and its plain
+    version drop it the same way."""
+    mc = multi_chunk
+    cot = tuple(torch.from_numpy(c) for c in mc["cot"])
+    settings = RenderSettings()
+    grads = {}
+    for want_dirs in (True, False):
+        ins = [mc["tpk"]["geom"].clone().requires_grad_(),
+               mc["tpk"]["featsT"].clone().requires_grad_(),
+               mc["tdirs"].clone().requires_grad_(want_dirs)]
+        outs = tc.tile_composite(dict(geom=ins[0], featsT=ins[1],
+                                      count=mc["tpk"]["count"]), ins[2],
+                                 settings)
+        torch.autograd.backward(outs, cot)
+        grads[want_dirs] = [x.grad for x in ins]
+    assert all(torch.equal(a, b) for a, b in zip(grads[True][:2],
+                                                 grads[False][:2]))
+    assert grads[True][2] is not None and grads[False][2] is None
+    full = tc.tile_composite_bwd(mc["tpk"], mc["tdirs"], cot, settings)
+    for fn in (tc.tile_composite_bwd, tc.tile_composite_bwd_plain):
+        got = fn(mc["tpk"], mc["tdirs"], cot, settings, want_dirs=False)
+        assert got[2] is None
+        assert all(torch.equal(a, b) for a, b in zip(got[:2], full[:2]))
+
+
 @pytest.mark.cuda
 def test_bwd_kernel_matches_plain_on_card(request):
     if not torch.cuda.is_available():
@@ -260,3 +288,30 @@ def test_bwd_kernel_matches_plain_on_card(request):
     want = tc.tile_composite_bwd_plain(packets, dirs, cot, settings)
     for g, w, name in zip(got, want, GRAD_NAMES):
         assert_close(g, w, BWD_RTOL, BWD_ATOL, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_without_dirs_on_card(request):
+    """The kernel's launch without d_dirs (training's) gives d_geom and
+    d_featsT bit-equal to the launch with it, within the plain version's
+    tolerance, and exact zeros on the chunks the forward skips."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
+    mc = request.getfixturevalue("multi_chunk")
+    dev = torch.device("cuda", 0)
+    packets = {k: v.to(dev) for k, v in mc["tpk"].items()}
+    dirs = mc["tdirs"].to(dev)
+    cot = tuple(torch.from_numpy(c).to(dev) for c in mc["cot"])
+    settings = RenderSettings()
+    before = tc.BWD_LAUNCHES
+    got = tc.tile_composite_bwd(packets, dirs, cot, settings,
+                                want_dirs=False)
+    full = tc.tile_composite_bwd(packets, dirs, cot, settings)
+    torch.cuda.synchronize()
+    assert tc.BWD_LAUNCHES == before + 2 and got[2] is None
+    assert all(torch.equal(a, b) for a, b in zip(got[:2], full[:2]))
+    want = tc.tile_composite_bwd_plain(packets, dirs, cot, settings)
+    keep = torch.from_numpy(~mc["skipped"]).to(dev)
+    for g, w, name in zip(got[:2], want[:2], GRAD_NAMES):
+        assert_close(g[keep], w[keep], BWD_RTOL, BWD_ATOL, err_msg=name)
+        assert not bool(g[~keep][..., 128:].any()), name

@@ -10,11 +10,13 @@ in a cuda-marked test).
   dense backend's, built once) gives the results of a table built per call.
 - The dense backend's table cache counts the calls it cannot serve; the
   tables of tools/dense_table_order hold the shipped table's rows.
-- Gradients of render_radiance_dense, of trace_dense's depth and (on the
-  CPU) of visibility_dense reach the geometry and opacity and match
-  jax.grad of the JAX package's functions; the recomputed t and alpha are
-  bit-equal to the plain outputs; on the card visibility_dense refuses a
-  geometry that requires grad.
+- Gradients of render_radiance_dense, of trace_dense's depth and of
+  visibility_dense reach the geometry and opacity and match jax.grad of
+  the JAX package's functions; the recomputed t and alpha are bit-equal to
+  the plain outputs. The card's shadow gradient path (the kernel's pairs
+  with alpha > 0, their alpha recomputed in torch, shadow_product) is
+  driven on the CPU with the plain version's pairs and matches jax.grad
+  too; its value is the plain product's, bit for bit.
 """
 import dataclasses
 import math
@@ -537,12 +539,10 @@ def test_recomputed_peaks_bit_equal_plain(cloud):
     assert not no_grad[1].requires_grad
 
 
-def test_dense_visibility_gradients_match_jax(cloud):
-    """On the CPU, visibility_dense differentiates through the plain
-    version as the JAX reference does (segments with no pair within 1e-3
-    of the alpha_min step)."""
+def _shadow_case(cloud, s):
+    """Segments of the cloud's rays with no pair within 1e-3 (relative) of
+    the alpha_min step: (o, d, t_end) numpy arrays."""
     ts, tr = cloud["tscene"], cloud["trays"]
-    s, jset = RenderSettings(), JRenderSettings()
     t_end = np.random.default_rng(9).uniform(0.2, 3.0, tr.num_rays).astype(
         np.float32)
     mean, m, opac = dt._unpack(dt.gaussian_table(ts, s))
@@ -552,9 +552,17 @@ def test_dense_visibility_gradients_match_jax(cloud):
     keep = np.flatnonzero(~np_of(((raw / s.alpha_min - 1.0).abs() < 1e-3)
                                  .any(-1)))
     assert len(keep) > 0.8 * tr.num_rays
-    o, d, te = (np_of(tr.origins)[keep], np_of(tr.directions)[keep],
-                t_end[keep])
-    w = np.random.default_rng(10).uniform(-1, 1, len(keep)).astype(
+    return (np_of(tr.origins)[keep], np_of(tr.directions)[keep],
+            t_end[keep])
+
+
+def test_dense_visibility_gradients_match_jax(cloud):
+    """On the CPU, visibility_dense differentiates through the plain
+    version as the JAX reference does (segments with no pair within 1e-3
+    of the alpha_min step)."""
+    s, jset = RenderSettings(), JRenderSettings()
+    o, d, te = _shadow_case(cloud, s)
+    w = np.random.default_rng(10).uniform(-1, 1, len(te)).astype(
         np.float32)
 
     def jloss(sc):
@@ -562,7 +570,7 @@ def test_dense_visibility_gradients_match_jax(cloud):
             sc, jnp.asarray(o), jnp.asarray(d), jnp.asarray(te), jset))
 
     want = jax.grad(jloss)(cloud["jscene"])
-    leaves = _leaves(ts)
+    leaves = _leaves(cloud["tscene"])
     vis = tref.visibility_dense(leaves, torch.from_numpy(o),
                                 torch.from_numpy(d), torch.from_numpy(te), s)
     got = torch.autograd.grad((torch.from_numpy(w) * vis).sum(),
@@ -573,23 +581,96 @@ def test_dense_visibility_gradients_match_jax(cloud):
                      err_msg=k)
 
 
+def test_shadow_pairs_gradients_match_jax(cloud):
+    """The card's shadow gradient path on the CPU: the pairs with alpha > 0
+    (dense_visibility_pairs, here the plain version's), their alpha
+    recomputed from the leaves and shadow_product give the gradients of
+    jax.grad of the JAX visibility_dense for means, log_scales, quats and
+    opacity_logits (segments off the alpha_min step)."""
+    s, jset = RenderSettings(), JRenderSettings()
+    o, d, te = _shadow_case(cloud, s)
+    w = np.random.default_rng(10).uniform(-1, 1, len(te)).astype(np.float32)
+
+    def jloss(sc):
+        return jnp.sum(jnp.asarray(w) * jref.visibility_dense(
+            sc, jnp.asarray(o), jnp.asarray(d), jnp.asarray(te), jset))
+
+    want = jax.grad(jloss)(cloud["jscene"])
+    leaves = _leaves(cloud["tscene"])
+    to, td, tte = (torch.from_numpy(x) for x in (o, d, te))
+    vis, seg, gid = dt.dense_visibility_pairs(
+        to, td, tte, dt.gaussian_table(leaves, s).detach(), s)
+    assert seg.numel() > 0 and not vis.requires_grad
+    got_vis = tref.shadow_product(leaves, to, td, tte, seg, gid, vis, s)
+    got = torch.autograd.grad((torch.from_numpy(w) * got_vis).sum(),
+                              [getattr(leaves, k) for k in GEOMETRY])
+    for k, g in zip(GEOMETRY, got):
+        assert float(g.abs().max()) > 0, k
+        assert_close(g, np.asarray(getattr(want, k)), GRAD_RTOL, GRAD_ATOL,
+                     err_msg=k)
+
+
+def test_shadow_pairs_value_equals_plain(cloud):
+    """dense_visibility_pairs on the CPU: vis bit-equal to
+    dense_visibility_plain and the pairs exactly those with alpha > 0 (none
+    of a masked-out segment); shadow_product keeps that value bit for bit,
+    and its own product of the recomputed pairs agrees with it to
+    float32 rounding."""
+    s = RenderSettings()
+    o, d, te = (torch.from_numpy(x) for x in _shadow_case(cloud, s))
+    ts = cloud["tscene"]
+    table = dt.gaussian_table(ts, s)
+    active = torch.from_numpy(np.random.default_rng(12).uniform(
+        0, 1, len(te)) < 0.7)
+    vis, seg, gid = dt.dense_visibility_pairs(o, d, te, table, s, active)
+    plain = dt.dense_visibility_plain(o, d, te, table, s, active)
+    assert torch.equal(vis, plain)
+    mean, m, opac = dt._unpack(table)
+    alpha = tgauss.segment_transmittance_alpha(
+        o[:, None], d[:, None], mean, m, opac, s.t_min, te[:, None],
+        s.alpha_min, s.alpha_max)
+    want_seg, want_gid = torch.nonzero((alpha > 0) & active[:, None],
+                                       as_tuple=True)
+    assert torch.equal(seg, want_seg) and torch.equal(gid, want_gid)
+    assert not bool(active[seg].logical_not().any())
+    leaves = _leaves(ts)
+    out = tref.shadow_product(leaves, o, d, te, seg, gid, vis, s)
+    assert out.requires_grad and torch.equal(out.detach(), plain)
+    prod = torch.exp(torch.zeros_like(vis).index_add(
+        0, seg, torch.log1p(-alpha[seg, gid])))
+    assert_close(prod, plain, 1e-5, 1e-7)
+
+
 @pytest.mark.cuda
-def test_dense_visibility_on_card_refuses_geometry_grad(cloud):
-    """The shadow kernel passes no gradient: on the card visibility_dense
-    raises where a geometry leaf requires grad, and launches the kernel
-    under torch.no_grad()."""
+def test_dense_visibility_gradients_on_card_match_cpu(cloud):
+    """On the card visibility_dense lists the pairs with alpha > 0 and
+    recomputes them in torch: its value is the no-grad launch's, bit for
+    bit, and its geometry and opacity gradients match the CPU's (within
+    1e-3 of each leaf's largest, as chip_smoke.py 5e: CUDA and the CPU
+    round exp differently)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
-    ts = _leaves(cloud["tscene"].to("cuda"))
-    o = cloud["trays"].origins.cuda()
-    d = cloud["trays"].directions.cuda()
-    t_end = torch.full((o.shape[0],), 2.0, device="cuda")
-    with pytest.raises(NotImplementedError):
-        tref.visibility_dense(ts, o, d, t_end, RenderSettings())
-    before = dt.VIS_LAUNCHES
-    with torch.no_grad():
-        vis = tref.visibility_dense(ts, o, d, t_end, RenderSettings())
-    assert dt.VIS_LAUNCHES == before + 1 and bool(torch.isfinite(vis).all())
+    s = RenderSettings()
+    o, d, te = _shadow_case(cloud, s)
+    w = torch.from_numpy(np.random.default_rng(10).uniform(
+        -1, 1, len(te)).astype(np.float32))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        ts = _leaves(cloud["tscene"].to(dev))
+        args = tuple(torch.from_numpy(x).to(dev) for x in (o, d, te)) + (s,)
+        before = dt.VIS_PAIR_LAUNCHES
+        vis = tref.visibility_dense(ts, *args)
+        grads.append([g.cpu() for g in torch.autograd.grad(
+            (w.to(dev) * vis).sum(), [getattr(ts, k) for k in GEOMETRY])])
+        if dev == "cuda":
+            assert dt.VIS_PAIR_LAUNCHES == before + 2
+            with torch.no_grad():
+                assert torch.equal(vis.detach(),
+                                   tref.visibility_dense(ts, *args))
+    for k, g, c in zip(GEOMETRY, *grads):
+        scale = float(c.abs().max())
+        assert scale > 0 and float(g.abs().max()) > 0, k
+        assert float((g - c).abs().max()) <= 1e-3 * scale, k
 
 
 @pytest.mark.cuda

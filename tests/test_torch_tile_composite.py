@@ -1,9 +1,13 @@
-"""The port's fused tile composite vs the JAX package (CPU), and the CUDA
-kernel vs its plain version (on a CUDA card only)."""
+"""The port's fused tile composite vs the JAX package (CPU), the
+exactness of the kernels' dead-warp skip (CPU), and the CUDA kernel vs its
+plain version (on a CUDA card only)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given
+from hypothesis import settings as hyp_settings
+from hypothesis import strategies as st
 
 from pathtracer_gaussiansplatting_tpu.core.types import (
     RenderSettings as JRenderSettings,
@@ -157,3 +161,125 @@ def test_kernel_matches_plain_on_card():
     want = tc.tile_composite_plain(packets, tdirs.to(dev), settings)
     for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
         assert_close(g, w, 1e-3, 3e-4, err_msg=name)
+
+
+def _cutoff_tile(seed: int, ulps: int, p: int = 64, k: int = 48):
+    """One tile's packets (geom (1, 16, K), featsT (1, 14, K)) and dirs
+    (1, P, 3) whose slots each put one pixel within ``ulps`` float32 ulps
+    of a cutoff: the alpha_min step (through the opacity) for even slots,
+    the sigma_cut step (through c) for odd ones."""
+    rng = np.random.default_rng(seed)
+    s = RenderSettings()
+    d = rng.normal(size=(1, p, 3)) * [0.3, 0.3, 1.0] + [0.0, 0.0, -1.0]
+    dirs = torch.from_numpy((d / np.linalg.norm(d, axis=-1, keepdims=True))
+                            .astype(np.float32))
+    inv_s2 = rng.uniform(1.0, 400.0, (k, 3))
+    og = rng.normal(size=(k, 3)) * [0.3, 0.3, 1.0] + [0.0, 0.0, 4.0]
+    geom = np.zeros((1, 16, k), np.float32)
+    geom[0, :3] = inv_s2.T
+    geom[0, 6:9] = (inv_s2 * og).T
+    geom[0, 9] = (inv_s2 * og * og).sum(-1)
+    geom[0, 10] = 1.0
+    geom = torch.from_numpy(geom)
+    t, _ = tc._t_alpha(*tc._quadratic_ab(dirs, geom), geom,
+                       RenderSettings(alpha_min=0.0, sigma_cut=1e3))
+    a, b = tc._quadratic_ab(dirs, geom)
+    a = torch.clamp_min(a, 1e-12)
+    q = (a * t + 2.0 * b) * t + geom[:, 9:10]          # (1, P, K)
+    pick = torch.from_numpy(rng.integers(0, p, k))
+    q_p = q[0, pick, torch.arange(k)]
+    step = 2.0 ** -23 * ulps
+    cut2 = s.sigma_cut ** 2
+    # Odd slots: q at the picked pixel onto sigma_cut^2; even slots: that
+    # pixel's response onto alpha_min through the opacity.
+    geom[0, 9, 1::2] += (cut2 - q_p[1::2]) * (1.0 + step)
+    gval = torch.exp(-0.5 * torch.clamp_min(q_p[0::2], 0.0))
+    geom[0, 10, 0::2] = s.alpha_min / gval * (1.0 + step)
+    geom[0, 10, 1::2] = torch.from_numpy(rng.uniform(0.2, 0.99, k // 2)
+                                         .astype(np.float32))
+    featsT = torch.from_numpy(rng.normal(size=(1, tc.FEATURE_DIM, k))
+                              .astype(np.float32))
+    return geom, featsT, dirs
+
+
+def _sequential_composite(alpha, t, featsT, skip=None):
+    """The kernels' per-slot step in torch, slot by slot (w = T alpha,
+    T *= 1 - alpha, sums += w x); with ``skip`` (P, K) bool, a pixel leaves
+    out the slots where it is set."""
+    p, k = alpha.shape
+    trans = torch.ones(p)
+    depth = torch.zeros(p)
+    acc = torch.zeros(p, featsT.shape[0])
+    for j in range(k):
+        run = torch.ones(p, dtype=torch.bool) if skip is None else ~skip[:, j]
+        a = alpha[:, j]
+        w = trans * a
+        trans = torch.where(run, trans * (1.0 - a), trans)
+        depth = torch.where(run, depth + w * t[:, j], depth)
+        acc = torch.where(run[:, None], acc + w[:, None] * featsT[None, :, j],
+                          acc)
+    return acc, trans, depth
+
+
+@hyp_settings(max_examples=25, deadline=None, derandomize=True,
+              database=None, suppress_health_check=[HealthCheck.too_slow])
+@given(seed=st.integers(0, 2 ** 32 - 1), ulps=st.integers(-3, 3))
+def test_dead_warp_skip_is_exact(seed, ulps):
+    """The kernels skip a (warp, slot) where none of the warp's 32 pixels
+    has alpha > 0: the forward's composite step, the backward's VJP and
+    reduction. With one pixel a slot within a few ulps of the alpha_min or
+    sigma_cut step, the composite that leaves those slots out equals the
+    one that runs them, bit for bit: alpha = 0 gives w = 0, T (1 - 0) = T
+    and s + 0 x = s."""
+    geom, featsT, dirs = _cutoff_tile(seed, ulps)
+    t, alpha = tc._t_alpha(*tc._quadratic_ab(dirs, geom), geom,
+                           RenderSettings())
+    t, alpha = t[0], alpha[0]                            # (P, K)
+    p, k = alpha.shape
+    warp_dead = ~(alpha > 0).reshape(p // 32, 32, k).any(1)   # (W, K)
+    skip = warp_dead.repeat_interleave(32, dim=0)             # (P, K)
+    assert bool(skip.any()) and bool((~skip).any())
+    full = _sequential_composite(alpha, t, featsT[0])
+    skipped = _sequential_composite(alpha, t, featsT[0], skip)
+    for a, b in zip(full, skipped):
+        assert torch.equal(a, b)
+    # At these cutoffs the alpha_min / sigma_cut steps decide liveness: the
+    # plain version's output is the full composite's.
+    out, alpha_acc, _ = tc.tile_composite_plain(
+        dict(geom=geom, featsT=featsT), dirs, RenderSettings())
+    assert_close(out[0], full[0], 1e-5, 1e-6)
+    assert_close(alpha_acc[0], 1.0 - full[1], 1e-6, 1e-7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p", [(80, 256), (512, 256), (256, 64),
+                                 (256, 32)])
+def test_kernel_chunk_shapes_on_card(k, p):
+    """The kernels' stages of 32 slots on other shapes: a single chunk of
+    K = 80 (a partial last stage), four 128-slot chunks of K = 512, and
+    tiles of 64 and 32 pixels (2 and 1 warps: the backward's shared-memory
+    layout for fewer warps); the forward's outputs within the plain
+    version's tolerance, and the backward's too (without the transmittance
+    cutoff)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
+    _, _, tpk, tdirs = pose_packets(1500, 0.8, k)
+    dev = torch.device("cuda", 0)
+    packets = {key: v.to(dev) for key, v in tpk.items()}
+    dirs = tdirs[:, :p].contiguous().to(dev)
+    settings = RenderSettings()
+    got = tc.tile_composite(packets, dirs, settings)
+    want = tc.tile_composite_plain(packets, dirs, settings)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
+        assert_close(g, w, 1e-3, 3e-4, err_msg=name)
+    rng = np.random.default_rng(k)
+    cot = tuple(torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)
+                                 ).to(dev) * (want[1] > 1e-3 if i == 2 else 1)
+                for i, x in enumerate(want))
+    full = RenderSettings(transmittance_min=0.0)
+    got = tc.tile_composite_bwd(packets, dirs, cot, full, want_dirs=False)
+    want = tc.tile_composite_bwd_plain(packets, dirs, cot, full)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got[:2], want[:2], ("d_geom", "d_featsT")):
+        assert_close(g, w, 2e-3, 2e-4, err_msg=name)
