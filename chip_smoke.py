@@ -91,7 +91,24 @@ are built from the checkout at first use. Then:
   phase 7  the ablation harness (csrc/tile_composite_variants.cu) at the
            headline packets: every mode's kernel against its plain
            version, full bit-equal to the forward kernel, then the timing
-           run, 20 launches a mode.
+           run, 20 launches a mode;
+  phase 8  the dataset capture: (a) capture_scene_data through "auto"
+           (tiled+grid) on surface_scene(500k, seed 13) with its emissive
+           panel, depth 4, 4 poses at 800x800 (fov 45, halved), 16 spp,
+           1M uniform rays from the downstream loop's torus (R 1.2, r 0.4,
+           h 0.2), debug_checks on; then capture_panorama (2 frames, 4
+           spp): the layout, the 3/1 split, 400x400 JPGs, the PLY's rows
+           (finite, as many as num_points), one grid build, the report
+           lines, the kernels' launches; (b) a small capture
+           (surface_scene(2000), tiled+grid, 4 poses at 96x64, 2 spp,
+           depth 1, 4096 rays) on the card against the CPU; (c) pose 0 at
+           8 spp checkpointed every 4 samples, cut after the first segment
+           and resumed, against the uninterrupted render (bit for bit, or
+           the first operation that differs between two runs); (d) the
+           capture's times (prepare, sample, pose, the point-cloud pass,
+           the PLY write, the grid build, one profiled sample's busy
+           share, peak memory) and the reference's default dataset
+           extrapolated from them.
 
 Every failure (a build error, a launch error, a tolerance miss, a
 non-finite image, a kernel the main path never launched) raises and ends
@@ -118,9 +135,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1184,15 +1203,18 @@ def small_pt_check(dev, settings, backend: str = "dense",
 
 class HostTimer:
     """Wraps a function of a module so that each call is timed on the host
-    clock between two synchronizes; restores it on exit."""
+    clock between two synchronizes (and, with ``keep``, its arguments kept
+    in ``calls``); restores it on exit."""
 
-    def __init__(self, module, name: str):
-        self.module, self.name = module, name
+    def __init__(self, module, name: str, keep: bool = False):
+        self.module, self.name, self.keep = module, name, keep
         self.orig = getattr(module, name)
-        self.ms = []
+        self.ms, self.calls = [], []
 
     def __enter__(self):
         def timed(*args, **kw):
+            if self.keep:
+                self.calls.append((args, kw))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = self.orig(*args, **kw)
@@ -1913,6 +1935,369 @@ def ablation(tc, tv, card) -> dict:
                 **bnds["fwd"])
 
 
+# ---- phase 8: the dataset capture -----------------------------------------
+
+# The downstream loop's torus, inside the room
+# (benchmarks/downstream_loop.py:70); the reference's default 1M rays.
+CAPTURE_TORUS = dict(major_radius=1.2, minor_radius=0.4, height=0.2)
+# 8b, a small capture on the card against the CPU (surface_scene(2000),
+# depth 1). Cameras: the same float32 pose math, within an ulp an entry.
+CAP_MATRIX_ATOL = 1e-6
+# The 8-bit sRGB image each JPG encodes: at least CAP_IMG_MIN_SHARE of its
+# channels within CAP_IMG_ATOL levels (a thin surfel at an alpha cutoff
+# moves a few pixels, ROADMAP section 3). The JPEG codec quantizes each 8x8
+# block, so one level before it can move a block by a few: the decoded
+# files are held to CAP_JPG_ATOL levels on the same share.
+CAP_IMG_ATOL, CAP_IMG_MIN_SHARE = 2, 0.99
+CAP_JPG_ATOL = 8
+# Point cloud: row counts within CAP_PLY_COUNT_RTOL of each other (a ray's
+# hit flag may flip at a thin surfel). Over the rays that hit on both
+# (matched rows), at least CAP_ROW_MIN_SHARE have their position within
+# CAP_PLY_EXTENT_TOL of the scene's extent and their color within
+# CAP_PLY_COLOR_ATOL of 255 (a flipped hit lands elsewhere).
+CAP_PLY_COUNT_RTOL = 0.005
+CAP_PLY_EXTENT_TOL, CAP_PLY_COLOR_ATOL, CAP_ROW_MIN_SHARE = 1e-3, 2, 0.99
+# 8c: if two uninterrupted renders of the pose differ on the card, the
+# resumed one is held to the first within this.
+CAP_RESUME_ATOL = 1e-6
+# The reference's default dataset (its capture_scene_data's defaults).
+REF_POSES, REF_SPP = 336, 512
+
+
+def capture_run(capture, gm, gt, tc, dt, card) -> dict:
+    """8a and 8d: capture_scene_data through "auto" on surface_scene(500k)
+    (4 poses at 800x800, 16 spp, depth 4, 1M uniform torus rays,
+    debug_checks), then capture_panorama (2 steps, 4 spp); the files
+    checked, the kernels' launches counted, the times printed."""
+    from PIL import Image
+
+    from pathtracer_gaussiansplatting_tpu_torch.core.torus import TorusConfig
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.ply import (
+        load_point_cloud_ply,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.transforms import (
+        load_transforms_json,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+
+    n, poses, res, spp = 500_000, 4, 800, 16
+    scene = surface_scene(n, seed=13)     # no device: the card
+    settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
+    torus = TorusConfig(**CAPTURE_TORUS)   # the reference's 1M rays
+    lines, stamps = [], []
+
+    def progress(msg: str) -> None:
+        stamps.append(time.perf_counter())
+        lines.append(msg)
+        if not msg.startswith("point cloud rays") \
+                or msg.endswith(f" {torus.num_rays}/{torus.num_rays}"):
+            log("phase 8a: " + msg)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc.LAUNCHES = gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
+    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    with tempfile.TemporaryDirectory(dir=ROOT,
+                                     prefix=".chip_smoke_capture_") as out:
+        with HostTimer(gt, "build_grid_accel") as builds, \
+                HostTimer(capture, "prepare_tiles") as prep, \
+                HostTimer(capture, "pathtrace_camera") as samples, \
+                FirstCalls(capture, "pathtrace_camera") as sample_args, \
+                HostTimer(capture, "_trace_host") as traces, \
+                HostTimer(capture, "save_point_cloud_ply") as ply:
+            t0 = time.perf_counter()
+            result = capture.capture_scene_data(
+                scene, out, settings, torus=torus, accumulation_steps=spp,
+                total_positions=poses, image_divisor=2, width=res,
+                height=res, fov_y_deg=45.0, sampling_method="uniform",
+                debug_checks=True, progress=progress)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        t1 = time.perf_counter()
+        capture.capture_panorama(scene, out, settings, torus=torus, steps=2,
+                                 accumulation_steps=4, width=res, height=res,
+                                 progress=progress)
+        torch.cuda.synchronize()
+        pano_s = time.perf_counter() - t1
+        launches = dict(fwd=tc.LAUNCHES, trace=gm.TRACE_LAUNCHES,
+                        vis=gm.VIS_LAUNCHES, topk=dt.TOPK_LAUNCHES,
+                        dense_vis=dt.VIS_LAUNCHES)
+
+        # The dataset: layout, split, sizes, the point cloud.
+        check(lines[0] == "capture backend: tiled+grid",
+              f"8a: auto resolved to '{lines[0]}'")
+        check(len(builds.ms) == 1,
+              f"8a: build_grid_accel ran {len(builds.ms)} times")
+        names = sorted(os.listdir(os.path.join(out, "train")))
+        check(names == [f"r_{i}.jpg" for i in range(poses)],
+              f"8a: train/ holds {names}")
+        split = [len(load_transforms_json(os.path.join(
+            out, f"transforms_{s}.json"))["frames"]) for s in ("train", "test")]
+        check(split == [3, 1], f"8a: train/test frames {split}")
+        for name in names:
+            size = Image.open(os.path.join(out, "train", name)).size
+            check(size == (res // 2, res // 2), f"8a: {name} is {size}")
+        pano = sorted(os.listdir(os.path.join(out, "panorama")))
+        check(pano == ["pano_0.jpg", "pano_1.jpg"], f"8a: panorama {pano}")
+        with open(os.path.join(out, "points3d.ply")) as fh:
+            header = [next(fh) for _ in range(12)]
+        rows_in_header = int(header[2].split()[-1])
+        cloud = load_point_cloud_ply(os.path.join(out, "points3d.ply"))
+        n_points = result["num_points"]
+        check(n_points == rows_in_header == len(cloud["positions"]) > 0,
+              f"8a: num_points {n_points}, header {rows_in_header}, rows "
+              f"{len(cloud['positions'])}")
+        check(all(bool(np.isfinite(cloud[k]).all()) for k in cloud),
+              "8a: point-cloud rows not finite")
+        for prefix in ("binning truncation", "grid-accel truncation",
+                       "marcher truncation"):
+            check(any(ln.startswith(prefix) for ln in lines),
+                  f"8a: no '{prefix}' report line")
+        for rel in [f"train/{n}" for n in names] + ["panorama/pano_0.jpg"]:
+            shutil.copy(os.path.join(out, rel), os.path.join(
+                OUT_DIR, "phase8a_" + rel.replace("/", "_")))
+    check(launches["fwd"] == poses * spp and launches["trace"] > 0
+          and launches["vis"] > 0 and launches["topk"] == 0
+          and launches["dense_vis"] == 0, f"8a: kernel launches {launches}")
+    log(f"phase 8a: surface_scene({n}) + its emissive panel, auto -> "
+        f"tiled+grid, {poses} poses {res}x{res} fov 45 / 2, {spp} spp, depth "
+        f"{settings.max_depth}, torus R {torus.major_radius} r "
+        f"{torus.minor_radius} h {torus.height}, {torus.num_rays} uniform "
+        f"rays: layout, split 3/1, JPGs {res // 2}x{res // 2}, "
+        f"{n_points} PLY rows (finite), one grid build, report lines, "
+        f"panorama 2 frames: ok; launches {json.dumps(launches)} ({card})")
+
+    # 8d: the times.
+    med = statistics.median(samples.ms)
+    per_pose = [statistics.median(samples.ms[i * spp:(i + 1) * spp])
+                for i in range(poses)]
+    pose_stamps = [t for t, ln in zip(stamps, lines)
+                   if ln.startswith("captured position")]
+    pose_s = [b - a for a, b in zip([t0] + pose_stamps[:-1], pose_stamps)]
+    pc_stamps = [t for t, ln in zip(stamps, lines)
+                 if ln.startswith("point cloud rays")]
+    pc_s = pc_stamps[-1] - pose_stamps[-1]
+    trace_ms = sum(traces.ms)
+    build_s = builds.ms[0] / 1e3
+    ply_s = ply.ms[0] / 1e3
+    args, kw = sample_args.calls[None]
+    split_ms = profile_split("phase8_sample", lambda: capture.pathtrace_camera(
+        *args, **kw), med, card, GRID_PROFILE_NAMES)
+    busy = sum(split_ms.values()) / med
+    log(f"phase 8d: per pose: prepare ms "
+        f"{', '.join(f'{m:.1f}' for m in prep.ms)}; sample ms median "
+        f"{', '.join(f'{m:.1f}' for m in per_pose)} (all {med:.1f}); pose s "
+        f"{', '.join(f'{s:.2f}' for s in pose_s)} (JPG written; the first "
+        f"with the capture's set-up, the grid build included); one "
+        f"profiled sample {busy:.1%} busy ({card})")
+    log(f"phase 8d: point-cloud pass: {torus.num_rays} rays x {spp} spp in "
+        f"{pc_s:.2f} s = {torus.num_rays * spp / pc_s:.4e} rays/s (the "
+        f"flat renderer in 65536-ray chunks, then one trace a chunk); the "
+        f"trace pass {trace_ms:.1f} ms in {len(traces.ms)} chunks ({card})")
+    log(f"phase 8d: PLY write {ply_s:.2f} s for {n_points} rows; grid build "
+        f"{build_s:.2f} s; total capture {total_s:.2f} s; panorama "
+        f"{pano_s:.2f} s (2 frames, 4 spp, its own grid); peak memory "
+        f"{peak_gib:.2f} GiB ({card})")
+    pose_512 = (statistics.median(prep.ms) + REF_SPP * med) / 1e3
+    pc_512 = (pc_s - trace_ms / 1e3) * REF_SPP / spp + trace_ms / 1e3
+    ref_s = build_s + REF_POSES * pose_512 + pc_512 + ply_s
+    log(f"phase 8d: extrapolated, not measured: the reference's default "
+        f"dataset ({REF_POSES} poses x {REF_SPP} spp, {torus.num_rays} "
+        f"rays at {REF_SPP} spp) would take {ref_s / 3600:.2f} h: "
+        f"{pose_512:.1f} s a pose, {pc_512 / 60:.1f} min for the point "
+        f"cloud, from this run's medians ({card})")
+    return dict(scene=scene, settings=settings, launches=launches)
+
+
+def small_capture(capture, device) -> dict:
+    """8b's capture on one device: surface_scene(2000), tiled+grid, 4 poses
+    at 96x64, 2 spp, depth 1, 4096 uniform torus rays. Returns the
+    transforms, the 8-bit images the JPGs encode, the decoded JPGs and the
+    point cloud's per-ray arrays before the hit filter."""
+    from PIL import Image
+
+    from pathtracer_gaussiansplatting_tpu_torch.core.torus import TorusConfig
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.images import (
+        to_uint8_srgb,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.transforms import (
+        load_transforms_json,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+
+    scene = surface_scene(2000, seed=13, device=device)
+    settings = RenderSettings(max_depth=1, ambient=(0.05, 0.05, 0.06, 1.0))
+    with tempfile.TemporaryDirectory(dir=ROOT,
+                                     prefix=".chip_smoke_capture_") as out, \
+            HostTimer(capture, "save_jpg", keep=True) as jpgs, \
+            HostTimer(capture, "save_point_cloud_ply", keep=True) as ply:
+        t0 = time.perf_counter()
+        res = capture.capture_scene_data(
+            scene, out, settings,
+            torus=TorusConfig(num_rays=4096, **CAPTURE_TORUS),
+            accumulation_steps=2, total_positions=4, width=96, height=64,
+            backend="tiled+grid", progress=None)
+        secs = time.perf_counter() - t0
+        transforms = {s: load_transforms_json(os.path.join(
+            out, f"transforms_{s}.json")) for s in ("train", "test")}
+        decoded = [np.asarray(Image.open(args[0]), np.int32)
+                   for args, _ in jpgs.calls]
+    means = scene.means.cpu().numpy()
+    return dict(
+        secs=secs, num_points=res["num_points"], transforms=transforms,
+        images=[to_uint8_srgb(args[1]).astype(np.int32)
+                for args, _ in jpgs.calls],
+        decoded=decoded, cloud=ply.calls[0][0][1:],
+        extent=float((means.max(0) - means.min(0)).max()))
+
+
+def capture_card_vs_cpu(capture, dev, card) -> None:
+    """8b: the same small capture on the card and on the CPU."""
+    card_run, cpu_run = (small_capture(capture, d)
+                         for d in (dev, torch.device("cpu")))
+    for s in ("train", "test"):
+        a, b = card_run["transforms"][s], cpu_run["transforms"][s]
+        check(a["camera_angle_x"] == b["camera_angle_x"]
+              and [f["file_path"] for f in a["frames"]]
+              == [f["file_path"] for f in b["frames"]],
+              f"8b: transforms_{s} differ")
+        err = max((float(np.abs(f["transform_matrix"]
+                                - g["transform_matrix"]).max())
+                   for f, g in zip(a["frames"], b["frames"])), default=0.0)
+        check(err <= CAP_MATRIX_ATOL, f"8b: transforms_{s} matrices {err}")
+    img_share, jpg_share, jpg2_share = [], [], []
+    for a, b, c, d in zip(card_run["images"], cpu_run["images"],
+                          card_run["decoded"], cpu_run["decoded"]):
+        img_share.append(float((np.abs(a - b) <= CAP_IMG_ATOL).mean()))
+        jpg_share.append(float((np.abs(c - d) <= CAP_JPG_ATOL).mean()))
+        jpg2_share.append(float((np.abs(c - d) <= CAP_IMG_ATOL).mean()))
+    check(len(img_share) == 4 and min(img_share) >= CAP_IMG_MIN_SHARE
+          and min(jpg_share) >= CAP_IMG_MIN_SHARE,
+          f"8b: images {img_share}, decoded JPGs {jpg_share}")
+    pos_a, _, col_a, flag_a = card_run["cloud"]
+    pos_b, _, col_b, flag_b = cpu_run["cloud"]
+    n_a, n_b = card_run["num_points"], cpu_run["num_points"]
+    check(abs(n_a - n_b) <= CAP_PLY_COUNT_RTOL * max(n_a, n_b) and n_a > 0,
+          f"8b: PLY rows {n_a} on the card, {n_b} on the CPU")
+    both = (flag_a > 0) & (flag_b > 0)
+
+    def u8(c):
+        return (np.clip(c, 0.0, 1.0) * 255.0).astype(np.uint8).astype(int)
+
+    pos_err = np.abs(pos_a[both] - pos_b[both]).max(-1)
+    col_err = np.abs(u8(col_a[both]) - u8(col_b[both])).max(-1)
+    pos_ok = float((pos_err <= CAP_PLY_EXTENT_TOL * card_run["extent"])
+                   .mean())
+    col_ok = float((col_err <= CAP_PLY_COLOR_ATOL).mean())
+    check(pos_ok >= CAP_ROW_MIN_SHARE and col_ok >= CAP_ROW_MIN_SHARE,
+          f"8b: matched rows: positions {pos_ok:.4%}, colors {col_ok:.4%}")
+    log(f"phase 8b: capture on the card vs the CPU (surface_scene(2000), "
+        f"tiled+grid, 4 poses 96x64, 2 spp, depth 1, 4096 torus rays; "
+        f"{card_run['secs']:.1f} s / {cpu_run['secs']:.1f} s): transforms "
+        f"equal within {CAP_MATRIX_ATOL}; the encoded 8-bit images "
+        f"{min(img_share):.4%} of channels within {CAP_IMG_ATOL}/255 (worst "
+        f"pose), the decoded JPGs {min(jpg_share):.4%} within "
+        f"{CAP_JPG_ATOL}/255 ({min(jpg2_share):.4%} within "
+        f"{CAP_IMG_ATOL}/255); PLY rows {n_a} / {n_b}; of {int(both.sum())} "
+        f"matched rows {pos_ok:.4%} with positions within "
+        f"{CAP_PLY_EXTENT_TOL} x extent {card_run['extent']:.3f} (max "
+        f"{pos_err.max():.3e}), {col_ok:.4%} with colors within "
+        f"{CAP_PLY_COLOR_ATOL} (max {col_err.max()}) ({card})")
+
+
+def first_difference(capture, gm, scene, settings, c2w, render,
+                     res: int) -> str:
+    """Where two runs of the same pose differ on the card: prepare_tiles,
+    the tile kernel, the first bounce trace or shadow march, or the rest
+    of a sample; the first of these whose outputs differ."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import Camera
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        render_prepared,
+    )
+
+    cam = Camera(c2w=c2w, fov_y_deg=45.0, width=res, height=res)
+    cfg = capture.BinningConfig()
+    p1, p2 = (capture.prepare_tiles(scene, cam, settings, cfg)
+              for _ in range(2))
+    for k in p1:
+        if isinstance(p1[k], torch.Tensor) and not torch.equal(p1[k], p2[k]):
+            return f"prepare_tiles ({k})"
+    o1, o2 = (render_prepared(p1, cam, settings, cfg, outputs=(
+        "tile_feats", "tile_alpha", "tile_depth")) for _ in range(2))
+    for k in o1:
+        if not torch.equal(o1[k], o2[k]):
+            return f"the tile kernel ({k})"
+    with FirstCalls(gm, "march_kernel",
+                    lambda kw: kw.get("with_features", True)) as marches:
+        render(c2w, res, res, 45.0)
+    for feat, name in ((True, "grid_trace"), (False, "grid_visibility")):
+        args, kw = marches.calls[feat]
+        r1, r2 = (gm.march_kernel(*args, **kw) for _ in range(2))
+        if any(a is not None and not torch.equal(a, b)
+               for a, b in zip(r1, r2)):
+            return f"the {name} kernel"
+    return "a torch op of the sample outside the kernels"
+
+
+def capture_resume(capture, gm, scene, settings, card) -> str:
+    """8c: the capture's pose 0 at 800x800, 8 spp: checkpointed every 4
+    samples, cut after the first segment and resumed, against the
+    uninterrupted render."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        toroidal_c2w,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.utils.checkpoint import (
+        load_render_state,
+    )
+
+    res = 800
+    cap_rng = np.random.RandomState(capture.CAPTURE_SEED)
+    alpha, beta = cap_rng.uniform(0.0, 360.0), cap_rng.uniform(-45.0, 45.0)
+    c2w = toroidal_c2w(alpha, beta, CAPTURE_TORUS["major_radius"],
+                       CAPTURE_TORUS["height"])
+    render = capture.make_tiled_pose_renderer(scene, settings, None, 8,
+                                              bounce_backend="grid")
+    whole = render(c2w, res, res, 45.0)
+    with tempfile.TemporaryDirectory(dir=ROOT,
+                                     prefix=".chip_smoke_capture_") as out:
+        state = os.path.join(out, ".pose_0.npz")
+        cut = render(c2w, res, res, 45.0, state_path=state,
+                     checkpoint_every=4, stop_after_segments=1)
+        check(cut is None and load_render_state(state)["frames_done"] == 4,
+              "8c: no state after the first segment")
+        resumed = render(c2w, res, res, 45.0, state_path=state,
+                         checkpoint_every=4)
+        check(not os.path.exists(state), "8c: the state file was left")
+    if torch.equal(resumed, whole):
+        log(f"phase 8c: pose 0 (alpha {alpha:.1f}, beta {beta:.1f}), "
+            f"{res}x{res}, 8 spp, checkpoint every 4, cut after 4 and resumed: "
+            f"bit-equal to the uninterrupted render ({card})")
+        return "bit-equal"
+    again = render(c2w, res, res, 45.0)
+    check(not torch.equal(again, whole), "8c: the resumed pose differs "
+          "from the uninterrupted one, which repeats bit for bit")
+    where = first_difference(capture, gm, scene, settings, c2w, render, res)
+    err = float((resumed - whole).abs().max())
+    rerun = float((again - whole).abs().max())
+    check(err <= CAP_RESUME_ATOL, f"8c: resumed pose off by {err:.3e}")
+    log(f"phase 8c: two uninterrupted renders of pose 0 differ by "
+        f"{rerun:.3e} on the card, first in {where}; the resumed one is "
+        f"within {err:.3e} of the first (allowed {CAP_RESUME_ATOL}) "
+        f"({card})")
+    return f"within {err:.3e} ({where})"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2278,6 +2663,13 @@ def main() -> int:
 
     abl = ablation(tc, tv, card)
 
+    # ---- phase 8: the dataset capture --------------------------------
+    cap = capture_run(capture, gm, gt, tc, dt, card)
+    capture_resume(capture, gm, cap["scene"], cap["settings"], card)
+    del cap["scene"]
+    capture_card_vs_cpu(capture, dev, card)
+    cap_launches = cap["launches"]
+
     check("jax" not in sys.modules, "jax was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -2309,7 +2701,7 @@ def main() -> int:
     log(json.dumps({"kernels": [
         entry("tile_composite_fwd", KERNEL_SOURCE, KERNEL_REPLACES,
               launches_p2 + launches_p3 + launches_p4[0]
-              + tiled["launches"][0],
+              + tiled["launches"][0] + cap_launches["fwd"],
               dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms),
               fwd_bound),
         entry("tile_composite_bwd", BWD_KERNEL_SOURCE, BWD_KERNEL_REPLACES,
@@ -2329,12 +2721,14 @@ def main() -> int:
               dense["pairs"], launches_in="phase 5e: visibility_dense's "
               "gradient on the card (0 on the render paths)"),
         entry("grid_trace", GRID_SOURCE, GRID_TRACE_REPLACES,
-              g_pt["launches"][0] + g_pose["launches"][0],
+              g_pt["launches"][0] + g_pose["launches"][0]
+              + cap_launches["trace"],
               dict(g_res[0], max_abs_err=max(g_res[0]["max_abs_err"],
                                              g_res[2]["max_abs_err"])),
               trace_b),
         entry("grid_visibility", GRID_SOURCE, GRID_VIS_REPLACES,
-              g_pt["launches"][1] + g_pose["launches"][1], g_res[1], vis_b),
+              g_pt["launches"][1] + g_pose["launches"][1]
+              + cap_launches["vis"], g_res[1], vis_b),
         entry("tile_composite_variants", VARIANT_SOURCE, VARIANT_REPLACES,
               abl["launches"], abl, abl),
     ]}))

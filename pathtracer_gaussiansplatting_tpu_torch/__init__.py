@@ -9,8 +9,13 @@ The per-tile compositing kernels are hand-written CUDA for Hopper
 
 Ported so far: the tile-binned primary render (slice A) —
 ``render.tiled.prepare_tiles`` -> ``render.tiled.render_prepared`` ->
-``render.pathtrace.accumulate`` — and the math it runs on; and training
-through it (slice E, tiled path): ``parallel.train.fit_scene_tiled``.
+``render.pathtrace.accumulate`` — and the math it runs on; training
+through it (slice E, tiled path): ``parallel.train.fit_scene_tiled``; path
+tracing on the dense and grid backends (slices B and C,
+``render.pathtrace``, ``render.pipeline``); and the dataset capture
+(slice D): ``data.capture.capture_scene_data`` and ``capture_panorama``
+with the torus sensor, the sampling strategies and the PLY, transforms and
+checkpoint files.
 """
 
 __version__ = "0.1.0"

@@ -6,8 +6,8 @@ builds the reference's host-side C++ helpers). For the kernels, one
 ``nvcc`` per ``csrc/*.cu`` file, all started together, compiles each (with
 its plain C entry point) for Hopper (``sm_90a``); one more links the
 objects into a shared library. Nothing includes PyTorch's headers, so a
-build takes seconds. The host helpers (``csrc/*.cpp``: the grid binning)
-are one ``g++ -O3 -shared -fPIC`` call (:func:`build_host`); they run on
+build takes seconds. The host helpers (``csrc/*.cpp``: the grid binning
+and the point-cloud PLY rows) are one ``g++ -O3 -shared -fPIC`` call (:func:`build_host`); they run on
 any machine with ``g++``, the CPU tests' included.
 
 The libraries go to ``csrc/_build/`` (listed in ``.gitignore``) under names

@@ -1,14 +1,17 @@
 """Procedural benchmark scenes and the trainable scene.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/models/scene.py``
-(``random_cloud``, ``surface_scene``). Both draw from numpy's seeded
-generator exactly as the reference does, so one seed gives the same scene
-in both packages; the result is built on ``device`` (None: the CUDA
-card, ``core/device.py``). ``SceneParams`` holds
+(``concat_scenes``, ``debug_cube_scene`` and its panels, ``random_cloud``,
+``surface_scene``). The constructors draw from numpy's seeded generator
+exactly as the reference does, so one seed gives the same scene in both
+packages; the result is built on ``device`` (None: the CUDA card,
+``core/device.py``). ``SceneParams`` holds
 a scene's leaves as ``nn.Parameter``s, the port's form of the JAX scene
 pytree that ``optax`` updates.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -20,6 +23,82 @@ from pathtracer_gaussiansplatting_tpu_torch.core.types import (
 from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import (
     rotmat_to_quat,
 )
+
+
+def concat_scenes(scenes: Sequence[GaussianScene]) -> GaussianScene:
+    """Concatenate scenes along the Gaussian axis; the SH bands are padded
+    with zeros to the largest degree present."""
+    k_max = max(s.sh_coeffs.shape[1] for s in scenes)
+
+    def pad_sh(s):
+        k = s.sh_coeffs.shape[1]
+        return torch.nn.functional.pad(s.sh_coeffs, (0, 0, 0, k_max - k))
+
+    return GaussianScene(**{
+        f: torch.cat([pad_sh(s) if f == "sh_coeffs" else getattr(s, f)
+                      for s in scenes]) for f in SCENE_FIELDS})
+
+
+def _panel(center, tangent_u, tangent_v, color, metallic, roughness,
+           emissive_intensity, res: int, thickness: float = 0.01,
+           device=None) -> GaussianScene:
+    """A rectangular wall as a res x res grid of flat Gaussians, each
+    spanning 0.8 of its grid cell."""
+    center = np.asarray(center, np.float64)
+    tu = np.asarray(tangent_u, np.float64)
+    tv = np.asarray(tangent_v, np.float64)
+    n = np.cross(tu, tv)
+    n /= np.linalg.norm(n)
+    us = (np.arange(res) + 0.5) / res - 0.5
+    uu, vv = np.meshgrid(us, us)
+    means = (center[None]
+             + uu.reshape(-1, 1) * 2 * tu[None]
+             + vv.reshape(-1, 1) * 2 * tv[None])
+    m = res * res
+    su = np.linalg.norm(tu) * 2 / res * 0.8
+    sv = np.linalg.norm(tv) * 2 / res * 0.8
+    log_scales = np.tile(np.log([su, sv, thickness]), (m, 1))
+    frame = np.stack([tu / np.linalg.norm(tu), tv / np.linalg.norm(tv), n], -1)
+    quat = rotmat_to_quat(torch.as_tensor(frame.astype(np.float32))).numpy()
+    quats = np.tile(quat, (m, 1))
+    emission = np.tile(np.asarray(color, np.float64) * emissive_intensity,
+                       (m, 1))
+    return make_scene(
+        means=means.astype(np.float32),
+        log_scales=log_scales.astype(np.float32),
+        quats=quats.astype(np.float32),
+        opacity_logits=np.full((m,), 9.0, np.float32),
+        colors=np.tile(np.asarray(color, np.float32), (m, 1)),
+        emission=emission.astype(np.float32),
+        metallic=np.full((m,), metallic, np.float32),
+        roughness=np.full((m,), roughness, np.float32),
+        device=device,
+    )
+
+
+_PANEL_GEOMS = {
+    # name: (center offset in half-dims, tangent_u axis, tangent_v axis)
+    "floor": ((0, -1, 0), (1, 0, 0), (0, 0, 1)),
+    "ceiling": ((0, 1, 0), (1, 0, 0), (0, 0, -1)),
+    "back_wall": ((0, 0, -1), (1, 0, 0), (0, 1, 0)),
+    "left_wall": ((-1, 0, 0), (0, 0, 1), (0, 1, 0)),
+    "right_wall": ((1, 0, 0), (0, 0, -1), (0, 1, 0)),
+    "front_wall": ((0, 0, 1), (-1, 0, 0), (0, 1, 0)),
+}
+
+
+def debug_cube_scene(center=(0.0, 0.0, 0.0), size: float = 1.0,
+                     res: int = 8, device=None) -> GaussianScene:
+    """Emissive yellow cube: six panels of res x res flat Gaussians."""
+    half = size / 2.0
+    parts = []
+    for off, tu_axis, tv_axis in _PANEL_GEOMS.values():
+        c = np.asarray(center) + np.asarray(off) * half
+        tu = np.asarray(tu_axis, np.float64) * half
+        tv = np.asarray(tv_axis, np.float64) * half
+        parts.append(_panel(c, tu, tv, (1.0, 1.0, 0.0), 0.0, 1.0,
+                            2.0, res, thickness=0.005 * size, device=device))
+    return concat_scenes(parts)
 
 
 def surface_scene(n: int, seed: int = 13, half=(2.0, 1.5, 2.0),
