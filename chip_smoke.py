@@ -108,7 +108,36 @@ are built from the checkout at first use. Then:
            capture's times (prepare, sample, pose, the point-cloud pass,
            the PLY write, the grid build, one profiled sample's busy
            share, peak memory) and the reference's default dataset
-           extrapolated from them.
+           extrapolated from them;
+  phase 9  the command line (pathtracer_gaussiansplatting_tpu_torch/cli.py)
+           and its scene loaders: (a) a scene config written in a temporary
+           directory (phase 8's room, surface_scene(500k, seed 13), as a
+           3DGS checkpoint written by save_3dgs_ply and turned and moved by
+           the config; a textured glTF cube, its base color a PNG data URI
+           under KHR_texture_transform, with a KHR_lights_punctual spot
+           light; an rtbox with one emissive panel; a sun; phase 8's
+           torus, 1M uniform rays; 4 poses x 16 spp at 800x800, halved,
+           depth 4), then cli.main(["capture-dataset", ...]) with no
+           --device: the loaders timed, "auto" -> tiled+grid, the Gaussian
+           count, one grid build, the kernels' launches, 8a's file gates,
+           the printed {"points", "train", "test"} line, each object hit
+           by the primary rays of a pose, the times and one profiled
+           sample; (b) ``python -m pathtracer_gaussiansplatting_tpu_torch
+           .cli render --scene <(a)'s config> --spp 4`` as a subprocess:
+           exit 0, an 800x800 PNG, its wall time; (c) a small config
+           (tests/test_utils_cli.py's debug cube, a small 3DGS checkpoint
+           and a glTF cube) through capture-dataset and render with
+           --device cuda and --device cpu, held to 8b's gates; (d) on
+           (a)'s config: render (800x800, 16 spp), panorama (2 x 4 spp),
+           fit with its defaults (64x64, 500 Gaussians, 200 steps, lr
+           5e-3; its target through dense_topk over the 500k+ scene; the
+           loss falls, fitted.ply loads back), view-pointcloud on (a)'s
+           points3d.ply in both placements, and interact with a command
+           file (every input resets the accumulation; each camera-mode
+           step launches the tile kernel and the march kernels).
+
+Everything the script prints goes to chiprun_out/chip_smoke/log.txt as
+well as to stdout.
 
 Every failure (a build error, a launch error, a tolerance miss, a
 non-finite image, a kernel the main path never launched) raises and ends
@@ -262,6 +291,24 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Tee:
+    """A text stream that writes to a stream and to a log file alike."""
+
+    def __init__(self, stream, log_file):
+        self.stream, self.log_file = stream, log_file
+
+    def write(self, text: str) -> int:
+        self.log_file.write(text)
+        return self.stream.write(text)
+
+    def flush(self) -> None:
+        self.log_file.flush()
+        self.stream.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.stream, name)
 
 
 def compare(got, want, name: str, mask=None, rtol=RTOL, atol=ATOL,
@@ -1204,12 +1251,12 @@ def small_pt_check(dev, settings, backend: str = "dense",
 class HostTimer:
     """Wraps a function of a module so that each call is timed on the host
     clock between two synchronizes (and, with ``keep``, its arguments kept
-    in ``calls``); restores it on exit."""
+    in ``calls`` and its results in ``results``); restores it on exit."""
 
     def __init__(self, module, name: str, keep: bool = False):
         self.module, self.name, self.keep = module, name, keep
         self.orig = getattr(module, name)
-        self.ms, self.calls = [], []
+        self.ms, self.calls, self.results = [], [], []
 
     def __enter__(self):
         def timed(*args, **kw):
@@ -1220,6 +1267,8 @@ class HostTimer:
             out = self.orig(*args, **kw)
             torch.cuda.synchronize()
             self.ms.append((time.perf_counter() - t0) * 1e3)
+            if self.keep:
+                self.results.append(out)
             return out
 
         setattr(self.module, self.name, timed)
@@ -2166,16 +2215,25 @@ def capture_card_vs_cpu(capture, dev, card) -> None:
     """8b: the same small capture on the card and on the CPU."""
     card_run, cpu_run = (small_capture(capture, d)
                          for d in (dev, torch.device("cpu")))
+    compare_captures("8b", card_run, cpu_run, card,
+                     "surface_scene(2000), tiled+grid, 4 poses 96x64, 2 spp, "
+                     "depth 1, 4096 torus rays")
+
+
+def compare_captures(tag: str, card_run: dict, cpu_run: dict, card: str,
+                     what: str) -> None:
+    """Two captures of one scene, on the card and on the CPU (each a dict
+    as small_capture returns), held to 8b's gates."""
     for s in ("train", "test"):
         a, b = card_run["transforms"][s], cpu_run["transforms"][s]
         check(a["camera_angle_x"] == b["camera_angle_x"]
               and [f["file_path"] for f in a["frames"]]
               == [f["file_path"] for f in b["frames"]],
-              f"8b: transforms_{s} differ")
+              f"{tag}: transforms_{s} differ")
         err = max((float(np.abs(f["transform_matrix"]
                                 - g["transform_matrix"]).max())
                    for f, g in zip(a["frames"], b["frames"])), default=0.0)
-        check(err <= CAP_MATRIX_ATOL, f"8b: transforms_{s} matrices {err}")
+        check(err <= CAP_MATRIX_ATOL, f"{tag}: transforms_{s} matrices {err}")
     img_share, jpg_share, jpg2_share = [], [], []
     for a, b, c, d in zip(card_run["images"], cpu_run["images"],
                           card_run["decoded"], cpu_run["decoded"]):
@@ -2184,12 +2242,12 @@ def capture_card_vs_cpu(capture, dev, card) -> None:
         jpg2_share.append(float((np.abs(c - d) <= CAP_IMG_ATOL).mean()))
     check(len(img_share) == 4 and min(img_share) >= CAP_IMG_MIN_SHARE
           and min(jpg_share) >= CAP_IMG_MIN_SHARE,
-          f"8b: images {img_share}, decoded JPGs {jpg_share}")
+          f"{tag}: images {img_share}, decoded JPGs {jpg_share}")
     pos_a, _, col_a, flag_a = card_run["cloud"]
     pos_b, _, col_b, flag_b = cpu_run["cloud"]
     n_a, n_b = card_run["num_points"], cpu_run["num_points"]
     check(abs(n_a - n_b) <= CAP_PLY_COUNT_RTOL * max(n_a, n_b) and n_a > 0,
-          f"8b: PLY rows {n_a} on the card, {n_b} on the CPU")
+          f"{tag}: PLY rows {n_a} on the card, {n_b} on the CPU")
     both = (flag_a > 0) & (flag_b > 0)
 
     def u8(c):
@@ -2201,9 +2259,8 @@ def capture_card_vs_cpu(capture, dev, card) -> None:
                    .mean())
     col_ok = float((col_err <= CAP_PLY_COLOR_ATOL).mean())
     check(pos_ok >= CAP_ROW_MIN_SHARE and col_ok >= CAP_ROW_MIN_SHARE,
-          f"8b: matched rows: positions {pos_ok:.4%}, colors {col_ok:.4%}")
-    log(f"phase 8b: capture on the card vs the CPU (surface_scene(2000), "
-        f"tiled+grid, 4 poses 96x64, 2 spp, depth 1, 4096 torus rays; "
+          f"{tag}: matched rows: positions {pos_ok:.4%}, colors {col_ok:.4%}")
+    log(f"phase {tag}: capture on the card vs the CPU ({what}; "
         f"{card_run['secs']:.1f} s / {cpu_run['secs']:.1f} s): transforms "
         f"equal within {CAP_MATRIX_ATOL}; the encoded 8-bit images "
         f"{min(img_share):.4%} of channels within {CAP_IMG_ATOL}/255 (worst "
@@ -2298,11 +2355,713 @@ def capture_resume(capture, gm, scene, settings, card) -> str:
     return f"within {err:.3e} ({where})"
 
 
+# ---- phase 9: the command line and its scene loaders ----------------------
+
+# 9a's world: the 8a room as a 3DGS checkpoint, turned a quarter and moved
+# by the config (a quarter turn keeps its box, so the grid fits as in 8a);
+# a textured glTF cube with a spot light above the room's center; a small
+# rtbox with one emissive panel below it; a sun. The 8a torus lies inside
+# the room, so every pose looks at the center.
+CLI_ROOM = dict(position=[0.1, 0.0, 0.05], rotation=[0.0, 90.0, 0.0])
+CLI_CUBE = dict(position=[0.0, 0.35, 0.0], rotation=[20.0, 45.0, 0.0])
+CLI_CUBE_HALF = 0.15
+CLI_RTBOX = {
+    "position": [0.0, -0.45, 0.0], "dimensions": [0.6, 0.5, 0.6],
+    "panels": {
+        "floor": {"material": {"base_color": [0.9, 0.9, 0.9]}},
+        "back_wall": {"material": {"base_color": [0.2, 0.4, 0.8],
+                                   "roughness": 0.5}},
+        "left_wall": {"material": {"base_color": [0.8, 0.3, 0.1]}},
+        "ceiling": {"material": {"base_color": [1.0, 0.95, 0.9]},
+                    "light": {"intensity": 3.0}},
+    },
+}
+CLI_RTBOX_PANEL_RES = 24  # models/scene.rtbox_scene's default
+# The interact script of 9d: moves, looks, a torus resize, the point-cloud
+# view and the toroidal camera; each input resets the accumulation.
+CLI_INTERACT = ["w", "look 5 2", "step 4", "z", "step 2", "p", "step 1",
+                "c", "step 2"]
+CLI_INTERACT_FRAMES = ["frame 4 mode=camera cam=free",
+                       "frame 2 mode=camera cam=free",
+                       "frame 1 mode=pointcloud cam=free",
+                       "frame 2 mode=pointcloud cam=toroidal"]
+# 9c: the CLI's render on the card against the CPU, 8b's image gate.
+CLI_RENDER_ATOL, CLI_RENDER_MIN_SHARE = CAP_IMG_ATOL, CAP_IMG_MIN_SHARE
+
+
+def gltf_cube(path: str, half: float, spot: bool = True) -> None:
+    """A cube mesh (24 vertices, each face its own UVs) with a 16x16
+    base-color PNG as a data URI under KHR_texture_transform, and, with
+    ``spot``, a KHR_lights_punctual spot light 1.2 above the origin
+    pointing down."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    pos, nrm, uv, idx = [], [], [], []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            n = np.zeros(3)
+            n[axis] = sign
+            u_ax, v_ax = [a for a in range(3) if a != axis]
+            for du, dv in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                p = n * half
+                p[u_ax], p[v_ax] = du * half, dv * half
+                pos.append(p)
+                nrm.append(n)
+                uv.append(((du + 1) / 2, (dv + 1) / 2))
+            b = len(pos) - 4
+            tri = [b, b + 1, b + 2, b, b + 2, b + 3]
+            idx += tri if sign > 0 else [tri[0], tri[2], tri[1], tri[3],
+                                         tri[5], tri[4]]
+    pos = np.asarray(pos, np.float32)
+    nrm = np.asarray(nrm, np.float32)
+    uv = np.asarray(uv, np.float32)
+    idx = np.asarray(idx, np.uint32)
+    blob = pos.tobytes() + nrm.tobytes() + uv.tobytes() + idx.tobytes()
+    rgba = np.zeros((16, 16, 4), np.uint8)
+    rgba[..., 3] = 255
+    check_mask = (np.indices((16, 16)).sum(0) // 4) % 2 == 0
+    rgba[check_mask, :3] = (230, 200, 40)
+    rgba[~check_mask, :3] = (40, 120, 220)
+    buf = io.BytesIO()
+    Image.fromarray(rgba, "RGBA").save(buf, format="PNG")
+    offsets = np.cumsum([0, pos.nbytes, nrm.nbytes, uv.nbytes])
+    doc = {
+        "asset": {"version": "2.0"},
+        "scene": 0,
+        "scenes": [{"nodes": [0, 1] if spot else [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{
+            "attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
+            "indices": 3, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {
+            "baseColorTexture": {"index": 0, "extensions": {
+                "KHR_texture_transform": {"offset": [0.25, 0.0],
+                                          "scale": [2.0, 2.0],
+                                          "rotation": 0.3}}},
+            "metallicFactor": 0.0, "roughnessFactor": 0.6}}],
+        "textures": [{"source": 0, "sampler": 0}],
+        "samplers": [{"wrapS": 10497, "wrapT": 10497}],
+        "images": [{"uri": "data:image/png;base64,"
+                    + base64.b64encode(buf.getvalue()).decode()}],
+        "buffers": [{"uri": "data:application/octet-stream;base64,"
+                     + base64.b64encode(blob).decode(),
+                     "byteLength": len(blob)}],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": int(o), "byteLength": int(n)}
+            for o, n in zip(offsets, (pos.nbytes, nrm.nbytes, uv.nbytes,
+                                      idx.nbytes))],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(pos),
+             "type": "VEC3"},
+            {"bufferView": 1, "componentType": 5126, "count": len(pos),
+             "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5126, "count": len(pos),
+             "type": "VEC2"},
+            {"bufferView": 3, "componentType": 5125, "count": len(idx),
+             "type": "SCALAR"},
+        ],
+    }
+    if spot:
+        s2 = float(np.sqrt(0.5))
+        doc["nodes"].append({
+            "translation": [0.0, 1.2, 0.0], "rotation": [-s2, 0.0, 0.0, s2],
+            "extensions": {"KHR_lights_punctual": {"light": 0}}})
+        doc["extensions"] = {"KHR_lights_punctual": {"lights": [{
+            "type": "spot", "color": [1.0, 0.9, 0.75], "intensity": 4.0,
+            "spot": {"innerConeAngle": 0.3, "outerConeAngle": 0.7}}]}}
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
+
+
+def cli_world(root: str, n: int, card: str) -> str:
+    """9a's files in ``root``: the room's 3DGS checkpoint (written by the
+    port's save_3dgs_ply), the glTF cube, rtbox.json and the scene config;
+    returns the config's path."""
+    from pathtracer_gaussiansplatting_tpu_torch.data.ply import save_3dgs_ply
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+
+    room = surface_scene(n, seed=13)       # no device: the card
+    t0 = time.perf_counter()
+    save_3dgs_ply(os.path.join(root, "room.ply"), room)
+    write_s = time.perf_counter() - t0
+    del room
+    gltf_cube(os.path.join(root, "cube.gltf"), CLI_CUBE_HALF)
+    with open(os.path.join(root, "rtbox.json"), "w") as fh:
+        json.dump(CLI_RTBOX, fh)
+    cfg = {
+        "settings": {
+            "use_rt_box": True, "rt_box_file": "rtbox.json",
+            "ambient_light": [0.05, 0.05, 0.06, 1.0],
+            "torus_settings": dict(CAPTURE_TORUS, num_rays=1_000_000),
+            "sun": {"color": [1.0, 0.95, 0.9], "direction": [0.3, -1.0, 0.2],
+                    "intensity": 1.5},
+            "accumulation_steps": 16, "total_positions": 4,
+            "image_divisor": 2, "width": 800, "height": 800, "fov": 45,
+            "max_depth": 4, "sampling_method": "uniform", "backend": "auto",
+        },
+        "objects": [dict(model="room.ply", **CLI_ROOM),
+                    dict(model="cube.gltf", **CLI_CUBE)],
+    }
+    path = os.path.join(root, "scene.json")
+    with open(path, "w") as fh:
+        json.dump(cfg, fh, indent=1)
+    log(f"phase 9a: wrote {path}: room.ply = surface_scene({n}) through "
+        f"save_3dgs_ply in {write_s:.2f} s ({os.path.getsize(os.path.join(root, 'room.ply')) / 2**20:.1f} MiB), "
+        f"at {CLI_ROOM}; cube.gltf (textured, KHR_texture_transform, a "
+        f"spot light) at {CLI_CUBE}; rtbox.json (4 panels, the ceiling "
+        f"emissive); a sun ({card})")
+    return path
+
+
+class Loaders:
+    """Times the scene loaders the command line reaches (the config, the
+    scene's assembly and, inside it, the 3DGS reader, the glTF loader and
+    the rtbox) and keeps their results."""
+
+    def __init__(self, cli):
+        from pathtracer_gaussiansplatting_tpu_torch.data import gltf, ply
+        from pathtracer_gaussiansplatting_tpu_torch.models import scene
+
+        self.timers = dict(
+            config=HostTimer(cli, "load_scene_config"),
+            assembly=HostTimer(cli, "load_scene_from_config", keep=True),
+            ply=HostTimer(ply, "load_3dgs_ply"),
+            gltf=HostTimer(gltf, "load_gltf_scene", keep=True),
+            rtbox=HostTimer(scene, "rtbox_scene", keep=True))
+
+    def __enter__(self):
+        for t in self.timers.values():
+            t.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for t in self.timers.values():
+            t.__exit__(*exc)
+        return False
+
+    def text(self) -> str:
+        t = self.timers
+        return (f"config {sum(t['config'].ms):.1f} ms, scene assembly "
+                f"{sum(t['assembly'].ms) / 1e3:.2f} s (3DGS load "
+                f"{sum(t['ply'].ms) / 1e3:.2f} s, glTF surfelize and bake "
+                f"{sum(t['gltf'].ms) / 1e3:.3f} s, rtbox "
+                f"{sum(t['rtbox'].ms) / 1e3:.3f} s)")
+
+
+def reset_counts(tc, gm, dt) -> None:
+    tc.LAUNCHES = tc.BWD_LAUNCHES = 0
+    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
+    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+
+
+def read_counts(tc, gm, dt) -> dict:
+    return dict(fwd=tc.LAUNCHES, trace=gm.TRACE_LAUNCHES, vis=gm.VIS_LAUNCHES,
+                topk=dt.TOPK_LAUNCHES, dense_vis=dt.VIS_LAUNCHES)
+
+
+def run_cli(cli, argv) -> list:
+    """cli.main(argv) in this process; returns the lines it printed (and
+    prints them)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(Tee(sys.stdout, buf)):
+        cli.main(argv)
+    return buf.getvalue().splitlines()
+
+
+def objects_seen(ref, scene, settings, frames, parts, res: int = 64) -> dict:
+    """For each object (name -> its Gaussians' index range in the assembled
+    scene), the poses whose primary rays (res x res, fov 45) hit it: a ray
+    with alpha above the hit threshold whose hit lies inside the object's
+    box, grown by 2 cm."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, generate_rays,
+    )
+
+    seen = {name: [] for name in parts}
+    boxes = {name: (scene.means[a:b].amin(0) - 0.02,
+                    scene.means[a:b].amax(0) + 0.02)
+             for name, (a, b) in parts.items()}
+    with torch.no_grad():
+        for i, frame in enumerate(frames):
+            c2w = torch.tensor(np.asarray(frame["transform_matrix"],
+                                          np.float32), device=scene.means.device)
+            rays = generate_rays(Camera(c2w=c2w, fov_y_deg=45.0, width=res,
+                                        height=res))
+            inter = ref.trace_dense(scene, rays, settings)
+            hit = inter["alpha_acc"] > settings.hit_opacity_threshold
+            for name, (lo, hi) in boxes.items():
+                inside = ((inter["position"] >= lo) & (inter["position"] <= hi)
+                          ).all(-1) & hit
+                if int(inside.sum()) > 0:
+                    seen[name].append((i, int(inside.sum())))
+    return seen
+
+
+def cli_capture(cli, capture, gm, gt, tc, dt, ref, cfg_path: str, out: str,
+                n_room: int, card: str) -> dict:
+    """9a: ``capture-dataset --scene <config> --output <dir>`` through
+    cli.main, on the card by default; its loaders, the capture and the
+    files checked, the kernels' launches counted, the times printed."""
+    from PIL import Image
+
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.ply import (
+        load_point_cloud_ply,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.transforms import (
+        load_transforms_json,
+    )
+
+    with open(cfg_path) as fh:
+        cfg = json.load(fh)["settings"]
+    poses, spp, res = (cfg["total_positions"], cfg["accumulation_steps"],
+                       cfg["width"])
+    n_rays = cfg["torus_settings"]["num_rays"]
+    lines, stamps = [], []
+    real_capture = cli.capture_scene_data
+
+    def capture_with_progress(*args, **kw):
+        def progress(msg: str) -> None:
+            stamps.append(time.perf_counter())
+            lines.append(msg)
+            if not msg.startswith("point cloud rays") \
+                    or msg.endswith(f" {n_rays}/{n_rays}"):
+                log("phase 9a: " + msg)
+
+        return real_capture(*args, progress=progress, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tc, gm, dt)
+    cli.capture_scene_data = capture_with_progress
+    try:
+        with Loaders(cli) as loaders, \
+                HostTimer(gt, "build_grid_accel") as builds, \
+                HostTimer(capture, "prepare_tiles") as prep, \
+                HostTimer(capture, "pathtrace_camera") as samples, \
+                FirstCalls(capture, "pathtrace_camera") as sample_args, \
+                HostTimer(capture, "_trace_host") as traces, \
+                HostTimer(capture, "save_point_cloud_ply") as ply:
+            t0 = time.perf_counter()
+            # --spp as the config's accumulation_steps: the command's
+            # default (32) overrides the config's, as the reference's does.
+            printed = run_cli(cli, ["capture-dataset", "--scene", cfg_path,
+                                    "--output", out, "--spp", str(spp)])
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+    finally:
+        cli.capture_scene_data = real_capture
+    launches = read_counts(tc, gm, dt)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    scene, punctual = loaders.timers["assembly"].results[0]
+    n_gltf = loaders.timers["gltf"].results[0][0].num_gaussians
+    n_rtbox = loaders.timers["rtbox"].results[0].num_gaussians
+
+    # The scene: every object, the lights (the glTF's spot, then the sun).
+    check(scene.means.device.type == "cuda", f"9a: scene on {scene.means.device}")
+    check(scene.num_gaussians == n_room + n_gltf + n_rtbox
+          and n_gltf > 0 and n_rtbox == 4 * CLI_RTBOX_PANEL_RES ** 2,
+          f"9a: {scene.num_gaussians} Gaussians, glTF {n_gltf}, rtbox "
+          f"{n_rtbox}")
+    check(punctual is not None
+          and punctual.light_type.tolist() == [2, 1],
+          f"9a: lights {None if punctual is None else punctual.light_type}")
+    # The capture: the route, one grid, the kernels, the files.
+    check(lines[0] == "capture backend: tiled+grid",
+          f"9a: auto resolved to '{lines[0]}'")
+    check(len(builds.ms) == 1,
+          f"9a: build_grid_accel ran {len(builds.ms)} times")
+    check(launches["fwd"] == poses * spp and launches["trace"] > 0
+          and launches["vis"] > 0 and launches["topk"] == 0
+          and launches["dense_vis"] == 0, f"9a: kernel launches {launches}")
+    names = sorted(os.listdir(os.path.join(out, "train")))
+    check(names == [f"r_{i}.jpg" for i in range(poses)],
+          f"9a: train/ holds {names}")
+    transforms = {s: load_transforms_json(os.path.join(
+        out, f"transforms_{s}.json")) for s in ("train", "test")}
+    split = [len(transforms[s]["frames"]) for s in ("train", "test")]
+    check(split == [3, 1], f"9a: train/test frames {split}")
+    for name in names:
+        size = Image.open(os.path.join(out, "train", name)).size
+        check(size == (res // 2, res // 2), f"9a: {name} is {size}")
+    with open(os.path.join(out, "points3d.ply")) as fh:
+        header = [next(fh) for _ in range(12)]
+    rows_in_header = int(header[2].split()[-1])
+    cloud = load_point_cloud_ply(os.path.join(out, "points3d.ply"))
+    n_points = rows_in_header
+    check(rows_in_header == len(cloud["positions"]) > 0,
+          f"9a: header {rows_in_header}, rows {len(cloud['positions'])}")
+    check(all(bool(np.isfinite(cloud[k]).all()) for k in cloud),
+          "9a: point-cloud rows not finite")
+    for prefix in ("binning truncation", "grid-accel truncation",
+                   "marcher truncation"):
+        check(any(ln.startswith(prefix) for ln in lines),
+              f"9a: no '{prefix}' report line")
+    want = json.dumps(dict(points=n_points, train=3, test=1))
+    check(printed[-1] == want, f"9a: printed '{printed[-1]}', not '{want}'")
+    for name in names:
+        shutil.copy(os.path.join(out, "train", name),
+                    os.path.join(OUT_DIR, "phase9a_train_" + name))
+    log(f"phase 9a: capture-dataset --scene scene.json: {scene.num_gaussians} "
+        f"Gaussians (room {n_room} + glTF {n_gltf} + rtbox {n_rtbox}), lights "
+        f"spot + sun, auto -> tiled+grid, {poses} poses {res}x{res} fov 45 / "
+        f"2, {spp} spp, depth 4, {n_points} PLY rows (finite), one grid "
+        f"build, report lines, printed {printed[-1]}: ok; launches "
+        f"{json.dumps(launches)} ({card})")
+
+    # Each object in at least one pose image.
+    settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
+    frames = sorted(transforms["train"]["frames"] + transforms["test"]["frames"],
+                    key=lambda f: int(f["file_path"].rsplit("_", 1)[1]))
+    parts = dict(room=(0, n_room), gltf_cube=(n_room, n_room + n_gltf),
+                 rtbox=(n_room + n_gltf, scene.num_gaussians))
+    seen = objects_seen(ref, scene, settings, frames, parts)
+    check(all(seen.values()), f"9a: objects not seen in any pose: {seen}")
+    log(f"phase 9a: each object is hit by the primary rays of a pose "
+        f"(64x64 through the dense trace; pose, rays): {json.dumps(seen)}")
+
+    # The times.
+    med = statistics.median(samples.ms)
+    per_pose = [statistics.median(samples.ms[i * spp:(i + 1) * spp])
+                for i in range(poses)]
+    pose_stamps = [t for t, ln in zip(stamps, lines)
+                   if ln.startswith("captured position")]
+    pose_s = [b - a for a, b in zip(pose_stamps[:-1], pose_stamps[1:])]
+    pc_stamps = [t for t, ln in zip(stamps, lines)
+                 if ln.startswith("point cloud rays")]
+    pc_s = pc_stamps[-1] - pose_stamps[-1]
+    ply_s = ply.ms[0] / 1e3
+    args, kw = sample_args.calls[None]
+    split_ms = profile_split("phase9a_sample", lambda: capture.pathtrace_camera(
+        *args, **kw), med, card, GRID_PROFILE_NAMES)
+    busy = sum(split_ms.values()) / med
+    log(f"phase 9a: loaders: {loaders.text()} ({card})")
+    log(f"phase 9a: per pose: prepare ms "
+        f"{', '.join(f'{m:.1f}' for m in prep.ms)}; sample ms median "
+        f"{', '.join(f'{m:.1f}' for m in per_pose)} (all {med:.1f}); pose s "
+        f"(poses 2-4) {', '.join(f'{x:.2f}' for x in pose_s)}; one profiled "
+        f"sample {busy:.1%} busy; grid build {builds.ms[0] / 1e3:.2f} s "
+        f"({card})")
+    log(f"phase 9a: point-cloud pass {pc_s:.2f} s ({n_rays * spp / pc_s:.4e}"
+        f" rays/s; its trace {sum(traces.ms):.1f} ms in {len(traces.ms)} "
+        f"chunks); PLY write {ply_s:.2f} s for {n_points} rows; total "
+        f"{total_s:.2f} s (the command, loaders included); peak memory "
+        f"{peak_gib:.2f} GiB ({card})")
+    return dict(launches=launches, n=scene.num_gaussians, total_s=total_s)
+
+
+def cli_subprocess(cfg_path: str, out: str, card: str) -> None:
+    """9b: ``python -m pathtracer_gaussiansplatting_tpu_torch.cli render
+    --scene <9a's config> --spp 4`` as a user types it, without --device."""
+    from PIL import Image
+
+    png = os.path.join(out, "render_9b.png")
+    cmd = [sys.executable, "-m", "pathtracer_gaussiansplatting_tpu_torch.cli",
+           "render", "--scene", cfg_path, "--spp", "4", "--output", png]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    for line in (res.stdout + res.stderr).splitlines()[-20:]:
+        log("  9b| " + line)
+    check(res.returncode == 0, f"9b: the command exited {res.returncode}")
+    img = np.asarray(Image.open(png), np.float32)
+    check(img.shape == (800, 800, 3) and bool(np.isfinite(img).all())
+          and float(img.mean()) > 0.0, f"9b: PNG {img.shape}, mean "
+          f"{img.mean()}")
+    shutil.copy(png, os.path.join(OUT_DIR, "phase9b_render.png"))
+    log(f"phase 9b: {' '.join(cmd[1:3])} render --scene scene.json --spp 4 "
+        f"(no --device): exit 0 in {wall:.1f} s of wall (a new process: "
+        f"imports, the kernels' library loaded, the scene loaded, the grid "
+        f"built, 4 samples at 800x800); PNG 800x800, mean "
+        f"{img.mean():.2f}/255 ({card})")
+
+
+def small_cli_world(root: str) -> str:
+    """9c's config: tests/test_utils_cli.py's debug cube (size 8 on the
+    torus axis, depth 1), a small 3DGS checkpoint (sigma 0.2-0.5) above it
+    and a small textured glTF cube beside that, sky behind it."""
+    from pathtracer_gaussiansplatting_tpu_torch.data.ply import save_3dgs_ply
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        random_cloud,
+    )
+
+    save_3dgs_ply(os.path.join(root, "cloud.ply"), random_cloud(
+        60, seed=9, spread=1.0, scale_range=(-1.6, -0.7), device="cpu"))
+    gltf_cube(os.path.join(root, "cube.gltf"), 0.5, spot=False)
+    path = os.path.join(root, "small.json")
+    with open(path, "w") as fh:
+        json.dump({
+            "settings": {
+                "ambient_light": [0.1, 0.1, 0.15, 1.0],
+                "torus_settings": {"major_radius": 16.0, "height": 8.0,
+                                   "num_rays": 300},
+                "accumulation_steps": 2, "total_positions": 2,
+                "width": 16, "height": 16, "max_depth": 1},
+            "objects": [
+                {"model": "builtin:debug_cube?size=8", "position": [0, 8, 0]},
+                {"model": "cloud.ply", "position": [0, 13.5, 0]},
+                {"model": "cube.gltf", "position": [6, 13.5, -1]}]}, fh)
+    return path
+
+
+def cli_card_vs_cpu(cli, capture, root: str, dev, card) -> None:
+    """9c: the small config's capture-dataset (4 poses at 96x64, 2 spp,
+    4096 sensor rays) and render (96x64, 2 spp) through cli.main with
+    --device cuda and --device cpu, held to 8b's gates."""
+    from PIL import Image
+
+    from pathtracer_gaussiansplatting_tpu_torch.data.images import (
+        to_uint8_srgb,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.transforms import (
+        load_transforms_json,
+    )
+
+    root = os.path.join(root, "small")
+    os.makedirs(root)
+    cfg = small_cli_world(root)
+    runs, renders = [], []
+    for device in (dev, torch.device("cpu")):
+        d = str(device.type)
+        out = os.path.join(root, f"ds_{d}")
+        with Loaders(cli) as loaders, \
+                HostTimer(capture, "save_jpg", keep=True) as jpgs, \
+                HostTimer(capture, "save_point_cloud_ply", keep=True) as ply:
+            t0 = time.perf_counter()
+            printed = run_cli(cli, [
+                "capture-dataset", "--scene", cfg, "--output", out,
+                "--positions", "4", "--width", "96", "--height", "64",
+                "--spp", "2", "--num-rays", "4096", "--device", d])
+            secs = time.perf_counter() - t0
+            transforms = {s: load_transforms_json(os.path.join(
+                out, f"transforms_{s}.json")) for s in ("train", "test")}
+            decoded = [np.asarray(Image.open(a[0]), np.int32)
+                       for a, _ in jpgs.calls]
+        scene = loaders.timers["assembly"].results[0][0]
+        check(scene.means.device.type == device.type,
+              f"9c: --device {d} loaded the scene on {scene.means.device}")
+        means = scene.means.cpu().numpy()
+        runs.append(dict(
+            secs=secs, num_points=json.loads(printed[-1])["points"],
+            transforms=transforms,
+            images=[to_uint8_srgb(a[1]).astype(np.int32)
+                    for a, _ in jpgs.calls],
+            decoded=decoded, cloud=ply.calls[0][0][1:],
+            extent=float((means.max(0) - means.min(0)).max())))
+        png = os.path.join(root, f"render_{d}.png")
+        run_cli(cli, ["render", "--scene", cfg, "--output", png, "--spp",
+                      "2", "--width", "96", "--height", "64", "--device", d])
+        renders.append(np.asarray(Image.open(png), np.int32))
+    compare_captures("9c", runs[0], runs[1], card,
+                     "the CLI on tests/test_utils_cli.py's debug cube + a "
+                     "3DGS checkpoint + a glTF cube, 4 poses 96x64, 2 spp, "
+                     "depth 1, 4096 torus rays")
+    share = float((np.abs(renders[0] - renders[1]) <= CLI_RENDER_ATOL).mean())
+    check(share >= CLI_RENDER_MIN_SHARE,
+          f"9c: render on the card vs the CPU: {share:.4%} of channels within "
+          f"{CLI_RENDER_ATOL}/255")
+    log(f"phase 9c: render (96x64, 2 spp) on the card vs the CPU: "
+        f"{share:.4%} of channels within {CLI_RENDER_ATOL}/255 ({card})")
+
+
+def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
+                 card: str) -> dict:
+    """9d: render, panorama, fit, view-pointcloud (world and torus) and
+    interact on 9a's config, at the command line's sizes; returns the
+    kernels' launches summed over them."""
+    from PIL import Image
+
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, generate_rays, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.ply import load_3dgs_ply
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        SceneParams,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import train
+    from pathtracer_gaussiansplatting_tpu_torch.render import session
+
+    total = dict(fwd=0, trace=0, vis=0, topk=0, dense_vis=0)
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+
+    def image(path):
+        img = np.asarray(Image.open(path), np.float32)
+        check(bool(np.isfinite(img).all()) and float(img.max()) > 0,
+              f"9d: {path} empty or not finite")
+        return img
+
+    # render, 800x800, 16 spp.
+    reset_counts(tc, gm, dt)
+    png = os.path.join(root, "render_9d.png")
+    with Loaders(cli) as loaders:
+        t0 = time.perf_counter()
+        run_cli(cli, ["render", "--scene", cfg_path, "--spp", "16",
+                      "--output", png])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    c = read_counts(tc, gm, dt)
+    add(c)
+    check(c["fwd"] == 16 and c["trace"] > 0 and c["vis"] > 0
+          and c["topk"] == 0, f"9d render: launches {c}")
+    img = image(png)
+    check(img.shape == (800, 800, 3), f"9d render: {img.shape}")
+    shutil.copy(png, os.path.join(OUT_DIR, "phase9d_render.png"))
+    log(f"phase 9d: render --spp 16 (800x800, tiled+grid): {wall:.2f} s "
+        f"({loaders.text()}); launches {json.dumps(c)} ({card})")
+
+    # panorama, 2 steps x 4 spp.
+    reset_counts(tc, gm, dt)
+    pano = os.path.join(root, "pano")
+    t0 = time.perf_counter()
+    run_cli(cli, ["panorama", "--scene", cfg_path, "--steps", "2", "--spp",
+                  "4", "--output", pano])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counts(tc, gm, dt)
+    add(c)
+    names = sorted(os.listdir(os.path.join(pano, "panorama")))
+    check(names == ["pano_0.jpg", "pano_1.jpg"] and c["trace"] > 0,
+          f"9d panorama: {names}, launches {c}")
+    for name in names:
+        image(os.path.join(pano, "panorama", name))
+    log(f"phase 9d: panorama --steps 2 --spp 4 (800x800, the flat renderer "
+        f"on the grid): {wall:.2f} s; launches {json.dumps(c)} ({card})")
+
+    # fit with the command's defaults: 64x64, 500 Gaussians, 200 steps.
+    reset_counts(tc, gm, dt)
+    fitted = os.path.join(root, "fitted.ply")
+    with HostTimer(cli, "fit_scene") as fit, \
+            HostTimer(dt, "dense_topk", keep=True) as k1:
+        t0 = time.perf_counter()
+        printed = run_cli(cli, ["fit", "--scene", cfg_path, "--output",
+                                fitted])
+        wall = time.perf_counter() - t0
+    c = read_counts(tc, gm, dt)
+    add(c)
+    rows = [getattr(a[2], "sorted_rows", a[2]).shape[0] for a, _ in k1.calls]
+    m = re.search(r"loss (\S+) -> (\S+) over 200 steps", "\n".join(printed))
+    check(m is not None and float(m.group(2)) < float(m.group(1)),
+          f"9d fit: printed {printed}")
+    check(max(rows) > 500_000 and c["topk"] == len(rows) == 201,
+          f"9d fit: dense_topk launches {c['topk']}, table rows "
+          f"{sorted(set(rows))}")
+    back = load_3dgs_ply(fitted)
+    check(back.num_gaussians == 500 and all(
+        bool(torch.isfinite(getattr(back, f)).all()) for f in
+        ("means", "log_scales", "quats", "opacity_logits", "sh_coeffs")),
+          "9d fit: fitted.ply does not load back")
+    step_ms = fit.ms[0] / 200
+    del k1
+    # One more step of the same shapes (the fitted scene, the command's
+    # 64x64 rays) under the profiler.
+    params = SceneParams.from_scene(back)
+    opt = train.make_optimizer(5e-3)
+    opt_state = opt(params.parameters())
+    step = train.make_train_step(RenderSettings(
+        max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0)), opt)
+    rays = generate_rays(Camera(
+        c2w=look_at((0, 0.5, 4.0), (0, 0, 0)), fov_y_deg=45.0, width=64,
+        height=64))
+    target = torch.zeros((64 * 64, 3), device=rays.origins.device)
+    profile_once("phase9d_fit_step", lambda: step(params, opt_state, rays,
+                                                  target), step_ms, card)
+    del params, opt_state
+    log(f"phase 9d: fit (64x64, 500 Gaussians, 200 steps, lr 5e-3): "
+        f"{printed[0]}; the target through dense_topk over {max(rows)} "
+        f"Gaussians; {step_ms:.2f} ms a step (fit_scene's wall / 200, "
+        f"dense_topk launched {c['topk']} times); command {wall:.1f} s; "
+        f"fitted.ply loads back ({card})")
+
+    # view-pointcloud on 9a's point cloud, both placements.
+    ply_path = os.path.join(root, "dataset", "points3d.ply")
+    for mode in ("world", "torus"):
+        png = os.path.join(root, f"pc_{mode}.png")
+        t0 = time.perf_counter()
+        run_cli(cli, ["view-pointcloud", "--scene", cfg_path, "--ply",
+                      ply_path, "--mode", mode, "--output", png])
+        wall = time.perf_counter() - t0
+        img = image(png)
+        shutil.copy(png, os.path.join(OUT_DIR, f"phase9d_pointcloud_{mode}.png"))
+        log(f"phase 9d: view-pointcloud --mode {mode} (800x800): "
+            f"{wall:.2f} s (the ascii PLY's rows read in Python, then one "
+            f"z-buffered scatter); {float((img.max(-1) > 0).mean()):.2%} of "
+            f"pixels lit ({card})")
+
+    # interact with a command file.
+    reset_counts(tc, gm, dt)
+    cmds = os.path.join(root, "interact.txt")
+    saved = os.path.join(root, "interact.png")
+    with open(cmds, "w") as fh:
+        fh.write("\n".join(CLI_INTERACT + [f"save {saved}"]) + "\n")
+    steps = []
+    real_step = session.InteractiveSession.step
+
+    def counted_step(self):
+        before = read_counts(tc, gm, dt)
+        out = real_step(self)
+        after = read_counts(tc, gm, dt)
+        steps.append((self.render_mode, self.frame,
+                      {k: after[k] - before[k] for k in after}))
+        return out
+
+    session.InteractiveSession.step = counted_step
+    try:
+        with HostTimer(gt, "build_grid_accel") as builds:
+            t0 = time.perf_counter()
+            printed = run_cli(cli, ["interact", "--scene", cfg_path,
+                                    "--commands", cmds])
+            wall = time.perf_counter() - t0
+    finally:
+        session.InteractiveSession.step = real_step
+    c = read_counts(tc, gm, dt)
+    add(c)
+    frames = [ln for ln in printed if ln.startswith("frame")]
+    check(frames == CLI_INTERACT_FRAMES, f"9d interact: printed {frames}")
+    camera_steps = [d for mode, _, d in steps if mode == "camera"]
+    check(len(camera_steps) == 6 and all(
+        d["fwd"] == 1 and d["trace"] > 0 and d["vis"] > 0
+        for d in camera_steps) and len(builds.ms) == 1,
+          f"9d interact: per-step launches {steps}, grid builds "
+          f"{len(builds.ms)}")
+    img = np.asarray(Image.open(saved), np.float32)
+    check(img.shape == (240, 320, 3) and bool(np.isfinite(img).all()),
+          f"9d interact: saved {img.shape}")
+    shutil.copy(saved, os.path.join(OUT_DIR, "phase9d_interact.png"))
+    log(f"phase 9d: interact ({'; '.join(CLI_INTERACT)}; save): printed "
+        f"{frames}; every input reset the accumulation; each of the 6 "
+        f"camera-mode steps launched the tile kernel once and K3/K4; one "
+        f"grid build; {wall:.1f} s; launches {json.dumps(c)} ({card})")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
+    # Everything printed goes to the log file too, so the whole run is
+    # kept where a caller keeps only the end of the output.
+    os.makedirs(OUT_DIR, exist_ok=True)
+    log_file = open(os.path.join(OUT_DIR, "log.txt"), "w")
+    sys.stdout = Tee(sys.stdout, log_file)
+    sys.stderr = Tee(sys.stderr, log_file)
     sys.path.insert(0, ROOT)
     from pathtracer_gaussiansplatting_tpu_torch.core import rng
     from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
@@ -2670,6 +3429,20 @@ def main() -> int:
     capture_card_vs_cpu(capture, dev, card)
     cap_launches = cap["launches"]
 
+    # ---- phase 9: the command line and its scene loaders --------------
+    from pathtracer_gaussiansplatting_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory(dir=ROOT,
+                                     prefix=".chip_smoke_cli_") as root9:
+        cfg9 = cli_world(root9, 500_000, card)
+        cli9 = cli_capture(cli, capture, gm, gt, tc, dt, ref, cfg9,
+                           os.path.join(root9, "dataset"), 500_000,
+                           card)["launches"]
+        cli_subprocess(cfg9, root9, card)
+        cli_card_vs_cpu(cli, capture, root9, dev, card)
+        cmd9 = cli_commands(cli, gm, gt, tc, dt, cfg9, root9, card)
+    p9 = {k: cli9[k] + cmd9[k] for k in cli9}
+
     check("jax" not in sys.modules, "jax was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -2701,7 +3474,7 @@ def main() -> int:
     log(json.dumps({"kernels": [
         entry("tile_composite_fwd", KERNEL_SOURCE, KERNEL_REPLACES,
               launches_p2 + launches_p3 + launches_p4[0]
-              + tiled["launches"][0] + cap_launches["fwd"],
+              + tiled["launches"][0] + cap_launches["fwd"] + p9["fwd"],
               dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms),
               fwd_bound),
         entry("tile_composite_bwd", BWD_KERNEL_SOURCE, BWD_KERNEL_REPLACES,
@@ -2710,9 +3483,11 @@ def main() -> int:
                                    bwd_pt["max_abs_err"]),
                    ms=bwd["ms"], plain_ms=bwd["plain_ms"]), bwd["bound"]),
         entry("dense_topk", TOPK_SOURCE, TOPK_REPLACES,
-              flat["launches"][0] + tiled["launches"][1], topk, topk),
+              flat["launches"][0] + tiled["launches"][1] + p9["topk"], topk,
+              topk),
         entry("dense_visibility", VIS_SOURCE, VIS_REPLACES,
-              flat["launches"][1] + tiled["launches"][2], vis, vis),
+              flat["launches"][1] + tiled["launches"][2] + p9["dense_vis"],
+              vis, vis),
         # The listing modes serve visibility_dense's gradient (5e), which
         # no rendering path asks for: their launches are 5e's.
         entry("dense_visibility_pairs", VIS_SOURCE, VIS_REPLACES,
@@ -2722,13 +3497,13 @@ def main() -> int:
               "gradient on the card (0 on the render paths)"),
         entry("grid_trace", GRID_SOURCE, GRID_TRACE_REPLACES,
               g_pt["launches"][0] + g_pose["launches"][0]
-              + cap_launches["trace"],
+              + cap_launches["trace"] + p9["trace"],
               dict(g_res[0], max_abs_err=max(g_res[0]["max_abs_err"],
                                              g_res[2]["max_abs_err"])),
               trace_b),
         entry("grid_visibility", GRID_SOURCE, GRID_VIS_REPLACES,
               g_pt["launches"][1] + g_pose["launches"][1]
-              + cap_launches["vis"], g_res[1], vis_b),
+              + cap_launches["vis"] + p9["vis"], g_res[1], vis_b),
         entry("tile_composite_variants", VARIANT_SOURCE, VARIANT_REPLACES,
               abl["launches"], abl, abl),
     ]}))

@@ -15,7 +15,15 @@ tracing on the dense and grid backends (slices B and C,
 ``render.pathtrace``, ``render.pipeline``); and the dataset capture
 (slice D): ``data.capture.capture_scene_data`` and ``capture_panorama``
 with the torus sensor, the sampling strategies and the PLY, transforms and
-checkpoint files.
+checkpoint files; and the command line with what it loads (slice G):
+``python -m pathtracer_gaussiansplatting_tpu_torch.cli`` (render,
+capture-dataset, panorama, fit, view-pointcloud, interact; ``--device``,
+the card by default) over scene configs (``utils.config``,
+``models.scene.load_scene_from_config``) of 3DGS checkpoints
+(``data.ply``), glTF meshes with baked textures (``data.gltf``,
+``data.textures``), builtin scenes, an rtbox and lights, with the dense
+``parallel.train.fit_scene``, ``render.points`` and
+``render.session``.
 """
 
 __version__ = "0.1.0"

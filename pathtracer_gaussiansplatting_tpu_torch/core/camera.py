@@ -2,8 +2,9 @@
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/core/camera.py``
 (``Camera``, ``look_at``, ``toroidal_c2w``, ``generate_rays``,
-``view_matrix``). Camera-to-world matrices use the OpenGL convention: the
-camera looks along -Z, columns of c2w[:3, :3] are (right, up, back).
+``orthographic_rays``, ``FreeCamera``, ``view_matrix``). Camera-to-world
+matrices use the OpenGL convention: the camera looks along -Z, columns of
+c2w[:3, :3] are (right, up, back).
 """
 from __future__ import annotations
 
@@ -118,6 +119,99 @@ def generate_rays(camera: Camera,
     dirs = dirs / torch.linalg.vector_norm(dirs, dim=-1, keepdim=True)
     origins = camera.c2w[:3, 3].expand(h * w, 3)
     return Rays(origins=origins, directions=dirs.reshape(-1, 3))
+
+
+def orthographic_rays(center, direction, up, extent, width, height,
+                      device=None) -> Rays:
+    """Orthographic ray grid, row-major, on ``device`` (None: the CUDA
+    card): rays start on the plane through ``center`` spanned by (right,
+    up), all along ``direction``; ``extent`` is the plane's half-width."""
+    device = resolve_device(device)
+    direction = _f32(direction, device)
+    direction = direction / torch.linalg.vector_norm(direction)
+    up = _f32(up, device)
+    right = _unit(torch.linalg.cross(direction, up))
+    true_up = torch.linalg.cross(right, direction)
+    u = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) \
+        / width * 2.0 - 1.0
+    v = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) \
+        / height * 2.0 - 1.0
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    origins = (_f32(center, device)
+               + uu[..., None] * extent * right
+               - vv[..., None] * extent * true_up)
+    dirs = direction.expand(origins.shape)
+    return Rays(origins=origins.reshape(-1, 3),
+                directions=dirs.reshape(-1, 3))
+
+
+@dataclasses.dataclass
+class FreeCamera:
+    """Free-fly camera state: yaw/pitch driven by cursor deltas, local
+    WASD + ascend translation, speed and field-of-view modifiers, reset to
+    the construction pose. Host numpy state (control logic); ``camera()``
+    gives the ``Camera`` for the current pose."""
+
+    position: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.array([0.0, 0.0, 3.0], np.float32))
+    yaw_deg: float = -90.0          # looking down -Z
+    pitch_deg: float = 0.0
+    fov_y_deg: float = 45.0
+    speed: float = 2.5              # units/s
+    sensitivity: float = 0.1        # degrees per cursor count
+
+    def __post_init__(self):
+        self._home = (self.position.copy(), self.yaw_deg, self.pitch_deg,
+                      self.fov_y_deg)
+
+    @property
+    def forward(self) -> np.ndarray:
+        cy, sy = np.cos(np.radians(self.yaw_deg)), np.sin(
+            np.radians(self.yaw_deg))
+        cp, sp = np.cos(np.radians(self.pitch_deg)), np.sin(
+            np.radians(self.pitch_deg))
+        f = np.array([cy * cp, sp, sy * cp], np.float32)
+        return f / np.linalg.norm(f)
+
+    def rotate(self, dx_counts: float, dy_counts: float) -> None:
+        """Cursor-delta look: yaw += dx, pitch += dy, pitch clamped to
+        +/-89 degrees."""
+        self.yaw_deg = float(np.mod(self.yaw_deg + dx_counts
+                                    * self.sensitivity, 360.0))
+        self.pitch_deg = float(np.clip(self.pitch_deg + dy_counts
+                                       * self.sensitivity, -89.0, 89.0))
+
+    def move(self, dt: float, forward: float = 0.0, strafe: float = 0.0,
+             ascend: float = 0.0) -> None:
+        """WASD + ascend translation in the local frame; inputs in
+        [-1, 1]."""
+        f = self.forward
+        r = np.cross(f, np.array([0.0, 1.0, 0.0], np.float32))
+        r /= max(np.linalg.norm(r), 1e-8)
+        step = self.speed * dt
+        self.position = (self.position + step
+                         * (forward * f + strafe * r
+                            + ascend * np.array([0.0, 1.0, 0.0], np.float32))
+                         ).astype(np.float32)
+
+    def adjust_speed(self, factor: float) -> None:
+        self.speed = float(np.clip(self.speed * factor, 0.01, 100.0))
+
+    def adjust_fov(self, delta_deg: float) -> None:
+        self.fov_y_deg = float(np.clip(self.fov_y_deg + delta_deg,
+                                       10.0, 120.0))
+
+    def reset(self) -> None:
+        """Back to the construction pose."""
+        pos, yaw, pitch, fov = self._home
+        self.position = pos.copy()
+        self.yaw_deg, self.pitch_deg, self.fov_y_deg = yaw, pitch, fov
+
+    def camera(self, width: int, height: int, device=None) -> Camera:
+        """The Camera at this pose, on ``device`` (None: the CUDA card)."""
+        eye = np.asarray(self.position, np.float32)
+        return Camera(c2w=look_at(eye, eye + self.forward, device=device),
+                      fov_y_deg=self.fov_y_deg, width=width, height=height)
 
 
 def view_matrix(camera: Camera) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""Procedural benchmark scenes and the trainable scene.
+"""Scene assembly: procedural scenes, config-driven loading, the trainable
+scene.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/models/scene.py``
-(``concat_scenes``, ``debug_cube_scene`` and its panels, ``random_cloud``,
-``surface_scene``). The constructors draw from numpy's seeded generator
-exactly as the reference does, so one seed gives the same scene in both
-packages; the result is built on ``device`` (None: the CUDA card,
-``core/device.py``). ``SceneParams`` holds
+(``concat_scenes``, ``transform_scene``, ``rtbox_scene``,
+``debug_cube_scene`` and its panels, ``random_cloud``, ``surface_scene``,
+``load_scene_from_config``). The constructors draw from numpy's seeded
+generator exactly as the reference does, so one seed gives the same scene
+in both packages; the result is built on ``device`` (None: the CUDA card,
+``core/device.py``). ``load_scene_from_config`` assembles a scene config's
+objects (3DGS checkpoints, glTF files, ``builtin:`` scenes), each with its
+world transform baked into the Gaussians, its rtbox and its lights. ``SceneParams`` holds
 a scene's leaves as ``nn.Parameter``s, the port's form of the JAX scene
 pytree that ``optax`` updates.
 """
@@ -18,10 +22,11 @@ import torch
 from torch import nn
 
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
-    SCENE_FIELDS, GaussianScene, make_scene,
+    PUNCTUAL_FIELDS, SCENE_FIELDS, GaussianScene, PunctualLights,
+    make_punctual_lights, make_scene,
 )
 from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import (
-    rotmat_to_quat,
+    quat_to_rotmat, rotmat_to_quat,
 )
 
 
@@ -37,6 +42,46 @@ def concat_scenes(scenes: Sequence[GaussianScene]) -> GaussianScene:
     return GaussianScene(**{
         f: torch.cat([pad_sh(s) if f == "sh_coeffs" else getattr(s, f)
                       for s in scenes]) for f in SCENE_FIELDS})
+
+
+def transform_scene(scene: GaussianScene, position=(0, 0, 0),
+                    scale=(1, 1, 1), rotation_euler_deg=(0, 0, 0)
+                    ) -> GaussianScene:
+    """Bake a world transform into the Gaussian parameters.
+
+    Rotation is XYZ euler degrees (R = Rz Ry Rx); scale is per world axis,
+    and a rotated Gaussian's principal axes are scaled by the scale's
+    magnitude along each of their directions.
+    """
+    rx, ry, rz = [np.radians(a) for a in rotation_euler_deg]
+
+    def rot_x(a):
+        return np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)],
+                         [0, np.sin(a), np.cos(a)]])
+
+    def rot_y(a):
+        return np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                         [-np.sin(a), 0, np.cos(a)]])
+
+    def rot_z(a):
+        return np.array([[np.cos(a), -np.sin(a), 0],
+                         [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+
+    dev = scene.means.device
+    r = torch.tensor((rot_z(rz) @ rot_y(ry) @ rot_x(rx)).astype(np.float32),
+                     device=dev)
+    s = torch.tensor(np.asarray(scale, np.float32), device=dev)
+    pos = torch.tensor(np.asarray(position, np.float32), device=dev)
+
+    means = (scene.means * s) @ r.T + pos
+    frames = quat_to_rotmat(scene.quats)               # (N,3,3) columns=axes
+    axis_scale = torch.sqrt(torch.sum((s[None, :, None] * frames) ** 2,
+                                      dim=1))
+    new_log_scales = scene.log_scales + torch.log(
+        torch.clamp_min(axis_scale, 1e-12))
+    new_quats = rotmat_to_quat(r @ frames)
+    return scene.replace(means=means, log_scales=new_log_scales,
+                         quats=new_quats)
 
 
 def _panel(center, tangent_u, tangent_v, color, metallic, roughness,
@@ -85,6 +130,31 @@ _PANEL_GEOMS = {
     "right_wall": ((1, 0, 0), (0, 0, -1), (0, 1, 0)),
     "front_wall": ((0, 0, 1), (-1, 0, 0), (0, 1, 0)),
 }
+
+
+def rtbox_scene(rtbox: dict, res: int = 24, device=None) -> GaussianScene:
+    """Cornell box from a parsed rtbox.json (``utils.config.
+    load_rtbox_config``): each listed panel a res x res grid of flat
+    Gaussians with its material; a panel with light intensity > 0 emits
+    intensity / area, which registers it for NEE through the emission
+    channel."""
+    pos = np.asarray(rtbox["position"], np.float64)
+    half = np.asarray(rtbox["dimensions"], np.float64) / 2.0
+    parts = []
+    for name, mat in rtbox["panels"].items():
+        if name not in _PANEL_GEOMS:
+            continue
+        off, tu_axis, tv_axis = _PANEL_GEOMS[name]
+        center = pos + np.asarray(off) * half
+        # Half-extent of the panel along each tangent axis direction.
+        tu = np.asarray(tu_axis, np.float64) * (half @ np.abs(tu_axis))
+        tv = np.asarray(tv_axis, np.float64) * (half @ np.abs(tv_axis))
+        area = 4.0 * np.linalg.norm(tu) * np.linalg.norm(tv)
+        inten = mat["light_intensity"] / max(area, 1e-6)
+        parts.append(_panel(center, tu, tv, mat["base_color"],
+                            mat["metallic"], mat["roughness"], inten, res,
+                            device=device))
+    return concat_scenes(parts)
 
 
 def debug_cube_scene(center=(0.0, 0.0, 0.0), size: float = 1.0,
@@ -238,6 +308,83 @@ def random_cloud(n: int, seed: int = 13, spread: float = 1.0,
         roughness=rng.uniform(0.2, 1, (n,)).astype(np.float32),
         device=device,
     )
+
+
+def load_scene_from_config(cfg, base_dir: str = ".", device=None):
+    """Assemble (GaussianScene, PunctualLights | None) from a SceneConfig
+    (``utils/config.py``) on ``device`` (None: the CUDA card).
+
+    An object's ``model`` is a 3DGS ``.ply`` checkpoint, a ``.gltf`` /
+    ``.glb`` file (relative paths from ``base_dir``) or a builtin scene:
+    ``builtin:random_cloud?n=1000&seed=13&sh_degree=0&emissive_frac=0`` or
+    ``builtin:debug_cube?size=1``; any other builtin name raises. Each
+    object's transform is baked into its Gaussians; the rtbox, when the
+    config uses one, is added untransformed. The lights are the glTF
+    files' KHR_lights_punctual lights, then the sun (a directional light).
+    """
+    import os
+    import urllib.parse
+
+    from pathtracer_gaussiansplatting_tpu_torch.data.gltf import (
+        load_gltf_scene,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.ply import load_3dgs_ply
+    from pathtracer_gaussiansplatting_tpu_torch.utils.config import (
+        load_rtbox_config,
+    )
+
+    def path_of(p):
+        return p if os.path.isabs(p) else os.path.join(base_dir, p)
+
+    parts, gltf_lights = [], []
+    for obj in cfg.objects:
+        model = obj.model
+        if model.startswith("builtin:"):
+            name, _, query = model[len("builtin:"):].partition("?")
+            params = dict(urllib.parse.parse_qsl(query))
+            if name == "random_cloud":
+                s = random_cloud(int(params.get("n", 1000)),
+                                 seed=int(params.get("seed", 13)),
+                                 sh_degree=int(params.get("sh_degree", 0)),
+                                 emissive_frac=float(
+                                     params.get("emissive_frac", 0)),
+                                 device=device)
+            elif name == "debug_cube":
+                s = debug_cube_scene(size=float(params.get("size", 1.0)),
+                                     device=device)
+            else:
+                raise ValueError(f"unknown builtin scene '{name}'")
+        elif model.endswith((".gltf", ".glb")):
+            s, obj_lights = load_gltf_scene(path_of(model), device=device)
+            if obj_lights is not None:
+                gltf_lights.append(obj_lights)
+        else:
+            s = load_3dgs_ply(path_of(model), device=device)
+        parts.append(transform_scene(s, obj.position, obj.scale,
+                                     obj.rotation))
+    if cfg.use_rt_box and cfg.rt_box_file:
+        parts.append(rtbox_scene(load_rtbox_config(path_of(cfg.rt_box_file)),
+                                 device=device))
+    if not parts:
+        raise ValueError("scene config contains no objects")
+    scene = concat_scenes(parts)
+
+    # The glTF lights keep their positions in the file's space: the object
+    # transform is baked into the Gaussians only, as the reference reads
+    # lights in model space before baking.
+    all_lights = list(gltf_lights)
+    if cfg.sun is not None:
+        all_lights.append(make_punctual_lights(
+            direction=[list(cfg.sun.direction)],
+            color=[list(cfg.sun.color)],
+            intensity=[cfg.sun.intensity], light_type=[1], num=1,
+            device=device))
+    punctual = None
+    if all_lights:
+        punctual = PunctualLights(**{
+            f: torch.cat([getattr(lt, f) for lt in all_lights])
+            for f in PUNCTUAL_FIELDS})
+    return scene, punctual
 
 
 class SceneParams(nn.Module):

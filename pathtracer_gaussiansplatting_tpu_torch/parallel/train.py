@@ -1,11 +1,16 @@
-"""Training through the fused tile renderer.
+"""Training: differentiable rendering and Adam on every scene leaf.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/parallel/train.py``
-(``l1_loss``, ``l2_loss``, ``make_optimizer``, ``make_tiled_train_step``,
-``fit_scene_tiled``). A step bins the scene afresh, composites every tile
-through the fused kernel and back through its analytic backward
-(kernels/tile_composite.py), and takes one Adam step on every scene leaf.
-The dense ``make_train_step`` / ``fit_scene`` come with the dense renderer.
+(``l1_loss``, ``l2_loss``, ``make_optimizer``, ``make_train_step``,
+``make_tiled_train_step``, ``fit_scene``, ``fit_scene_tiled``) on one
+device (the reference's ``mesh=`` is not ported). The dense step renders
+rays through ``render/reference.render_radiance_dense`` (the top-K kernel
+gives the indices, ``selected_peaks`` recomputes t and alpha in torch, so
+the gradient reaches the geometry); the tiled step bins the scene afresh,
+composites every tile through the fused kernel and back through its
+analytic backward (kernels/tile_composite.py). Either takes one Adam step
+on every scene leaf; a leaf with no gradient is not moved, as optax moves
+it by zero.
 
 The JAX step is a pure function of (scene, opt_state); here the scene is a
 :class:`~pathtracer_gaussiansplatting_tpu_torch.models.scene.SceneParams`
@@ -20,10 +25,13 @@ from typing import Callable, Optional
 import torch
 
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
-    GaussianScene, RenderSettings,
+    GaussianScene, Rays, RenderSettings,
 )
 from pathtracer_gaussiansplatting_tpu_torch.models.scene import SceneParams
 from pathtracer_gaussiansplatting_tpu_torch.ops.binning import BinningConfig
+from pathtracer_gaussiansplatting_tpu_torch.render.reference import (
+    render_radiance_dense,
+)
 from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
     prepare_tiles, render_prepared, render_tiled_fused,
 )
@@ -43,6 +51,33 @@ def make_optimizer(lr: float = 1e-3) -> Callable:
     ``make_optimizer(lr)(params.parameters())`` is the optimizer state."""
     return functools.partial(torch.optim.Adam, lr=lr, betas=(0.9, 0.999),
                              eps=1e-8)
+
+
+def make_train_step(settings: RenderSettings, optimizer: Callable,
+                    render_fn: Optional[Callable] = None,
+                    loss_fn: Callable = l2_loss):
+    """Train step on a batch of rays: step(params, opt_state, rays,
+    target) -> (params, opt_state, loss).
+
+    ``render_fn(scene, rays)`` renders (R, 3) radiance (default: the dense
+    renderer with ``settings``); ``optimizer`` is what
+    :func:`make_optimizer` returns, ``params`` a SceneParams and
+    ``opt_state`` the optimizer built over its parameters, both updated in
+    place.
+    """
+    del optimizer  # opt_state carries it
+    if render_fn is None:
+        render_fn = functools.partial(render_radiance_dense,
+                                      settings=settings)
+
+    def step(params: SceneParams, opt_state, rays: Rays, target):
+        opt_state.zero_grad(set_to_none=True)
+        loss = loss_fn(render_fn(params.scene(), rays), target)
+        loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return step
 
 
 def make_tiled_train_step(settings: RenderSettings, optimizer: Callable,
@@ -107,3 +142,25 @@ def fit_scene_tiled(scene: GaussianScene, cameras, targets,
     final = dict(psnr=float(metrics.psnr(out["color"], targets[0])),
                  ssim=float(metrics.ssim(out["color"], targets[0])))
     return fitted, losses, final
+
+
+def fit_scene(scene: GaussianScene, rays: Rays, target,
+              settings: RenderSettings, steps: int = 100, lr: float = 5e-3,
+              render_fn: Optional[Callable] = None,
+              progress: Optional[Callable] = None):
+    """Optimize a scene against target pixels (R, 3) along ``rays``.
+    Returns (scene, losses)."""
+    params = SceneParams.from_scene(scene)
+    opt = make_optimizer(lr)
+    opt_state = opt(params.parameters())
+    step = make_train_step(settings, opt, render_fn=render_fn)
+    target = torch.as_tensor(target, dtype=torch.float32,
+                             device=params.means.device).detach()
+    losses = []
+    for i in range(steps):
+        params, opt_state, loss = step(params, opt_state, rays, target)
+        losses.append(float(loss))
+        if progress:
+            progress(i, losses[-1])
+    return GaussianScene(**{f: x.detach()
+                            for f, x in params.named_parameters()}), losses
