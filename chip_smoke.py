@@ -88,10 +88,17 @@ are built from the checkout at first use. Then:
            there beside their bound (the plain march's counts over those
            rays); (f) the grid backend on the card against the CPU as in
            phase 5b;
-  phase 7  the ablation harness (csrc/tile_composite_variants.cu) at the
-           headline packets: every mode's kernel against its plain
-           version, full bit-equal to the forward kernel, then the timing
-           run, 20 launches a mode;
+  phase 7  the ablation harness (csrc/tile_composite_variants.cu, each
+           mode the forward kernel with one stage removed or re-lowered):
+           at the headline packets (T=2500, K=256) every mode's kernel
+           against its plain version, full and hoist bit-equal to the
+           forward kernel, onechunk and noif within the transmittance_min
+           bound of full; at phase 3's 1080p packets (T=8160, K=512) full
+           and hoist bit-equal to the forward; at both, full timed against
+           the forward back to back (at most FULL_TIME_RATIO of its time),
+           then the timing run, 20 launches a mode: ms, share of full, and
+           the saving against full as ms and as a share of full's distance
+           to the function's bound;
   phase 8  the dataset capture: (a) capture_scene_data through "auto"
            (tiled+grid) on surface_scene(500k, seed 13) with its emissive
            panel, depth 4, 4 poses at 800x800 (fov 45, halved), 16 spp,
@@ -202,7 +209,7 @@ HBM_BYTES_PER_S, FP32_FLOPS_PER_S = 3.35e12, 67e12
 # Float operations per unit of work, counted from the kernels' sources (a
 # division, an exp, a floor, a min or max or a compare counts one; integer
 # work is not counted): forward tile composite per (pixel, slot) pair
-# (eval_slot 33, composite_slot 33); backward ~230 (counted for its first
+# (eval_geom 33, composite_step 33); backward ~230 (counted for its first
 # design: three evaluations, the VJP chain, the per-slot sums; kept as the
 # yardstick while the design changes); dense top-K and shadow visibility per (ray,
 # Gaussian) pair the exact path kept by the cull, and the cull test
@@ -278,6 +285,10 @@ PT_CHUNK = 65536  # render_pose's ray chunk (part of the random stream)
 # The path-trace bench's camera (bench.py:124-128): eye and target.
 PT_EYE, PT_TARGET = (0.0, 0.2, 1.7), (0.0, -0.4, -0.5)
 RTOL, ATOL = 1e-3, 3e-4  # the reference's kernel-vs-oracle tolerances
+# Phase 7: the harness's full mode runs the forward's code, so it may take
+# at most this many times the forward kernel's time (device times repeat
+# within ~2% between runs).
+FULL_TIME_RATIO = 1.05
 # The reference's tolerance for its analytic backward against autodiff
 # (tests/test_pallas_kernels.py, TestAnalyticBackward).
 BWD_RTOL, BWD_ATOL = 2e-3, 2e-4
@@ -1919,15 +1930,46 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
 
 # ---- phase 7: the ablation harness ----------------------------------------
 
-def ablation(tc, tv, card) -> dict:
-    """Phase 7: every mode's kernel against its plain version at the
-    headline packets (T=2500, K=256), full bit-equal to the forward kernel,
-    onechunk and noif within the transmittance_min bound of full; then the
-    harness's timing run, 20 launches a mode."""
-    inputs = tv.headline_inputs()
+def surface_1080p(dev, key):
+    """Phase 3's input, the path-trace bench's primary stage:
+    surface_scene(500k, seed 13) at 1920x1080, K=512, one prepare_tiles and
+    the tile directions jittered by sample 0: (scene, camera, settings,
+    binning config, packets, dirs)."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
+        BinningConfig,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        _tile_dirs, prepare_tiles,
+    )
+
+    scene = surface_scene(500_000, seed=13, device=dev)
+    cam = Camera(c2w=look_at(PT_EYE, PT_TARGET, device=dev), fov_y_deg=60.0,
+                 width=1920, height=1080)
+    settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
+    cfg = BinningConfig()
+    packets = prepare_tiles(scene, cam, settings, cfg)
+    dirs, _ = _tile_dirs(cam, cfg, rng.subpixel_jitter(
+        key, cam.height, cam.width, 0, device=dev))
+    return scene, cam, settings, cfg, packets, dirs
+
+
+def ablation_checks(tc, tv, inputs, name: str) -> dict:
+    """Phase 7's gates at the headline packets: every mode's kernel against
+    its plain version (the tensor-core modes finite, their error against
+    full's plain math kept), full and hoist bit-equal to the forward
+    kernel, onechunk and noif within the transmittance_min bound of full.
+    Returns {mode: max abs err}."""
     geom, featsT, dirs, count, settings = inputs
-    fwd = tc.tile_composite(dict(geom=geom, featsT=featsT, count=count),
-                            dirs, settings)
     errs, outs = {}, {}
     for mode in tv.MODES:
         got = tv.tile_composite_variant(mode, *inputs)
@@ -1943,45 +1985,115 @@ def ablation(tc, tv, card) -> dict:
         if mode == "noscan":  # depth ~1e10 where alpha_acc ~ 0: relative
             compare(got[..., -1], want[..., -1], "7 noscan depth", atol=0.0)
             got, want = got[..., :-1], want[..., :-1]
-        errs[mode] = compare(got, want, f"7 {mode}")
-    full = outs["full"]
-    check(torch.equal(full[..., :tc.FEATURE_DIM], fwd[0])
-          and torch.equal(full[..., tv.FP], fwd[1])
-          and torch.equal(full[..., tv.FP + 1], fwd[2]),
-          "7: full is not bit-equal to tile_composite_fwd")
+        errs[mode] = compare(got, want, f"7 {name} {mode}")
+    full_equal_forward(tc, tv, inputs, name, outs)
     # Chunks full skips hold at most transmittance_min of each pixel's
     # light: features move by at most that times the largest feature.
     tmin = settings.transmittance_min
     fmax = float(featsT.abs().max())
+    full = outs["full"]
     for mode in ("onechunk", "noif"):
         d = (outs[mode] - full).abs()
         check(float(d[..., :tc.FEATURE_DIM].max()) <= 1.01 * tmin * fmax
               + ATOL and float(d[..., tv.FP].max()) <= 1.01 * tmin + ATOL,
-              f"7 {mode}: beyond the transmittance_min bound of full")
-    bnds = tile_bounds(tc, dict(geom=geom, featsT=featsT, count=count),
-                       dirs, settings)
-    plain_ms = cuda_ms(lambda: tv.tile_composite_variant_plain(
-        "full", *inputs), 2)
+              f"7 {name} {mode}: beyond the transmittance_min bound of full")
+    return errs
+
+
+def full_equal_forward(tc, tv, inputs, name: str, outs=None) -> None:
+    """Phase 7: full and hoist bit-equal to tile_composite_fwd (outs: the
+    modes' outputs where already computed)."""
+    geom, featsT, dirs, count, settings = inputs
+    fwd = tc.tile_composite(dict(geom=geom, featsT=featsT, count=count),
+                            dirs, settings)
+    for mode in ("full", "hoist"):
+        got = (outs or {}).get(mode)
+        if got is None:
+            got = tv.tile_composite_variant(mode, *inputs)
+        check(torch.equal(got[..., :tc.FEATURE_DIM], fwd[0])
+              and torch.equal(got[..., tv.FP], fwd[1])
+              and torch.equal(got[..., tv.FP + 1], fwd[2]),
+              f"7 {name}: {mode} is not bit-equal to tile_composite_fwd")
+
+
+def ablation_times(tc, tv, inputs, name: str, card: str) -> dict:
+    """Phase 7's timing run at one input: the forward kernel and full back
+    to back (forward, full, full, forward, 20 launches each; full must take
+    at most FULL_TIME_RATIO of the forward's time), then every mode, 20
+    launches each: ms, share of full, and the saving against full in ms
+    and as a share of full's distance to the function's bound; the forward
+    last, as one more row."""
+    geom, featsT, dirs, count, settings = inputs
+    packets = dict(geom=geom, featsT=featsT, count=count)
+    bnds = tile_bounds(tc, packets, dirs, settings)
+    fbound = bnds["fwd"]["function_bound_ms"]
     tv.LAUNCHES = 0
+
+    def fwd():
+        tc.tile_composite(packets, dirs, settings)
+
+    def full():
+        tv.tile_composite_variant("full", *inputs)
+
+    pair = [cuda_ms(fn, 20) for fn in (fwd, full, full, fwd)]
+    fwd_ms, full_ms = (pair[0] + pair[3]) / 2, (pair[1] + pair[2]) / 2
+    check(full_ms <= FULL_TIME_RATIO * fwd_ms,
+          f"7 {name}: full {full_ms:.4f} ms is over {FULL_TIME_RATIO} x the "
+          f"forward kernel's {fwd_ms:.4f} ms")
     rows = tv.run_harness(tv.MODES, inputs, 20)
-    launches = tv.LAUNCHES
-    full_ms = rows[0][1]
+    t_total, k = geom.shape[0], geom.shape[-1]
+    log(f"phase 7 {name}: T={t_total}, K={k}: forward kernel {fwd_ms:.4f} "
+        f"ms, full {full_ms:.4f} ms back to back (runs "
+        + ", ".join(f"{m:.4f}" for m in pair) + f") = {full_ms / fwd_ms:.3f}"
+        f" x (gate {FULL_TIME_RATIO}); the function's bound {fbound:.4f} ms"
+        f"; {bnds['live_pairs'] / bnds['pairs']:.1%} of {bnds['pairs']} "
+        f"evaluated pairs with alpha > 0; {card}")
+    # The forward as one more row: it runs full's code but stores a row per
+    # thread, so its saving against full is what that store costs it.
+    rows.append(("forward", fwd_ms, None))
+    base = rows[0][1]
     for mode, ms, err in rows:
         note = "" if err is None else f", max rel err vs full {err:.2e}"
-        if mode in tv.TENSOR_CORE:
-            note += f", max abs err vs full's plain math {errs[mode]:.3e}"
-        log(f"phase 7 {mode:>9s}: {ms:8.3f} ms, {ms / full_ms:7.1%} of full"
-            f"{note} (T={geom.shape[0]}, K={geom.shape[-1]}; {card})")
-    log(f"phase 7: kernels vs plain within rtol {RTOL} / atol {ATOL}: "
+        log(f"phase 7 {name} {mode:>9s}: {ms:8.4f} ms, {ms / base:7.1%} of "
+            f"full, saves {base - ms:+.4f} ms = "
+            f"{(base - ms) / (base - fbound):+7.1%} of full's distance to "
+            f"the function's bound{note}")
+    return dict(launches=tv.LAUNCHES, ms=base, fwd_ms=fwd_ms,
+                full_ms=full_ms, bounds=bnds)
+
+
+def ablation(tc, tv, dev, key, card) -> dict:
+    """Phase 7: the ablation harness. At the headline packets (T=2500,
+    K=256) every gate of ablation_checks; at phase 3's 1080p packets
+    (T=8160, K=512) full and hoist bit-equal to the forward; at both the
+    timing run of ablation_times."""
+    head = tv.headline_inputs()
+    errs = ablation_checks(tc, tv, head, "headline")
+    plain_ms = cuda_ms(lambda: tv.tile_composite_variant_plain(
+        "full", *head), 2)
+    log("phase 7: kernels vs plain within rtol "
+        f"{RTOL} / atol {ATOL}: "
         + ", ".join(f"{m} {e:.2e}" for m, e in errs.items()
                     if m not in tv.TENSOR_CORE)
-        + "; full bit-equal to tile_composite_fwd; onechunk and noif within "
-        f"the transmittance_min bound; {launches} launches; full's plain "
-        f"version {plain_ms:.3f} ms")
-    return dict(launches=launches, ms=full_ms, plain_ms=plain_ms,
+        + "; max abs err vs full's plain math "
+        + ", ".join(f"{m} {errs[m]:.3e}" for m in tv.TENSOR_CORE)
+        + "; full and hoist bit-equal to tile_composite_fwd; onechunk and "
+        f"noif within the transmittance_min bound; full's plain version "
+        f"{plain_ms:.3f} ms")
+    t_head = ablation_times(tc, tv, head, "headline", card)
+    del head
+    _, _, settings, _, packets, dirs = surface_1080p(dev, key)
+    wide = (packets["geom"].contiguous(), packets["featsT"].contiguous(),
+            dirs.contiguous(), packets["count"].contiguous(), settings)
+    del packets
+    full_equal_forward(tc, tv, wide, "1080p")
+    log("phase 7 1080p: full and hoist bit-equal to tile_composite_fwd")
+    t_wide = ablation_times(tc, tv, wide, "1080p", card)
+    return dict(launches=t_head["launches"] + t_wide["launches"],
+                ms=t_head["ms"], plain_ms=plain_ms,
                 max_abs_err=max(e for m, e in errs.items()
                                 if m not in tv.TENSOR_CORE),
-                **bnds["fwd"])
+                **t_head["bounds"]["fwd"])
 
 
 # ---- phase 8: the dataset capture -----------------------------------------
@@ -3226,15 +3338,8 @@ def main() -> int:
                  card)
 
     # ---- phase 3: the primary stage at the path-trace bench's size ----
-    pt_scene = surface_scene(500_000, seed=13, device=dev)
-    pt_cam = Camera(c2w=look_at((0.0, 0.2, 1.7), (0.0, -0.4, -0.5),
-                                device=dev),
-                    fov_y_deg=60.0, width=1920, height=1080)
-    pt_settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
-    pt_cfg = BinningConfig()
-    pt_packets = prepare_tiles(pt_scene, pt_cam, pt_settings, pt_cfg)
-    pt_dirs, _ = _tile_dirs(pt_cam, pt_cfg, rng.subpixel_jitter(
-        key, 1080, 1920, 0, device=dev))
+    pt_scene, pt_cam, pt_settings, pt_cfg, pt_packets, pt_dirs = \
+        surface_1080p(dev, key)
     got = tc.tile_composite(pt_packets, pt_dirs, pt_settings)
     want = tc.tile_composite_plain(pt_packets, pt_dirs, pt_settings)
     pt_err = max(compare(got[0], want[0], "1080p out"),
@@ -3420,7 +3525,7 @@ def main() -> int:
         tile_composite_variants as tv,
     )
 
-    abl = ablation(tc, tv, card)
+    abl = ablation(tc, tv, dev, key, card)
 
     # ---- phase 8: the dataset capture --------------------------------
     cap = capture_run(capture, gm, gt, tc, dt, card)
@@ -3505,7 +3610,9 @@ def main() -> int:
               g_pt["launches"][1] + g_pose["launches"][1]
               + cap_launches["vis"] + p9["vis"], g_res[1], vis_b),
         entry("tile_composite_variants", VARIANT_SOURCE, VARIANT_REPLACES,
-              abl["launches"], abl, abl),
+              abl["launches"], abl, abl, launches_in="phase 7: the "
+              "harness's timing runs at both inputs (0 on the render, "
+              "training and capture paths)"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,11 @@
 // where one ulp can switch a ~1% contribution on or off, so both kernels
 // take the same code from here: a, b, t, q, exp and alpha round op by op
 // (no FMA contraction), in the plain PyTorch version's order, and come out
-// bit-equal to it and to each other. The forward and backward kernels
-// stage their slots slot-major and double-buffered (the helpers at the
-// end); the harness keeps the row-major chunk it was written against.
+// bit-equal to it and to each other. All three stage their slots
+// slot-major and double-buffered (the helpers at the end). The forward
+// and the harness share one stage loop (stage_loop) and the forward's
+// slot step (forward_tile), so the harness's full mode runs the forward's
+// code.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -102,20 +104,6 @@ __device__ __forceinline__ SlotEval eval_geom(const PixelDir& p,
   return e;
 }
 
-// Evaluates slot j of geometry rows staged as sg[row * stride + j].
-__device__ __forceinline__ SlotEval eval_slot(const PixelDir& p,
-                                              const float* sg, int stride,
-                                              int j, const Params& prm) {
-  SlotGeom g;
-#pragma unroll
-  for (int r = 0; r < 6; ++r) g.q[r] = sg[r * stride + j];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) g.w[r] = sg[(6 + r) * stride + j];
-  g.c = sg[kRowC * stride + j];
-  g.opac = sg[kRowOpac * stride + j];
-  return eval_geom(p, g, prm);
-}
-
 // Transmittance past a slot: T * (1 - alpha), rounded as the forward does.
 __device__ __forceinline__ float trans_after(float trans, float alpha) {
   return __fmul_rn(trans, __fsub_rn(1.0f, alpha));
@@ -137,17 +125,7 @@ __device__ __forceinline__ void composite_step(const SlotEval& e, Feat feat,
   for (int f = 0; f < F; ++f) acc[f] = __fmaf_rn(w, feat(f), acc[f]);
 }
 
-// composite_step over slot j of a chunk staged as sf[f * kc + j].
-template <int F>
-__device__ __forceinline__ void composite_slot(const SlotEval& e,
-                                               const float* sf, int kc,
-                                               int j, float& trans,
-                                               float& s_depth, float* acc) {
-  composite_step<F>(e, [&](int f) { return sf[f * kc + j]; }, trans,
-                    s_depth, acc);
-}
-
-// ---- slot-major staging (the forward and backward kernels) -------------
+// ---- slot-major staging (every tile kernel) -----------------------------
 //
 // A stage of kStage slots lies in shared memory slot by slot, each slot a
 // kSlotFloats-float row of 16-byte words: q6 (0-5), Q(o-mu) (6-8), c (9),
@@ -225,6 +203,66 @@ __device__ __forceinline__ void stage_feats(const float* buf, int j,
     for (int i = 0; i < 4; ++i)
       if (4 * q + i < F) out[4 * q + i] = x[i];
   }
+}
+
+// ---- the forward's stage loop (the forward kernel and the harness) -------
+//
+// Walks a tile's slots [0, n_valid) in stages of kStage: cp.async copies
+// the next stage into the other half of the double buffer while
+// body(sb, s0, n) reads slots [s0, s0 + n) from this one, one
+// __syncthreads a stage on each side. With kSkip, each chunk of kc slots
+// after the first is skipped once the block-wide max of trans is at or
+// below transmittance_min: the max is uniform over the block and the test
+// cannot pass again once it fails, so the loop ends there. kc is K or a
+// multiple of kStage, so a stage never straddles two chunks.
+template <int F, bool kSkip, class Body>
+__device__ __forceinline__ void stage_loop(
+    const float* g_tile, const float* f_tile, int k, int kc, int n_valid,
+    float transmittance_min, float (*stage)[kStage * slot_floats<F>()],
+    float* red, const float& trans, Body body) {
+  stage_async<F>(g_tile, f_tile, k, 0, min(kStage, n_valid), stage[0]);
+  for (int s0 = 0, buf = 0; s0 < n_valid; s0 += kStage, buf ^= 1) {
+    if (kSkip && s0 > 0 && s0 % kc == 0 &&
+        !(block_max(trans, red) > transmittance_min))
+      break;
+    stage_async<F>(g_tile, f_tile, k, s0 + kStage,
+                   min(kStage, n_valid - s0 - kStage), stage[buf ^ 1]);
+    cp_async_wait<1>();
+    __syncthreads();
+    body(static_cast<const float*>(stage[buf]), s0,
+         min(kStage, n_valid - s0));
+    __syncthreads();  // the stage is no longer read: the next may refill it
+  }
+  cp_async_wait<0>();
+}
+
+// The forward's composite of one tile's slots [0, n_valid) into this
+// pixel's trans, s_depth and acc[F]. kSkips turns on both skips, the
+// chunk test and the warp vote; the forward kernel runs with them. The
+// vote: a warp none of whose pixels has alpha > 0 at a slot skips its
+// composite step (alpha = 0 gives w = 0, T (1 - 0) = T and
+// fma(0, x, s) = s, so no bit changes).
+template <int F, bool kSkips>
+__device__ __forceinline__ void forward_tile(
+    const PixelDir& pd, const float* g_tile, const float* f_tile, int k,
+    int kc, int n_valid, const Params& prm,
+    float (*stage)[kStage * slot_floats<F>()], float* red, float& trans,
+    float& s_depth, float* acc) {
+  stage_loop<F, kSkips>(
+      g_tile, f_tile, k, kc, n_valid, prm.transmittance_min, stage, red,
+      trans, [&](const float* sb, int, int n) {
+#pragma unroll 4
+        for (int j = 0; j < n; ++j) {
+          const SlotEval e =
+              eval_geom(pd, stage_geom(sb, slot_floats<F>(), j), prm);
+          if (!kSkips || __any_sync(kFullWarp, e.live)) {
+            float fv[F];
+            stage_feats<F>(sb, j, fv);
+            composite_step<F>(e, [&](int f) { return fv[f]; }, trans,
+                              s_depth, acc);
+          }
+        }
+      });
 }
 
 }  // namespace ptgs

@@ -48,8 +48,6 @@
 
 namespace {
 
-using ptgs::block_max;
-using ptgs::kFullWarp;
 using ptgs::kGeomRows;
 using ptgs::kMaxPixels;
 using ptgs::kStage;
@@ -81,33 +79,8 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
   const int n_valid = min(k, max(0, static_cast<int>(ceilf(count[tile]))));
   const float* g_tile = geom + static_cast<size_t>(tile) * kGeomRows * k;
   const float* f_tile = feats + static_cast<size_t>(tile) * F * k;
-  ptgs::stage_async<F>(g_tile, f_tile, k, 0, min(kStage, n_valid), stage[0]);
-  for (int s0 = 0, buf = 0; s0 < n_valid; s0 += kStage, buf ^= 1) {
-    // The block max is uniform over the block, and the test cannot pass
-    // again once it fails: skipping the rest is exact.
-    if (s0 > 0 && s0 % kc == 0 &&
-        !(block_max(trans, red) > prm.transmittance_min))
-      break;
-    ptgs::stage_async<F>(g_tile, f_tile, k, s0 + kStage,
-                         min(kStage, n_valid - s0 - kStage), stage[buf ^ 1]);
-    ptgs::cp_async_wait<1>();
-    __syncthreads();
-    const float* sb = stage[buf];
-    const int n = min(kStage, n_valid - s0);
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const ptgs::SlotEval e =
-          ptgs::eval_geom(pd, ptgs::stage_geom(sb, kS, j), prm);
-      if (__any_sync(kFullWarp, e.live)) {
-        float fv[F];
-        ptgs::stage_feats<F>(sb, j, fv);
-        ptgs::composite_step<F>(e, [&](int f) { return fv[f]; }, trans,
-                                s_depth, acc);
-      }
-    }
-    __syncthreads();  // sb is no longer read: the next stage may refill it
-  }
-  ptgs::cp_async_wait<0>();
+  ptgs::forward_tile<F, true>(pd, g_tile, f_tile, k, kc, n_valid, prm, stage,
+                              red, trans, s_depth, acc);
 
   const size_t px = static_cast<size_t>(tile) * p + pix;
   const float aa = 1.0f - trans;

@@ -6,7 +6,9 @@ Counterpart of ``benchmarks/variant_kernel.py`` (``_variant_kernel``,
 stages disabled or re-lowered, timed to find where a sample's composite time
 goes. ``MODES`` lists the 19 modes in the reference's docstring order; the
 CUDA kernel ``csrc/tile_composite_variants.cu`` (counted in ``LAUNCHES``)
-says what each does on the card. The tensor-core modes (mxu, mxu3, lowdot,
+runs each on the forward kernel's pipeline (its ``full`` mode is the
+forward's own code, bit-equal to ``tile_composite_fwd``) and says what
+each does on the card. The tensor-core modes (mxu, mxu3, lowdot,
 dot3) change only how the same math rounds, so their plain version is
 ``full``'s math and the kernel's error against it is the measurement.
 

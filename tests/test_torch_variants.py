@@ -111,29 +111,37 @@ def test_variant_dispatch_on_cpu(inputs):
 def test_variant_kernels_match_plain_on_card():
     """Every mode's kernel against its plain version on the card (the
     tensor-core modes against full's math, finite only: their rounding is
-    what they measure); full bit-equal to the forward kernel."""
+    what they measure); full and hoist bit-equal to the forward kernel.
+    Two inputs: 64 tiles at K=256, and 49 tiles of a sparser cloud at
+    K=512 (four chunks; counts 99-512, so most tiles end in a short stage,
+    and skel32's last block holds one tile)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
     from pathtracer_gaussiansplatting_tpu_torch.kernels import (
         tile_composite as tc,
     )
 
-    inputs = tv.headline_inputs(20_000, 128, 256, device="cuda")
-    geom, featsT, dirs, count, settings = inputs
-    fwd = tc.tile_composite(dict(geom=geom, featsT=featsT, count=count),
-                            dirs, settings)
-    for mode in tv.MODES:
-        got = tv.tile_composite_variant(mode, *inputs)
-        torch.cuda.synchronize()
-        if mode in tv.TENSOR_CORE:
-            assert bool(torch.isfinite(got).all())
-            continue
-        want = tv.tile_composite_variant_plain(mode, *inputs)
-        if mode == "noscan":
-            torch.testing.assert_close(got[..., -1], want[..., -1],
-                                       rtol=RTOL, atol=0.0)
-            got, want = got[..., :-1], want[..., :-1]
-        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-        if mode == "full":
-            assert torch.equal(got[..., :14], fwd[0])
-            assert torch.equal(got[..., tv.FP], fwd[1])
+    for n, res, k in ((20_000, 128, 256), (2_000, 112, 512)):
+        inputs = tv.headline_inputs(n, res, k, device="cuda")
+        geom, featsT, dirs, count, settings = inputs
+        if k == 512:
+            assert geom.shape[0] % 4 != 0
+            assert bool(((torch.ceil(count) % 32 != 0) & (count > 0)).any())
+        fwd = tc.tile_composite(dict(geom=geom, featsT=featsT, count=count),
+                                dirs, settings)
+        for mode in tv.MODES:
+            got = tv.tile_composite_variant(mode, *inputs)
+            torch.cuda.synchronize()
+            if mode in tv.TENSOR_CORE:
+                assert bool(torch.isfinite(got).all())
+                continue
+            want = tv.tile_composite_variant_plain(mode, *inputs)
+            if mode == "noscan":
+                torch.testing.assert_close(got[..., -1], want[..., -1],
+                                           rtol=RTOL, atol=0.0)
+                got, want = got[..., :-1], want[..., :-1]
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+            if mode in ("full", "hoist"):
+                assert torch.equal(got[..., :14], fwd[0])
+                assert torch.equal(got[..., tv.FP], fwd[1])
+                assert torch.equal(got[..., tv.FP + 1], fwd[2])
