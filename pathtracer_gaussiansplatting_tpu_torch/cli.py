@@ -10,6 +10,7 @@ subcommands, arguments, defaults, printed lines and files:
                     (the dense renderer)
   view-pointcloud   rasterize a captured point cloud
   interact          the headless interactive session, scripted
+  bench             the benchmark harness (bench.py): one JSON line
 
 One option is the port's own: ``--device``. By default (None) everything
 runs on the CUDA card, and without one the command raises; ``--device
@@ -32,6 +33,7 @@ if __name__ == "__main__":
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
+from pathtracer_gaussiansplatting_tpu_torch import bench  # noqa: E402
 from pathtracer_gaussiansplatting_tpu_torch.core.camera import (  # noqa: E402
     Camera, generate_rays, look_at, toroidal_c2w,
 )
@@ -241,6 +243,10 @@ def _run_session(sess: InteractiveSession, stream):
     return img
 
 
+def cmd_bench(args):
+    bench.main(device=args.device)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="pathtracer_gaussiansplatting_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -314,6 +320,10 @@ def main(argv=None):
     sp.add_argument("--commands", default=None,
                     help="command file (default: stdin)")
     sp.set_defaults(fn=cmd_interact)
+
+    sp = sub.add_parser("bench", help="benchmark harness")
+    device_arg(sp)
+    sp.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import logging
 import os
 from typing import Callable, Optional
 
@@ -64,9 +63,10 @@ from pathtracer_gaussiansplatting_tpu_torch.sampling.strategies import (
     SamplingMethod, generate_samples,
 )
 from pathtracer_gaussiansplatting_tpu_torch.utils.checkpoint import (
-    LOGGER_NAME, CaptureProgress, load_render_state, save_render_state,
+    CaptureProgress, load_render_state, save_render_state,
 )
 from pathtracer_gaussiansplatting_tpu_torch.utils.debug import scan_finite
+from pathtracer_gaussiansplatting_tpu_torch.utils.logging import get_logger
 
 CAPTURE_SEED = 13  # the reference engine's mt19937(13)
 
@@ -130,7 +130,7 @@ def _resume_state(state_path, fingerprint, device):
     state = load_render_state(state_path, device)
     old = state["extra"].get("fingerprint")
     if fingerprint is not None and old is not None and old != fingerprint:
-        logging.getLogger(LOGGER_NAME).warning(
+        get_logger().warning(
             "mid-pose state %s was written under a different configuration "
             "(fingerprint %s != %s) — discarding it; the pose starts over",
             state_path, old, fingerprint)

@@ -1,9 +1,9 @@
 """Image output: sRGB encoding, box downscale, JPG/PNG writers.
 
 A copy of ``pathtracer_gaussiansplatting_tpu/data/images.py``
-(``linear_to_srgb``, ``box_downscale``, ``save_jpg``, ``save_png``): that
-module is numpy-only, but importing it runs the JAX package's
-``__init__``, which imports jax. Renders are linear radiance; the writers
+(``linear_to_srgb``, ``srgb_to_linear``, ``box_downscale``, ``save_jpg``,
+``save_png``): that module is numpy-only, but importing it runs the JAX
+package's ``__init__``, which imports jax. Renders are linear radiance; the writers
 apply the sRGB transfer.
 """
 from __future__ import annotations
@@ -17,6 +17,12 @@ def linear_to_srgb(x):
     x = np.clip(np.asarray(x, np.float64), 0.0, 1.0)
     return np.where(x <= 0.0031308, 12.92 * x,
                     1.055 * np.power(x, 1.0 / 2.4) - 0.055)
+
+
+def srgb_to_linear(x):
+    x = np.clip(np.asarray(x, np.float64), 0.0, 1.0)
+    return np.where(x <= 0.04045, x / 12.92,
+                    np.power((x + 0.055) / 1.055, 2.4))
 
 
 def box_downscale(img, divisor: int):

@@ -39,7 +39,6 @@ is differentiable, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-import logging
 import math
 from typing import Tuple
 
@@ -60,6 +59,7 @@ from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import rotmat_cols
 from pathtracer_gaussiansplatting_tpu_torch.ops.safe_math import (
     safe_normalize,
 )
+from pathtracer_gaussiansplatting_tpu_torch.utils.logging import get_logger
 
 # Geometry-only table columns (shadow marches).
 G_OPAC = 9              # [q00, q11, q22, q01, q02, q12, mean (3), opacity]
@@ -300,12 +300,14 @@ def build_grid_accel(scene: GaussianScene, dims=None, max_per_cell: int = 32,
         dims=dims, max_per_cell=max_per_cell, extent_cap=float(cap),
     )
     if stats["clamped_frac"] > 0.05 or stats["dropped_frac"] > 0.05:
-        logging.getLogger(__name__).warning(
+        get_logger().warning(
             "grid_accel truncation: %.1f%% extents clamped (cap %.3g), "
-            "%.1f%% insertions dropped (%.1f%% of occupied cells overflow "
-            "Kc=%d)", 100 * stats["clamped_frac"], cap,
-            100 * stats["dropped_frac"], 100 * stats["overflow_cell_frac"],
-            max_per_cell)
+            "%.1f%% insertions dropped (%.1f%% of occupied cells "
+            "overflow Kc=%d) — raise max_per_cell or radius_percentile "
+            "if fringe coverage matters",
+            100 * stats["clamped_frac"], cap,
+            100 * stats["dropped_frac"],
+            100 * stats["overflow_cell_frac"], max_per_cell)
 
     # Block table: occupancy masks, slot bases, euclidean jumps. Occupied
     # cells are ordered (block, in-block rank), so a block's slots are

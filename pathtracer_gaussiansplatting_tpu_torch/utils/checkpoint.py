@@ -15,7 +15,6 @@ Counterpart of ``pathtracer_gaussiansplatting_tpu/utils/checkpoint.py``:
 from __future__ import annotations
 
 import json
-import logging
 import os
 from typing import Optional
 
@@ -26,8 +25,7 @@ from pathtracer_gaussiansplatting_tpu_torch.core.device import resolve_device
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     SCENE_FIELDS, GaussianScene,
 )
-
-LOGGER_NAME = "gspt"  # the reference's logger (utils/logging.get_logger)
+from pathtracer_gaussiansplatting_tpu_torch.utils.logging import get_logger
 
 
 def _numpy(x) -> np.ndarray:
@@ -111,7 +109,7 @@ class CaptureProgress:
             old_fp = data.get("fingerprint")
             if fingerprint is not None and old_fp is not None \
                     and old_fp != fingerprint:
-                logging.getLogger(LOGGER_NAME).warning(
+                get_logger().warning(
                     "capture journal %s was written under a different "
                     "configuration (fingerprint %s != %s) — discarding "
                     "it; all poses will be re-captured",

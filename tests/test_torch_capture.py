@@ -4,7 +4,6 @@ through both packages, the panorama, the mid-pose checkpoints (crash and
 resume, a JAX-written state, fingerprints), the resume journal, and the
 grid that one capture builds once."""
 import json
-import logging
 import os
 
 import numpy as np
@@ -43,7 +42,7 @@ from pathtracer_gaussiansplatting_tpu_torch.utils.checkpoint import (
 )
 
 from torch_parity import (
-    CPU, TORCH_THREADS, assert_image_close, to_torch_scene,
+    CPU, TORCH_THREADS, assert_image_close, gspt_log, to_torch_scene,
 )
 from utils import random_scene
 
@@ -244,7 +243,7 @@ def test_capture_journal_skips_and_fingerprints(cube, tmp_path, monkeypatch,
     assert len(calls) == 2
     tcap.capture_scene_data(ts, out, RenderSettings(**KW), **kw)
     assert len(calls) == 2
-    with caplog.at_level(logging.WARNING, logger="gspt"):
+    with gspt_log(caplog):
         tcap.capture_scene_data(
             ts, out, RenderSettings(**dict(KW, ambient=(0.2, 0.1, 0.1, 1.0))),
             **kw)
@@ -322,7 +321,7 @@ def test_state_with_other_fingerprint_is_discarded(cloud, tmp_path, caplog):
                           torch.tensor([0, 13]), extra=dict(fingerprint="a"))
 
     poison()
-    with caplog.at_level(logging.WARNING, logger="gspt"):
+    with gspt_log(caplog):
         got = render(c2w, 16, 16, 45.0, state_path=state, checkpoint_every=2,
                      fingerprint="b")
     assert "different configuration" in caplog.text

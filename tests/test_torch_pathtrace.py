@@ -135,6 +135,46 @@ def test_thin_surfel_divergence_grows_with_depth():
     assert shares[0] <= 0.02 and shares[1] <= 0.10
 
 
+def test_glass_paths_past_opaque_depth_match():
+    """The bench's depth-12 shape, cut to depth 8 with opaque_depth 2, on
+    the surface scene lit by its emissive panel: past opaque_depth only
+    glass-first paths bounce on, so going from depth 2 to depth 8 changes
+    some pixels but not most. Held to the JAX package with the thin-surfel
+    test's deep gates."""
+    from pathtracer_gaussiansplatting_tpu.core.camera import (
+        Camera as JCamera, look_at as j_look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu.models.scene import (
+        surface_scene as j_surface_scene,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, look_at,
+    )
+
+    js = j_surface_scene(2000, seed=13)
+    ts = to_torch_scene(js)
+    eye, target = (0.0, 0.2, 1.7), (0.0, -0.4, -0.5)
+    jr = j_generate_rays(JCamera(c2w=j_look_at(eye, target), fov_y_deg=60.0,
+                                 width=W, height=H))
+    tr = generate_rays(Camera(c2w=look_at(eye, target, device=CPU),
+                              fov_y_deg=60.0, width=W, height=H))
+    kw = dict(max_depth=8, opaque_depth=2, ambient=(0.05, 0.05, 0.06, 1.0))
+    want = jpt.pathtrace(js, jr, JRenderSettings(**kw),
+                         jax.random.PRNGKey(13))
+    got = tpt.pathtrace(ts, tr, RenderSettings(**kw), trng.prng_key(13))
+    share = share_outside(got, want, RTOL, ATOL)
+    mean_abs = float(np.abs(np_of(got) - np_of(want)).mean())
+    print(f"surface scene, depth 8, opaque_depth 2: {share:.4%} of pixels "
+          f"outside, mean abs diff {mean_abs:.3e}")
+    assert np.isfinite(np_of(got)).all()
+    assert share <= 0.10
+    assert mean_abs <= 0.01 * float(np.asarray(want).mean())
+    shallow = tpt.pathtrace(ts, tr, RenderSettings(**dict(kw, max_depth=2)),
+                            trng.prng_key(13))
+    deeper = float((got != shallow).any(-1).double().mean())
+    assert 0.0 < deeper < 0.5, deeper
+
+
 def test_pathtrace_on_reference_tables(world):
     """The JAX light tables carried across give the same sample as the
     port's own tables."""

@@ -5,7 +5,6 @@ transforms files, the render-state and scene checkpoints, the capture
 journal, scan_finite's message and the debug cube."""
 import collections
 import json
-import logging
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +35,9 @@ from pathtracer_gaussiansplatting_tpu_torch.sampling import strategies as tss
 from pathtracer_gaussiansplatting_tpu_torch.utils import checkpoint as tckpt
 from pathtracer_gaussiansplatting_tpu_torch.utils.debug import scan_finite
 
-from torch_parity import CPU, TORCH_THREADS, np_of, to_torch_scene
+from torch_parity import (
+    CPU, TORCH_THREADS, gspt_log, np_of, to_torch_scene,
+)
 
 torch.set_num_threads(TORCH_THREADS)
 
@@ -254,7 +255,7 @@ def test_capture_journal_fingerprint(tmp_path, caplog):
         done=[0, 2], fingerprint="a")
     assert jckpt.CaptureProgress(path, fingerprint="a").done == {0, 2}
     assert tckpt.CaptureProgress(path, fingerprint="a").is_done(2)
-    with caplog.at_level(logging.WARNING, logger="gspt"):
+    with gspt_log(caplog):
         other = tckpt.CaptureProgress(path, fingerprint="b")
     assert other.done == set() and not other.is_done(2)
     assert "different configuration" in caplog.text

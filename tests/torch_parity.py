@@ -1,6 +1,8 @@
 """Helpers for the port's parity tests: move the JAX package's scenes and
 cameras into the PyTorch port and compare results as numpy arrays."""
+import contextlib
 import dataclasses
+import logging
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     PUNCTUAL_FIELDS, SCENE_FIELDS, GaussianScene, PunctualLights,
     punctual_from_numpy, scene_from_numpy,
 )
+from pathtracer_gaussiansplatting_tpu_torch.utils.logging import get_logger
 
 # tier-1 runs several pytest workers; keep each one's torch pool small
 TORCH_THREADS = 2
@@ -130,3 +133,17 @@ def assert_image_close(got, want, name):
     assert np_of(got).shape == np_of(want).shape
     assert np.isfinite(np_of(got)).all()
     assert share <= MAX_SHARE and mean_abs <= MAX_MEAN_ABS, (share, mean_abs)
+
+
+@contextlib.contextmanager
+def gspt_log(caplog, level=logging.WARNING):
+    """Gathers the ``gspt`` logger's records at ``level`` into caplog. The
+    logger does not propagate to the root logger, where caplog listens
+    (utils/logging.get_logger), so caplog's handler joins it here."""
+    logger = get_logger()
+    with caplog.at_level(level, logger=logger.name):
+        logger.addHandler(caplog.handler)
+        try:
+            yield
+        finally:
+            logger.removeHandler(caplog.handler)
