@@ -153,12 +153,17 @@ are built from the checkout at first use. Then:
            often as the bench's code implies; its wall time; (b) the
            bench's depth-12 workload (pathtrace_camera, opaque_depth 4,
            grid bounces, the surface scene lit by its panel) at 2000
-           Gaussians, 96x64, on the card against the CPU (PT12_MIN_SHARE,
-           PT12_MEAN_FRAC); (c) one depth-12 sample at the bench's 1080p
-           timed and profiled (the march kernels' share once most paths
-           have ended); (d) the bench's dense baseline: one call's wall
-           time, the table's build, the top-K kernel against its plain
-           version and timed beside its cull's counts and its bound.
+           Gaussians, 96x64, and the same sample cut at depth 4, on the
+           card against the CPU on three keys (PT12_MIN_SHARE and
+           PT12_MEAN_FRAC at both depths; what bounces 5-12 add within
+           PT12_EXTRA_REL and PT12_CHANGED_DIFF); (c) one depth-12 sample
+           at the bench's 1080p timed and profiled (the march kernels'
+           share once most paths have ended); (d) the bench's dense
+           baseline: one call's wall time, the table's build, the top-K
+           kernel against its plain version and timed beside its cull's
+           counts and its bound; (e) the bench's headline sample timed as
+           sample_ms is, with Python's garbage collector on and off, beside
+           the card's span by CUDA events and one sample profiled.
 
 Everything the script prints goes to chiprun_out/chip_smoke/log.txt as
 well as to stdout.
@@ -184,6 +189,7 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -287,14 +293,21 @@ VIS_RTOL, VIS_ATOL = 1e-5, 1e-6
 # against the port on the CPU 95.7%). At every depth the mean absolute
 # difference stays under PT_MEAN_FRAC of the image mean.
 PT_MIN_SHARE, PT_DEEP_MIN_SHARE, PT_MEAN_FRAC = 0.99, 0.93, 0.01
-# At the bench's depth 12 (opaque_depth 4; glass-first paths bounce on)
-# the flips compound further: at phase 10b's setting the JAX package
-# against the port on the CPU has 91.31-91.70% of pixels within the
-# tolerance and a mean absolute difference of 0.59-0.92% of the image
-# mean over keys 1-3 (tests/torch_divergence.py), the card against the
-# CPU 93.12% and 1.06% (key 1). The gates sit below them as 6f's sit
-# below depth 4's measurements (ROADMAP section 3).
+# Phase 10b, the bench's depth-12 workload (opaque_depth 4; glass-first
+# paths bounce on) on the panel-lit scene and the grid backend, at depth
+# 12 and cut at depth 4, each of PT12_KEYS: the gates of
+# tests/torch_divergence.py, set from the JAX package against the port on
+# the CPU at this setting. There, on keys 1-3, 92.19-92.77% of pixels are
+# within the tolerance at depth 4 and 91.31-91.70% at depth 12, the mean
+# absolute difference is 0.36-0.43% and 0.59-0.92% of the image mean
+# (ROADMAP section 3). Depth 12 changes only the glass-first pixels over
+# depth 4 (5.49-5.66%), so what bounces 5-12 add, E = I12 - I4, is held on
+# its own: its mean on the card within PT12_EXTRA_REL of the CPU's (the
+# port off the JAX package by 0.004-6.4%), the share of pixels it changes
+# within PT12_CHANGED_DIFF of the CPU's.
 PT12_MIN_SHARE, PT12_MEAN_FRAC = 0.88, 0.02
+PT12_EXTRA_REL, PT12_CHANGED_DIFF = 0.25, 0.01
+PT12_KEYS = (1, 2, 3)
 PT_CHUNK = 65536  # render_pose's ray chunk (part of the random stream)
 # The path-trace bench's camera (bench.py:124-128): eye and target.
 PT_EYE, PT_TARGET = (0.0, 0.2, 1.7), (0.0, -0.4, -0.5)
@@ -3069,27 +3082,9 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
 
 # ---- phase 10: the bench --------------------------------------------------
 
-# The root bench.py's key that has no meaning on this card, and the port's
-# key in its place.
-BENCH_REPLACED = dict(vpu_tslots_per_s="fwd_bound_share")
 # mfu and fwd_bound_share are shares of a peak; the host clock's noise
 # may carry them a little past it, no further.
 BENCH_SHARE_MAX = 1.05
-
-
-def reference_bench_keys() -> list:
-    """The keys of the root bench.py's printed line (bench.py:285-320):
-    the dict its main assigns to ``result``, read from its source."""
-    import ast
-
-    with open(os.path.join(ROOT, "bench.py")) as fh:
-        tree = ast.parse(fh.read())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) \
-                and [getattr(t, "id", None) for t in node.targets] \
-                == ["result"]:
-            return [k.value for k in node.value.keys]
-    raise RuntimeError("chip_smoke: bench.py assigns no result dict")
 
 
 def bench_launches(c) -> dict:
@@ -3097,15 +3092,16 @@ def bench_launches(c) -> dict:
     the headline's warm-up and timed samples, the training steps (one
     forward and one backward each), the depth-4 and depth-12 samples (a
     bounce trace at each depth but the last, a shadow march at each), the
-    two poses' samples, the dense baseline's calls."""
+    poses' samples, the dense baseline's calls."""
     from pathtracer_gaussiansplatting_tpu_torch import bench
 
-    few, pt_iters = max(2, c.iters // 3), max(1, c.iters // 5)
-    pt4 = pt_iters + 1 + 2 * c.pose_spp
-    return dict(fwd=(c.iters + 1) + (few + 1) + pt4 + 3, bwd=few + 1,
-                topk=few + 1,
-                trace=pt4 * (c.pt_depth - 1) + 3 * (bench.PT12_DEPTH - 1),
-                vis=pt4 * c.pt_depth + 3 * bench.PT12_DEPTH)
+    w = bench.WARMUPS
+    pt4 = c.pt_iters + w + (bench.POSE_ITERS + w) * c.pose_spp
+    pt12 = bench.PT12_ITERS + w
+    return dict(fwd=(c.iters + w) + (c.few + w) + pt4 + pt12,
+                bwd=c.few + w, topk=c.few + w,
+                trace=pt4 * (c.pt_depth - 1) + pt12 * (bench.PT12_DEPTH - 1),
+                vis=pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH)
 
 
 def bench_run(cli, tc, gm, dt, card) -> dict:
@@ -3122,7 +3118,8 @@ def bench_run(cli, tc, gm, dt, card) -> dict:
     wall = time.perf_counter() - t0
     counts = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES)
     res = json.loads(lines[-1])
-    want_keys = [BENCH_REPLACED.get(k, k) for k in reference_bench_keys()]
+    want_keys = [bench.REPLACED_KEYS.get(k, k) for k in
+                 bench.reference_bench(os.path.join(ROOT, "bench.py"))[0]]
     check(sorted(res) == sorted(want_keys), f"10a: keys {sorted(res)}, not "
           f"{sorted(want_keys)}")
     for k, v in res.items():
@@ -3156,8 +3153,11 @@ def bench_run(cli, tc, gm, dt, card) -> dict:
 def pt12_card_vs_cpu(dev, card) -> None:
     """10b: the bench's depth-12 workload, pathtrace_camera at max_depth
     12, opaque_depth 4 on the grid backend, on surface_scene(2000) lit by
-    its panel (the glass sphere in view), 96x64, one sample on the card
-    and on the CPU with the same key; the depth-12 gates."""
+    its panel (the glass sphere in view), 96x64, and the same sample cut at
+    depth 4: for each of PT12_KEYS one sample of each on the card and on
+    the CPU with the same key. Both depths within the depth-12 gates; what
+    bounces 5-12 add, E = I12 - I4 (a bounce's draws depend on the key and
+    the depth alone), within PT12_EXTRA_REL and PT12_CHANGED_DIFF."""
     from pathtracer_gaussiansplatting_tpu_torch import bench
     from pathtracer_gaussiansplatting_tpu_torch.core import rng
     from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
@@ -3169,6 +3169,9 @@ def pt12_card_vs_cpu(dev, card) -> None:
     from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
         surface_scene,
     )
+    from pathtracer_gaussiansplatting_tpu_torch.render.grid_trace import (
+        build_grid_accel,
+    )
     from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
         pathtrace_camera,
     )
@@ -3176,25 +3179,58 @@ def pt12_card_vs_cpu(dev, card) -> None:
         make_trace_backend,
     )
 
-    st = RenderSettings(max_depth=bench.PT12_DEPTH,
-                        opaque_depth=bench.PT12_OPAQUE_DEPTH,
-                        ambient=bench.PT_AMBIENT)
-    key = rng.fold_in(rng.prng_key(13), 1)
-    outs, secs = [], []
+    depths = (bench.PT12_OPAQUE_DEPTH, bench.PT12_DEPTH)
+    worlds = {}
     for device in (dev, torch.device("cpu")):
         scene = surface_scene(2000, seed=13, device=device)
         cam = Camera(c2w=look_at(PT_EYE, PT_TARGET, device=device),
                      fov_y_deg=60.0, width=96, height=64)
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            outs.append(pathtrace_camera(
-                scene, cam, st, key,
-                backend=make_trace_backend(scene, st, "grid")).cpu())
-        secs.append(time.perf_counter() - t0)
-    pt_gates("10b", "pathtrace_camera", outs[0], outs[1], PT12_MIN_SHARE,
-             st, "grid backend, 2000 Gaussians, 96x64", PT12_MEAN_FRAC)
-    log(f"phase 10b: one sample {secs[0]:.2f} s on the card, {secs[1]:.2f} s"
-        f" on the CPU, the grid build included ({card})")
+        worlds[device.type] = scene, cam, build_grid_accel(scene)
+    secs = {}
+    for k in PT12_KEYS:
+        key = rng.fold_in(rng.prng_key(13), k)
+        imgs = {}
+        for depth in depths:
+            st = RenderSettings(max_depth=depth,
+                                opaque_depth=bench.PT12_OPAQUE_DEPTH,
+                                ambient=bench.PT_AMBIENT)
+            for where, (scene, cam, accel) in worlds.items():
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    imgs[depth, where] = pathtrace_camera(
+                        scene, cam, st, key,
+                        backend=make_trace_backend(scene, st, "grid",
+                                                   accel=accel)).cpu()
+                secs.setdefault((depth, where), []).append(
+                    time.perf_counter() - t0)
+            pt_gates(f"10b key {k}", "pathtrace_camera", imgs[depth, "cuda"],
+                     imgs[depth, "cpu"], PT12_MIN_SHARE, st,
+                     "grid backend, 2000 Gaussians, 96x64", PT12_MEAN_FRAC)
+        lo, hi = depths
+        changed = {w: float((imgs[hi, w] != imgs[lo, w]).any(-1).double()
+                            .mean()) for w in worlds}
+        e_mean = {w: float((imgs[hi, w].double() - imgs[lo, w]).mean())
+                  for w in worlds}
+        rel = abs(e_mean["cuda"] / e_mean["cpu"] - 1.0)
+        frac = e_mean["cpu"] / float(imgs[hi, "cpu"].double().mean())
+        log(f"phase 10b key {k}: depth {hi} changes {changed['cuda']:.4%} of "
+            f"pixels over depth {lo} on the card, {changed['cpu']:.4%} on "
+            f"the CPU (allowed {PT12_CHANGED_DIFF:.0%} apart); what bounces "
+            f"{lo + 1}-{hi} add, E = I{hi} - I{lo}, has a mean of "
+            f"{e_mean['cuda']:.4e} on the card, {e_mean['cpu']:.4e} on the "
+            f"CPU ({frac:.3%} of the image mean): off by {rel:.3%} "
+            f"(allowed {PT12_EXTRA_REL:.0%})")
+        check(changed["cpu"] > 0.0 and frac > 0.0,
+              f"10b key {k}: depth {hi} adds nothing over depth {lo}")
+        check(abs(changed["cuda"] - changed["cpu"]) <= PT12_CHANGED_DIFF,
+              f"10b key {k}: depth {hi} changes {changed['cuda']:.4%} of "
+              f"pixels on the card, {changed['cpu']:.4%} on the CPU")
+        check(rel <= PT12_EXTRA_REL, f"10b key {k}: E's mean off by "
+              f"{rel:.3%}")
+    log("phase 10b: a sample (s) " + ", ".join(
+        f"depth {d} on the {'card' if w == 'cuda' else 'CPU'} "
+        + "/".join(f"{x:.2f}" for x in v) for (d, w), v in secs.items())
+        + f" ({card})")
 
 
 def pt12_profile(gm, card) -> dict:
@@ -3263,6 +3299,79 @@ def pt12_profile(gm, card) -> dict:
         f"{split['grid_trace'] / launches[0]:.3f} ms, grid_visibility "
         f"{split['grid_visibility'] / launches[1]:.3f} ms ({card})")
     return dict(ms=ms, split=split)
+
+
+class GcClock:
+    """Counts Python's garbage collections by generation and the host time
+    they take, while it is entered."""
+
+    def __enter__(self):
+        self.count, self.ms, self._t0 = [0, 0, 0], 0.0, None
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.count[info["generation"]] += 1
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+
+
+def headline_split(tc, card, repeats: int = 5) -> dict:
+    """10e: the bench's headline sample (render_prepared at its defaults,
+    no jitter) timed as the bench times sample_ms (bench._timed, host
+    clock between fences), ``repeats`` times with Python's garbage
+    collector on and ``repeats`` times with it off, with the collections
+    that ran in the windows and their host time; the card's span a sample
+    by CUDA events; one sample profiled (the forward kernel's device
+    time, every kernel's, the launches). How much of sample_ms is the
+    card's work, and how much the host's."""
+    from pathtracer_gaussiansplatting_tpu_torch import bench
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        prepare_tiles, render_prepared,
+    )
+
+    c = bench.BenchConfig()
+    scene, cam, st, cfg = bench.headline(c, torch.device("cuda", 0))
+    pk = prepare_tiles(scene, cam, st, cfg)
+
+    def sample(i=0):
+        return render_prepared(pk, cam, st, cfg,
+                               outputs=("color", "alpha_acc"))
+
+    host = {}
+    for on in (True, False):
+        if not on:
+            gc.disable()
+        try:
+            with GcClock() as clock:
+                ms = [bench._timed(sample, c.iters)[1] * 1e3
+                      for _ in range(repeats)]
+        finally:
+            gc.enable()
+        host[on] = dict(ms=ms, collections=clock.count, gc_ms=clock.ms)
+    event_ms = cuda_ms(sample, c.iters)
+    objects = len(gc.get_objects())
+    wall = float(np.median(host[True]["ms"]))
+    split = profile_split("phase10e_headline_sample", sample, wall, card,
+                          dict(tile_composite_fwd="tile_composite_fwd_"
+                               "kernel"), op_ranges={})
+    busy = sum(split.values())
+    log(f"phase 10e: headline sample (bench defaults, {c.iters} samples a "
+        f"window, host clock as sample_ms): gc on "
+        + ", ".join(f"{x:.4f}" for x in host[True]["ms"])
+        + f" ms ({host[True]['collections']} collections by generation, "
+        f"{host[True]['gc_ms']:.2f} ms in them over {repeats} windows); gc "
+        f"off " + ", ".join(f"{x:.4f}" for x in host[False]["ms"])
+        + f" ms; {objects} Python objects tracked; the card's span "
+        f"{event_ms:.4f} ms a sample (CUDA events, {c.iters} back to back); "
+        f"device busy {busy:.4f} ms a sample, the forward kernel "
+        f"{split['tile_composite_fwd']:.4f} ms ({card})")
+    return dict(host=host, event_ms=event_ms, busy_ms=busy, split=split)
 
 
 def dense_baseline_split(dt, card) -> None:
@@ -3708,6 +3817,7 @@ def main() -> int:
     pt12_card_vs_cpu(dev, card)
     pt12_profile(gm, card)
     dense_baseline_split(dt, card)
+    headline_split(tc, card)
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
     check("jax" not in sys.modules, "jax was imported")

@@ -34,6 +34,7 @@ root ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+import ast
 import dataclasses
 import json
 import os
@@ -112,8 +113,8 @@ FWD_PAIR_FLOPS, BWD_PAIR_FLOPS = 66, 230
 PAIR_EVAL_FLOPS, PAIR_COMPOSITE_FLOPS, BWD_LIVE_PAIR_FLOPS = 33, 33, 112
 
 # The samples a pose renders in the reference's capture: pose_s is scaled
-# to it.
-POSE_SPP_FULL = 512
+# to it. The pose's field of view (bench.py:279).
+POSE_SPP_FULL, POSE_FOV = 512, 45.0
 # The depth-12 workload (raygen_camera.rgen:47-64): glass-first paths
 # alone run past opaque_depth.
 PT12_DEPTH, PT12_OPAQUE_DEPTH = 12, 4
@@ -121,6 +122,13 @@ PT_AMBIENT = (0.05, 0.05, 0.06, 1.0)
 # The dense baseline's list a ray: the root bench's min(K, 256), capped at
 # the longest list the top-K kernel keeps (dense_trace.MAX_K).
 DENSE_MAX_K = min(256, dense_trace.MAX_K)
+# Timed calls: one warm-up before each timed section; the depth-12 samples
+# and the capture poses timed (bench.py:250, 280). The other sections'
+# counts follow BenchConfig.iters (BenchConfig.few, BenchConfig.pt_iters).
+WARMUPS, PT12_ITERS, POSE_ITERS = 1, 2, 1
+# The root bench.py's key with no meaning on the card, and the port's key
+# in its place.
+REPLACED_KEYS = dict(vpu_tslots_per_s="fwd_bound_share")
 
 
 # ---- bounds: the least time the card could take for a kernel's work ----
@@ -249,8 +257,8 @@ def card_line(index: int = 0) -> str:
 @dataclasses.dataclass(frozen=True)
 class BenchConfig:
     """The bench's sizes; the defaults are the root bench.py's. Each field
-    but the pose's size and field of view has a ``GSPT_BENCH_<FIELD>``
-    variable (see :meth:`from_env`)."""
+    but the pose's size has a ``GSPT_BENCH_<FIELD>`` variable (see
+    :meth:`from_env`)."""
 
     n: int = 1_000_000          # headline Gaussians
     res: int = 800              # headline width and height
@@ -266,7 +274,6 @@ class BenchConfig:
     pose_spp: int = 16          # real samples of the capture pose
     pose_width: int = 800       # bench.py:276-279, no variable
     pose_height: int = 800
-    pose_fov: float = 45.0
 
     ENV_FIELDS = ("n", "res", "iters", "k", "spp", "pt_n", "pt_w", "pt_h",
                   "pt_depth", "pt12_w", "pt12_h", "pose_spp")
@@ -283,12 +290,57 @@ class BenchConfig:
         kw.setdefault("pt12_h", kw.get("pt_h", cls.pt_h))
         return cls(**kw)
 
+    @property
+    def few(self) -> int:
+        """Timed binnings, training steps and dense baseline calls."""
+        return max(2, self.iters // 3)
+
+    @property
+    def pt_iters(self) -> int:
+        """Timed depth-4 path-trace samples."""
+        return max(1, self.iters // 5)
+
+
+def reference_bench(path: str):
+    """(the result keys, {GSPT_BENCH_* variable: its default's expression})
+    of the root bench.py at ``path``, read from its source (not imported:
+    it imports the JAX package)."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    keys, env = None, {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) \
+                and [getattr(t, "id", None) for t in node.targets] \
+                == ["result"]:
+            keys = [k.value for k in node.value.keys]
+        if isinstance(node, ast.Call) and ast.unparse(node.func) \
+                == "os.environ.get" and isinstance(node.args[0], ast.Constant) \
+                and node.args[0].value.startswith("GSPT_BENCH_"):
+            env[node.args[0].value] = node.args[1]
+    if keys is None:
+        raise RuntimeError(f"{path} assigns no result dict")
+    return keys, env
+
+
+def headline(config: BenchConfig, device):
+    """The headline's world on ``device``: (scene, camera, settings,
+    binning config). A sample is ``render_prepared(prepare_tiles(...), cam,
+    settings, cfg, outputs=("color", "alpha_acc"))``, with no jitter
+    (bench.py:78)."""
+    scene = random_cloud(config.n, seed=13, spread=1.5, device=device)
+    cam = Camera(c2w=look_at((0.0, 0.5, 4.0), (0.0, 0.0, 0.0),
+                             device=device),
+                 fov_y_deg=50.0, width=config.res, height=config.res)
+    return (scene, cam, RenderSettings(background=(0.1, 0.2, 0.3)),
+            BinningConfig(max_per_tile=config.k))
+
 
 def _timed(fn, iters: int):
     """(the last result, mean seconds a call) of fn(1) .. fn(iters) on the
-    host clock, after the warm-up fn(0); fenced before the clock starts,
-    so that no earlier work bleeds in, and before it stops."""
-    fence(fn(0))
+    host clock, after the WARMUPS warm-up fn(0); fenced before the clock
+    starts, so that no earlier work bleeds in, and before it stops."""
+    for _ in range(WARMUPS):
+        fence(fn(0))
     t0 = time.perf_counter()
     for i in range(1, iters + 1):
         out = fn(i)
@@ -305,16 +357,11 @@ def run(config: BenchConfig, device=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rays_per_frame = c.res * c.res
-    few = max(2, c.iters // 3)
 
     # ---- headline: per-pose binning, then per-sample forward -------------
-    scene = random_cloud(c.n, seed=13, spread=1.5, device=dev)
-    cam = Camera(c2w=look_at((0.0, 0.5, 4.0), (0.0, 0.0, 0.0), device=dev),
-                 fov_y_deg=50.0, width=c.res, height=c.res)
-    settings = RenderSettings(background=(0.1, 0.2, 0.3))
-    cfg = BinningConfig(max_per_tile=c.k)
+    scene, cam, settings, cfg = headline(c, dev)
     pk, dt_prep = _timed(lambda i: prepare_tiles(scene, cam, settings, cfg),
-                         few)
+                         c.few)
     _, dt_samp = _timed(lambda i: render_prepared(
         pk, cam, settings, cfg, outputs=("color", "alpha_acc")), c.iters)
     rays_amortized = c.spp * rays_per_frame / (dt_prep + c.spp * dt_samp)
@@ -327,7 +374,7 @@ def run(config: BenchConfig, device=None) -> dict:
         loss = torch.mean(o["color"] ** 2)
         return loss.detach(), torch.autograd.grad(loss, means)[0]
 
-    _, dt_fb = _timed(fwd_bwd, few)
+    _, dt_fb = _timed(fwd_bwd, c.few)
     del means
 
     # ---- path tracing: the surface scene on the grid backend ---------------
@@ -351,13 +398,14 @@ def run(config: BenchConfig, device=None) -> dict:
 
     with torch.no_grad():
         _, dt_pt = _timed(camera_samples(pt_cam, pt_settings),
-                          max(1, c.iters // 5))
+                          c.pt_iters)
         pt12_settings = RenderSettings(max_depth=PT12_DEPTH,
                                        opaque_depth=PT12_OPAQUE_DEPTH,
                                        ambient=PT_AMBIENT)
         pt12_cam = Camera(c2w=pt_c2w, fov_y_deg=60.0, width=c.pt12_w,
                           height=c.pt12_h)
-        _, dt_pt12 = _timed(camera_samples(pt12_cam, pt12_settings), 2)
+        _, dt_pt12 = _timed(camera_samples(pt12_cam, pt12_settings),
+                            PT12_ITERS)
 
         # ---- one capture pose, scaled to 512 spp ---------------------------
         pose_render = make_tiled_pose_renderer(
@@ -365,7 +413,7 @@ def run(config: BenchConfig, device=None) -> dict:
             bounce_backend="grid", accel=pt_accel)
         c2w_pose = toroidal_c2w(123.0, 20.0, 2.5, 0.3, device=dev)
         _, dt_pose = _timed(lambda i: pose_render(
-            c2w_pose, c.pose_width, c.pose_height, c.pose_fov), 1)
+            c2w_pose, c.pose_width, c.pose_height, POSE_FOV), POSE_ITERS)
     pose_s_512 = dt_pose * POSE_SPP_FULL / c.pose_spp
     del pt_scene, pt_accel, pose_render
 
@@ -379,7 +427,7 @@ def run(config: BenchConfig, device=None) -> dict:
     dense_settings = RenderSettings(max_contribs=min(c.k, DENSE_MAX_K),
                                     background=settings.background)
     _, dt_dense = _timed(lambda i: render_radiance_dense(
-        base_scene, sub, dense_settings), few)
+        base_scene, sub, dense_settings), c.few)
     rays_dense_at_n = (sub.num_rays / dt_dense) * (n_base / c.n)
 
     # ---- the forward's function bound on the headline packets --------------
@@ -414,9 +462,10 @@ def run(config: BenchConfig, device=None) -> dict:
                               f"{PT12_OPAQUE_DEPTH} (raygen_camera.rgen:"
                               "47-64 adaptive; glass sphere in scene), one "
                               "pathtrace_camera call a sample (no ray "
-                              "chunks), mean of 2 samples after 1 warm-up",
+                              f"chunks), mean of {PT12_ITERS} samples after "
+                              f"{WARMUPS} warm-up",
         "pose_s": pose_s_512,
-        "pose_config": f"{c.pose_width}x{c.pose_height} fov {c.pose_fov} "
+        "pose_config": f"{c.pose_width}x{c.pose_height} fov {POSE_FOV} "
                        f"depth-{c.pt_depth} capture pose, {POSE_SPP_FULL} "
                        f"spp (measured {c.pose_spp} real spp through "
                        "make_tiled_pose_renderer, grid bounces, one warm "
@@ -434,7 +483,17 @@ def run(config: BenchConfig, device=None) -> dict:
                          "fwd_bound_share = max(flops / 67e12, bytes / "
                          f"3.35e12) / sample_ms, bound by "
                          f"{fwd_bound['bound_by']}; sample_ms also holds "
-                         "the ray directions and the untile",
+                         "the ray directions and the untile, and at "
+                         f"{c.iters} samples of about a millisecond it moves "
+                         "with the host's launch time; vs_baseline and "
+                         "dense_baseline_rays_per_s_scaled divide by "
+                         "render_radiance_dense at a list of "
+                         f"{dense_settings.max_contribs} a ray (the top-K "
+                         "kernel's cap; the root bench keeps "
+                         f"{min(c.k, 256)}), whose top-K kernel runs its "
+                         "worst case on these few rays (ROADMAP section 2), "
+                         "so they are not comparable with the root "
+                         "bench's",
         "dense_baseline_rays_per_s_scaled": round(rays_dense_at_n),
         "device": card_line(dev.index or 0) if dev.type == "cuda"
         else str(dev),

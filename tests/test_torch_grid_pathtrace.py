@@ -21,6 +21,7 @@ from pathtracer_gaussiansplatting_tpu_torch.render import grid_trace as tgt
 from pathtracer_gaussiansplatting_tpu_torch.render import pathtrace as tpt
 from pathtracer_gaussiansplatting_tpu_torch.render import pipeline as tpipe
 
+import torch_divergence as div
 from torch_parity import (
     CPU, TORCH_THREADS, np_of, share_outside, to_torch_key, to_torch_scene,
 )
@@ -59,6 +60,30 @@ def test_pathtrace_grid_backend_matches():
     # package (test_torch_grid_trace.py: XLA's FMAs); a few may flip a
     # Gaussian at a cutoff and take another path (ROADMAP section 3).
     assert share <= 0.05 and mean_abs <= 1e-3, (share, mean_abs)
+
+
+def test_bench_depth12_matches():
+    """chip_smoke.py phase 10b's setting, the bench's depth-12 workload
+    (pathtrace_camera, max_depth 12, opaque_depth 4, the grid backend, the
+    2000-Gaussian surface scene lit by its panel, 96x64), and the same
+    sample cut at depth 4, against the JAX package (key 1 of
+    tests/torch_divergence.py): both depths within its gates; depth 12
+    changes the glass-first pixels alone, as many as in the JAX package,
+    and what bounces 5-12 add, E = I12 - I4, has the JAX package's mean."""
+    imgs = div.images((1,))
+    for depth in div.DEPTHS:
+        got, want = imgs[depth, 1]
+        c = div.compare(got, want)
+        print(f"depth {depth}: {c}")
+        assert np.isfinite(got).all() and got.shape == (64 * 96, 3)
+        assert c["within"] >= div.MIN_SHARE, (depth, c)
+        assert c["mean_frac"] <= div.MAX_MEAN_FRAC, (depth, c)
+    e = div.extra(imgs[12, 1][0], imgs[4, 1][0], imgs[12, 1][1],
+                  imgs[4, 1][1])
+    print(e)
+    assert 0.0 < e["changed_ref"] < 0.5 and e["frac_ref"] > 0.01, e
+    assert abs(e["changed"] - e["changed_ref"]) <= div.CHANGED_DIFF, e
+    assert e["rel"] <= div.EXTRA_REL, e
 
 
 def test_grid_pose_renderer_runs():

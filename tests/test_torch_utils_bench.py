@@ -36,9 +36,6 @@ from torch_parity import CPU, TORCH_THREADS, gspt_log, to_torch_scene
 torch.set_num_threads(TORCH_THREADS)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# The root bench.py's key with no meaning on the card, and the port's key
-# in its place.
-REPLACED = dict(vpu_tslots_per_s="fwd_bound_share")
 # A tiny bench: every workload at a few hundred to a thousand rays.
 TINY = bench.BenchConfig(n=2000, res=32, iters=2, k=32, spp=4, pt_n=2000,
                          pt_w=32, pt_h=24, pt_depth=2, pt12_w=32, pt12_h=24,
@@ -46,21 +43,8 @@ TINY = bench.BenchConfig(n=2000, res=32, iters=2, k=32, spp=4, pt_n=2000,
 
 
 def reference_bench():
-    """(the root bench.py's result keys, {variable: default expression})
-    read from its source."""
-    with open(os.path.join(ROOT, "bench.py")) as fh:
-        tree = ast.parse(fh.read())
-    keys, env = None, {}
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict) \
-                and [getattr(t, "id", None) for t in node.targets] \
-                == ["result"]:
-            keys = [k.value for k in node.value.keys]
-        if isinstance(node, ast.Call) and ast.unparse(node.func) \
-                == "os.environ.get" and isinstance(node.args[0], ast.Constant) \
-                and node.args[0].value.startswith("GSPT_BENCH_"):
-            env[node.args[0].value] = node.args[1]
-    return keys, env
+    """(the root bench.py's result keys, {variable: default expression})."""
+    return bench.reference_bench(os.path.join(ROOT, "bench.py"))
 
 
 # ---- utils/logging and utils/profiling against the JAX package ----------
@@ -209,7 +193,7 @@ def test_grid_truncation_warning_matches(caplog):
 def test_bench_run_tiny():
     keys, _ = reference_bench()
     res = bench.run(TINY, device=CPU)
-    assert sorted(res) == sorted(REPLACED.get(k, k) for k in keys)
+    assert sorted(res) == sorted(bench.REPLACED_KEYS.get(k, k) for k in keys)
     numbers = {k: v for k, v in res.items() if isinstance(v, (int, float))}
     assert len(numbers) == len(res) - 7   # the strings: metric, unit,
     # the three configs, the note and the device
@@ -241,7 +225,7 @@ def test_bench_config_from_env(monkeypatch):
         want = expr.value if isinstance(expr, ast.Constant) \
             else getattr(default, expr.id)
         assert getattr(default, field) == want, var
-    assert (default.pose_width, default.pose_height, default.pose_fov) == \
+    assert (default.pose_width, default.pose_height, bench.POSE_FOV) == \
         (800, 800, 45.0)
     for k in list(os.environ):
         if k.startswith("GSPT_BENCH_"):
