@@ -163,7 +163,28 @@ are built from the checkout at first use. Then:
            kernel against its plain version and timed beside its cull's
            counts and its bound; (e) the bench's headline sample timed as
            sample_ms is, with Python's garbage collector on and off, beside
-           the card's span by CUDA events and one sample profiled.
+           the card's span by CUDA events and one sample profiled;
+  phase 11 the (rays, gauss) mesh and the spatial slab ring
+           (pathtracer_gaussiansplatting_tpu_torch/parallel/) on a world of
+           one: parallel.mesh.initialize_multihost() with no rendezvous
+           (NCCL for CUDA tensors, gloo for CPU ones), make_mesh((1, 1)) on
+           the card and on the CPU; (a) render_spatial over
+           random_cloud(2M, seed 13, spread 2) in one slab on a 64x64 tile
+           of a 3840x2160 frame, K=64, forward and backward to
+           opacity_logits (ms, peak memory, the top-K kernel's launches),
+           against the same ring over the plain top-K on 256 rays; (b)
+           pathtrace_camera through make_trace_backend(..., "spatial",
+           accel=mesh) on phase 5's scene and pose, 4 samples, beside 5d's
+           dense tiled sample, and the card against the CPU at 2000
+           Gaussians with 5b's gates; (c) build_slab_accels on
+           surface_scene(500k) in one slab, trace_spatial and
+           visibility_spatial on 6b's chunks against trace_grid and
+           visibility_grid on the same tables (SLAB_EXACT_ATOL); (d)
+           render_dense_ray_sharded (bit-equal) and ring_topk_radiance
+           (RING_RTOL / RING_ATOL) against render_radiance_dense on the
+           headline cloud's first 50k Gaussians and 65536 rays, K=64, and
+           fit_scene(mesh=) against fit_scene, 8 steps with deterministic
+           kernels, equal losses. The group is destroyed at the end.
 
 Everything the script prints goes to chiprun_out/chip_smoke/log.txt as
 well as to stdout.
@@ -3427,6 +3448,509 @@ def dense_baseline_split(dt, card) -> None:
         f"{bnd['function_bound_ms']:.4f} ms ({card})")
 
 
+# ---- phase 11: the (rays, gauss) mesh and the spatial slab ring -----------
+
+# 11a: BASELINE config #5's slab at full size, a 64x64 tile of a 4K frame
+# (tests/test_spatial.py:283's smoke at the size it names).
+SPATIAL_N, SPATIAL_TILE, SPATIAL_K = 2_000_000, 64, 64
+SPATIAL_FRAME = (3840, 2160)
+SPATIAL_SUBSET = 256  # rays held to the plain version
+# 11b: phase 5's scene and pose; 11c: phase 6's scene and 6b's chunks;
+# 11d: the headline cloud's first SHARD_N Gaussians and SHARD_RAYS rays of
+# its camera.
+BACKEND_N, BACKEND_RES, BACKEND_SPP = 50_000, 800, 4
+SLAB_GRID_N, SLAB_GRID_FRAME, SLAB_CHUNK = 500_000, (1920, 1080), 65536
+SHARD_CLOUD, SHARD_N, SHARD_RAYS, SHARD_RES = 1_000_000, 50_000, 65536, 800
+# The ring's composite on the card against the same composite over the
+# plain top-K (which the kernel equals bit for bit), and ring_topk_radiance
+# against render_radiance_dense: the same pairs summed in the same order,
+# up to the merge's gathers.
+RING_RTOL, RING_ATOL = 1e-5, 1e-6
+# 11c: at S = 1 each fold is 0 + 1 x (or 1 + 1 (x - 1) for the
+# transmittance), so the ring equals the single-device march within this.
+SLAB_EXACT_ATOL = 1e-6
+FIT_STEPS_11 = 8
+# Losses of fit_scene(mesh=) against fit_scene at world size 1, both with
+# deterministic kernels: the all-reduce over one rank changes nothing.
+FIT_LOSS_RTOL = 1e-6
+
+
+class PlainTopK:
+    """Swaps dense_trace.dense_topk for its plain version (on the same
+    tensors, on the card) while in use: the plain composite of a path."""
+
+    def __init__(self, dt):
+        self.dt, self.orig = dt, dt.dense_topk
+
+    def __enter__(self):
+        dt = self.dt
+
+        def plain(origins, dirs, table, k, settings, sort_depths=None,
+                  active=None):
+            rows = table.rows if isinstance(table, dt.DenseTable) else table
+            return dt.dense_topk_plain(origins, dirs, rows, k, settings,
+                                       sort_depths, active)
+
+        dt.dense_topk = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.dt.dense_topk = self.orig
+        return False
+
+
+def mesh_setup(card):
+    """Phase 11's process group and meshes: initialize_multihost() with no
+    rendezvous (a world of one on a file store, NCCL for CUDA tensors and
+    gloo for CPU ones), the (1, 1) mesh on the card and one on the CPU;
+    one all-reduce over each axis group on each."""
+    import torch.distributed as dist
+
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import mesh as pm
+
+    rank = pm.initialize_multihost()
+    backend = dist.get_backend()
+    check(rank == 0 and dist.get_world_size() == 1 and "nccl" in backend,
+          f"11: rank {rank}, world {dist.get_world_size()}, backend "
+          f"{backend}")
+    mesh, mesh_cpu = pm.make_mesh((1, 1)), pm.make_mesh((1, 1), device="cpu")
+    for m, dev in ((mesh, "cuda"), (mesh_cpu, "cpu")):
+        for axis in (pm.RAY_AXIS, pm.GAUSS_AXIS):
+            x = torch.arange(4.0, device=dev)
+            dist.all_reduce(x, group=m.get_group(axis))
+            check(torch.equal(x.cpu(), torch.arange(4.0)),
+                  f"11: all_reduce over {axis} on {dev}")
+    log(f"phase 11: initialize_multihost -> rank {rank} of "
+        f"{dist.get_world_size()}, backend '{backend}'; meshes {mesh} and "
+        f"{mesh_cpu}; an all_reduce over each axis group on CUDA (NCCL) and "
+        f"CPU (gloo) tensors ({card})")
+    return mesh, mesh_cpu
+
+
+def spatial_2m(dt, mesh, dev, card) -> dict:
+    """11a: render_spatial on a 64x64 tile of a 4K frame over
+    random_cloud(2M, seed 13, spread 2) in one slab, K=64: forward, then
+    forward and backward to opacity_logits; the ring's composite on the
+    card against the plain top-K's on SPATIAL_SUBSET rays."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, generate_rays, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        Rays, RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        random_cloud,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import mesh as pm
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import spatial
+
+    t0 = time.perf_counter()
+    scene = random_cloud(SPATIAL_N, seed=13, spread=2.0, device=dev)
+    slabbed, _ = spatial.partition_slabs(scene, 1)
+    del scene
+    block = pm.shard_scene(slabbed, mesh)
+    w, h = SPATIAL_FRAME
+    cam = Camera(c2w=look_at((0.0, 0.5, 6.0), (0.0, 0.0, 0.0), device=dev),
+                 fov_y_deg=50.0, width=w, height=h)
+    full = generate_rays(cam)
+    rows = torch.arange(h // 2 - SPATIAL_TILE // 2,
+                        h // 2 + SPATIAL_TILE // 2, device=full.origins.device)
+    cols = torch.arange(w // 2 - SPATIAL_TILE // 2,
+                        w // 2 + SPATIAL_TILE // 2, device=rows.device)
+    sel = (rows[:, None] * w + cols[None]).reshape(-1)
+    rays = pm.shard_rays(Rays(full.origins[sel].contiguous(),
+                              full.directions[sel].contiguous()), mesh,
+                         spatial.spatial_sharding(mesh))
+    del full
+    settings = RenderSettings(max_contribs=SPATIAL_K)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    dt.TOPK_LAUNCHES = 0
+    with torch.no_grad(), HostTimer(dt, "dense_topk") as k1:
+        out, fwd_ms = host_ms(lambda: spatial.render_spatial(
+            block, rays, settings, mesh))
+    fwd_launches = dt.TOPK_LAUNCHES
+    logits = block.opacity_logits.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        img = spatial.render_spatial(block.replace(opacity_logits=logits),
+                                     rays, settings, mesh)
+        torch.mean(img ** 2).backward()
+        return img
+
+    img, grad_ms = host_ms(fwd_bwd)
+    launches = dt.TOPK_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(fwd_launches == 2 and launches == 4,
+          f"11a: dense_topk launched {fwd_launches} / {launches} times, not "
+          f"2 a call (forward and reverse keys)")
+    check(tuple(out.shape) == (SPATIAL_TILE ** 2, 3)
+          and bool(torch.isfinite(out).all()), "11a: radiance not finite")
+    compare(img.detach(), out, "11a forward under grad (t and alpha "
+            "recomputed in torch) vs the kernel's", rtol=RING_RTOL,
+            atol=RING_ATOL)
+    g = logits.grad
+    check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+          "11a: opacity gradient not finite or all zero")
+    sub = Rays(rays.origins[:SPATIAL_SUBSET], rays.directions[:SPATIAL_SUBSET])
+    with torch.no_grad():
+        got = spatial.render_spatial(block, sub, settings, mesh)
+        with PlainTopK(dt):
+            want = spatial.render_spatial(block, sub, settings, mesh)
+    err = compare(got, want, "11a render_spatial vs plain top-K",
+                  rtol=RING_RTOL, atol=RING_ATOL)
+    log(f"phase 11a: render_spatial, random_cloud({SPATIAL_N}) in 1 slab, a "
+        f"{SPATIAL_TILE}x{SPATIAL_TILE} tile of {w}x{h} "
+        f"({SPATIAL_TILE ** 2} rays), K={SPATIAL_K}: forward {fwd_ms:.1f} ms "
+        f"(dense_topk {k1.ms[0]:.1f} ms with the forward key, no ray "
+        f"active, and {k1.ms[1]:.1f} ms with the reverse key), forward + "
+        f"backward to opacity_logits {grad_ms:.1f} ms (host clock, "
+        f"synchronized); dense_topk launches {launches} (2 a call); peak "
+        f"memory {peak:.2f} GiB; setup {setup_s:.1f} s; radiance mean "
+        f"{float(out.mean()):.5f}, |grad| max {float(g.abs().max()):.3e}, "
+        f"{int((g != 0).sum())} Gaussians with a gradient ({card})")
+    log(f"phase 11a: card vs plain top-K on {SPATIAL_SUBSET} rays: max abs "
+        f"err {err:.3e} (rtol {RING_RTOL}, atol {RING_ATOL})")
+    return dict(launches=launches, fwd_ms=fwd_ms, grad_ms=grad_ms,
+                peak_gib=peak)
+
+
+def spatial_backend_route(tc, dt, mesh, settings, dev, card,
+                          dense_ms: float) -> dict:
+    """11b: pathtrace_camera through make_trace_backend(slabbed, settings,
+    "spatial", accel=mesh) on phase 5's scene (surface_scene(50k) and its
+    point light, 800x800, depth 4), spp samples, beside phase 5d's dense
+    tiled sample."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
+        BinningConfig,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import spatial
+    from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
+        accumulate, pathtrace_camera,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.pipeline import (
+        make_trace_backend,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        prepare_tiles,
+    )
+
+    spp = BACKEND_SPP
+    scene, light, cam = pt_world(BACKEND_N, BACKEND_RES, BACKEND_RES, dev)
+    slabbed, _ = spatial.partition_slabs(scene, 1)
+    del scene
+    backend = make_trace_backend(slabbed, settings, "spatial", accel=mesh)
+    cfg = BinningConfig()
+    key = rng.prng_key(13)
+    packets = prepare_tiles(slabbed, cam, settings, cfg)
+    acc = torch.zeros((cam.height * cam.width, 3), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc.LAUNCHES = dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    host, events = [], []
+    for f in range(spp):
+        jit = rng.subpixel_jitter(key, cam.height, cam.width, f, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        img = pathtrace_camera(slabbed, cam, settings, rng.frame_key(key, f),
+                               packets=packets, punctual=light,
+                               backend=backend, config=cfg, jitter=jit)
+        acc = accumulate(acc, img, f)
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    launches = (tc.LAUNCHES, dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per = tuple(x / spp for x in launches)
+    want = (1, 2 * (settings.max_depth - 1), 2 * settings.max_depth)
+    check(per == want, f"11b: launches per sample (tile fwd, dense_topk, "
+          f"dense_visibility) {per}, not {want}")
+    out = acc.reshape(cam.height, cam.width, 3).cpu().numpy()
+    mean = check_pt_image(out, settings, "11b")
+    from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+
+    jpg = os.path.join(OUT_DIR, f"phase11b_spatial_50k_800_{spp}spp.jpg")
+    save_jpg(jpg, out)
+    med_h, med_e = statistics.median(host[1:]), statistics.median(events[1:])
+    log(f"phase 11b: pathtrace_camera, spatial backend (1 slab, (1, 1) "
+        f"mesh), surface_scene(50k) + point light, 800x800, depth 4, {spp} "
+        f"spp: sample ms (host clock) {', '.join(f'{m:.1f}' for m in host)}"
+        f", median of the rest {med_h:.1f}; CUDA events "
+        f"{', '.join(f'{m:.1f}' for m in events)}, median {med_e:.1f}; "
+        f"phase 5d's dense tiled sample {dense_ms:.1f} ms; launches per "
+        f"sample (tile fwd, dense_topk, dense_visibility) {per}; peak memory "
+        f"{peak:.2f} GiB ({card})")
+    log(f"phase 11b: image finite, mean {mean:.5f}; saved "
+        f"{os.path.relpath(jpg, ROOT)}")
+    # One more sample through each backend on the same scene and pose,
+    # profiled: where the spatial backend's time goes beside the dense one.
+    dense = make_trace_backend(slabbed, settings, "dense")
+    jit = rng.subpixel_jitter(key, cam.height, cam.width, 99, device=dev)
+    names = dict(DENSE_PROFILE_NAMES,
+                 tile_composite_fwd="tile_composite_fwd_kernel")
+    for tag, be, wall in (("spatial", backend, med_h),
+                          ("dense", dense, dense_ms)):
+        profile_split(f"phase11b_{tag}_sample", lambda: pathtrace_camera(
+            slabbed, cam, settings, rng.frame_key(key, 99), packets=packets,
+            punctual=light, backend=be, config=cfg, jitter=jit), wall, card,
+            names=names)
+    return dict(launches=launches, host_ms=med_h, event_ms=med_e,
+                peak_gib=peak)
+
+
+def spatial_card_vs_cpu(mesh, mesh_cpu, settings, dev, card) -> None:
+    """11b's gate: one sample of pathtrace_camera through the spatial
+    backend on the card and on the CPU, 2000 Gaussians, 96x64, the same
+    key, at depth 1 and at the full depth, with 5b's gates."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import spatial
+    from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
+        pathtrace_camera,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.pipeline import (
+        make_trace_backend,
+    )
+
+    for depth, min_share in ((1, PT_MIN_SHARE),
+                             (settings.max_depth, PT_DEEP_MIN_SHARE)):
+        st = dataclasses.replace(settings, max_depth=depth)
+        outs = []
+        for device, m in ((dev, mesh), (torch.device("cpu"), mesh_cpu)):
+            scene, light, cam = pt_world(2000, 96, 64, device)
+            slabbed, _ = spatial.partition_slabs(scene, 1)
+            key = rng.prng_key(13)
+            jit = rng.subpixel_jitter(key, 64, 96, 0, device=device)
+            be = make_trace_backend(slabbed, st, "spatial", accel=m)
+            outs.append(pathtrace_camera(slabbed, cam, st, key,
+                                         punctual=light, jitter=jit,
+                                         backend=be).cpu())
+        pt_gates("11b", "pathtrace_camera", outs[0], outs[1], min_share, st,
+                 "spatial backend, 2000 Gaussians, 96x64")
+
+
+def grid_slab_checks(gm, gt, mesh, settings, dev, card) -> dict:
+    """11c: surface_scene(500k) in one slab, build_slab_accels(Kc=32);
+    trace_spatial and visibility_spatial on the grid slab against
+    trace_grid and visibility_grid on an accel of the same dims and
+    bounds, on 6b's bounce chunk and shadow chunk (65536 rays each)."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import Rays
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
+        BinningConfig,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import mesh as pm
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import spatial
+    from pathtracer_gaussiansplatting_tpu_torch.tools.grid_march_lanes import (
+        march_chunks,
+    )
+
+    scene = surface_scene(SLAB_GRID_N, seed=13, device=dev)
+    slabbed, _ = spatial.partition_slabs(scene, 1)
+    del scene
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables, meta = spatial.build_slab_accels(slabbed, 1, max_per_cell=32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    local = pm.shard_scene(tables, mesh)
+    one = gt.GridAccel(btab=tables["btab"][0], geom=tables["geom"][0],
+                       packet=tables["packet"][0], lo=tables["lo"][0],
+                       hi=tables["hi"][0], dims=meta.dims,
+                       jump_unit=meta.jump_unit)
+    ref_accel = gt.build_grid_accel(
+        slabbed, dims=meta.dims, max_per_cell=32,
+        bounds=(tables["lo"][0].cpu().numpy(), tables["hi"][0].cpu().numpy()))
+    check(all(torch.equal(getattr(ref_accel, k), getattr(one, k))
+              for k in ("btab", "geom", "packet", "lo", "hi")),
+          "11c: the slab's tables differ from build_grid_accel's on the same "
+          "dims and bounds")
+    cam = Camera(c2w=look_at(PT_EYE, PT_TARGET, device=dev), fov_y_deg=60.0,
+                 width=SLAB_GRID_FRAME[0], height=SLAB_GRID_FRAME[1])
+    chunks = march_chunks(slabbed, cam, settings, BinningConfig(),
+                          n=SLAB_CHUNK)
+    (_, bo, bd, _), (_, so, sd, skw) = chunks[0], chunks[1]
+    rays = Rays(bo, bd)
+    steps = GRID_MAX_STEPS
+    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
+    got = spatial.trace_spatial(slabbed, rays, settings, mesh,
+                                slab_accel=local, accel_meta=meta,
+                                max_steps=steps)
+    vis, frozen_v = spatial.visibility_spatial(
+        slabbed, so, sd, skw["t_end"], settings, mesh, slab_accel=local,
+        accel_meta=meta, max_steps=steps, return_frozen=True)
+    launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
+    check(launches == (1, 1), f"11c: march launches {launches}, not (1, 1)")
+    want = gt.trace_grid(slabbed, rays, settings, ref_accel, max_steps=steps)
+    want_v, frozen_w = gt.visibility_grid(slabbed, ref_accel, so, sd,
+                                          skw["t_end"], settings,
+                                          max_steps=steps, return_frozen=True)
+    errs = {}
+    for k, w in want.items():
+        if k == "frozen_alive":
+            check(int(got[k]) == int(w), f"11c: frozen {int(got[k])} != "
+                  f"{int(w)}")
+        elif k == "hit":
+            check(torch.equal(got[k], w), "11c: hit differs")
+        else:
+            errs[k] = compare(got[k], w, f"11c trace_spatial {k}", rtol=0.0,
+                              atol=SLAB_EXACT_ATOL)
+    errs["vis"] = compare(vis, want_v, "11c visibility_spatial", rtol=0.0,
+                          atol=SLAB_EXACT_ATOL)
+    check(int(frozen_v) == int(frozen_w), "11c: shadow frozen counts differ")
+    trace_ms = cuda_ms(lambda: spatial.trace_spatial(
+        slabbed, rays, settings, mesh, slab_accel=local, accel_meta=meta,
+        max_steps=steps), 3)
+    grid_ms = cuda_ms(lambda: gt.trace_grid(slabbed, rays, settings,
+                                            ref_accel, max_steps=steps), 3)
+    vis_ms = cuda_ms(lambda: spatial.visibility_spatial(
+        slabbed, so, sd, skw["t_end"], settings, mesh, slab_accel=local,
+        accel_meta=meta, max_steps=steps), 3)
+    gvis_ms = cuda_ms(lambda: gt.visibility_grid(
+        slabbed, ref_accel, so, sd, skw["t_end"], settings,
+        max_steps=steps), 3)
+    log(f"phase 11c: build_slab_accels(surface_scene(500k), 1 slab, Kc=32) "
+        f"{build_s:.2f} s, dims {meta.dims}, stats {dict(meta.stats)}; "
+        f"tables equal build_grid_accel's on the same dims and bounds")
+    trace_err = max(v for k, v in errs.items() if k != "vis")
+    log(f"phase 11c: on 6b's chunks ({bo.shape[0]} bounce rays, "
+        f"{so.shape[0]} shadow segments), max_steps {steps}: trace_spatial "
+        f"vs trace_grid max abs err {trace_err:.3e}, visibility_spatial vs visibility_grid {errs['vis']:.3e} "
+        f"(atol {SLAB_EXACT_ATOL}); frozen {int(got['frozen_alive'])} / "
+        f"{int(frozen_v)}, equal; ms (CUDA events, 3 calls): trace_spatial "
+        f"{trace_ms:.3f} (trace_grid {grid_ms:.3f}), visibility_spatial "
+        f"{vis_ms:.3f} (visibility_grid {gvis_ms:.3f}); launches (grid "
+        f"trace, grid visibility) {launches} ({card})")
+    return dict(launches=launches)
+
+
+def sharded_renderers(dt, mesh, dev, card) -> dict:
+    """11d: render_dense_ray_sharded and ring_topk_radiance on the
+    headline cloud's first 50k Gaussians, 65536 rays of the headline
+    camera, K=64, against render_radiance_dense; then fit_scene(mesh=)
+    against fit_scene for FIT_STEPS_11 steps."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, generate_rays, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        SCENE_FIELDS, GaussianScene, Rays, RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        random_cloud,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import mesh as pm
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import shard, train
+    from pathtracer_gaussiansplatting_tpu_torch.render.reference import (
+        render_radiance_dense,
+    )
+
+    cloud = random_cloud(SHARD_CLOUD, seed=13, spread=1.5, device=dev)
+    scene = GaussianScene(**{f: getattr(cloud, f)[:SHARD_N].contiguous()
+                             for f in SCENE_FIELDS})
+    del cloud
+    full = generate_rays(Camera(c2w=look_at((0.0, 0.5, 4.0), (0, 0, 0),
+                                            device=dev),
+                                fov_y_deg=50.0, width=SHARD_RES,
+                                height=SHARD_RES))
+    n_full = SHARD_RES * SHARD_RES
+    sel = torch.arange(0, n_full, n_full // SHARD_RAYS,
+                       device=dev)[:SHARD_RAYS]
+    rays = Rays(full.origins[sel].contiguous(),
+                full.directions[sel].contiguous())
+    settings = RenderSettings(max_contribs=64, background=(0.1, 0.2, 0.3))
+    block = pm.shard_scene(pm.pad_to_multiple(scene, 1), mesh)
+    rays_block = pm.shard_rays(rays, mesh)
+    with torch.no_grad():
+        want = render_radiance_dense(scene, rays, settings)
+        dt.TOPK_LAUNCHES = 0
+        dense = shard.render_dense_ray_sharded(scene, rays, settings, mesh)
+        ring = shard.ring_topk_radiance(block, rays_block, settings, mesh)
+        launches = dt.TOPK_LAUNCHES
+    check(launches == 2, f"11d: dense_topk launches {launches}, not 2")
+    check(torch.equal(pm.gather_rays(dense, mesh), want),
+          "11d: render_dense_ray_sharded not bit-equal to "
+          "render_radiance_dense")
+    err = compare(pm.gather_rays(ring, mesh), want,
+                  "11d ring_topk_radiance", rtol=RING_RTOL, atol=RING_ATOL)
+    with torch.no_grad():
+        dense_ms = cuda_ms(lambda: shard.render_dense_ray_sharded(
+            scene, rays, settings, mesh), 3)
+        ring_ms = cuda_ms(lambda: shard.ring_topk_radiance(
+            block, rays_block, settings, mesh), 3)
+        plain_ms = cuda_ms(lambda: render_radiance_dense(scene, rays,
+                                                         settings), 3)
+    start = scene.replace(sh_coeffs=scene.sh_coeffs + 0.1 * torch.randn(
+        scene.sh_coeffs.shape, generator=torch.Generator().manual_seed(5)
+    ).to(scene.sh_coeffs.device))
+    # The dense gradient's index_put_ accumulates with atomics, in an
+    # order that varies run to run, and Adam turns an ulp into a step of lr
+    # wherever a gradient entry is near 0; deterministic kernels make two
+    # runs of one fit equal, so the mesh's own effect shows.
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        dt.TOPK_LAUNCHES = 0
+        (_, mesh_losses), mesh_ms = host_ms(lambda: train.fit_scene(
+            start, rays, want, settings, steps=FIT_STEPS_11, lr=5e-3,
+            mesh=mesh))
+        fit_launches = dt.TOPK_LAUNCHES
+        (_, losses), one_ms = host_ms(lambda: train.fit_scene(
+            start, rays, want, settings, steps=FIT_STEPS_11, lr=5e-3))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, losses))
+    check(rel <= FIT_LOSS_RTOL, f"11d: fit_scene(mesh=) losses "
+          f"{mesh_losses} vs {losses}")
+    log(f"phase 11d: {SHARD_N} Gaussians of the headline cloud, "
+        f"{rays.num_rays} "
+        f"rays, K=64: render_dense_ray_sharded bit-equal to "
+        f"render_radiance_dense; ring_topk_radiance max abs err {err:.3e} "
+        f"(rtol {RING_RTOL}, atol {RING_ATOL}); ms (CUDA events, 3 calls): "
+        f"dense sharded {dense_ms:.3f}, ring {ring_ms:.3f}, "
+        f"render_radiance_dense {plain_ms:.3f} ({card})")
+    log(f"phase 11d: fit_scene(mesh=(1, 1)) {FIT_STEPS_11} steps, losses "
+        f"{', '.join(f'{x:.6f}' for x in mesh_losses)}; without the mesh "
+        f"max rel diff {rel:.3e} (allowed {FIT_LOSS_RTOL}); step ms "
+        f"{mesh_ms / FIT_STEPS_11:.1f} with the mesh, "
+        f"{one_ms / FIT_STEPS_11:.1f} without (host clock); dense_topk "
+        f"launches {fit_launches} ({card})")
+    return dict(launches=launches + fit_launches)
+
+
+def phase11(tc, dt, gm, gt, pt_settings, dense_ms, dev, card) -> dict:
+    """Phase 11: the mesh, the slab ring and the sharded renderers on a
+    world of one (NCCL); returns the path's launches by kernel."""
+    import torch.distributed as dist
+
+    t11 = time.perf_counter()
+    mesh, mesh_cpu = mesh_setup(card)
+    try:
+        a = spatial_2m(dt, mesh, dev, card)
+        b = spatial_backend_route(tc, dt, mesh, pt_settings, dev, card,
+                                  dense_ms)
+        spatial_card_vs_cpu(mesh, mesh_cpu, dataclasses.replace(
+            pt_settings, rr_start_depth=2, opaque_depth=3), dev, card)
+        c = grid_slab_checks(gm, gt, mesh, pt_settings, dev, card)
+        d = sharded_renderers(dt, mesh, dev, card)
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 11: {time.perf_counter() - t11:.1f} s")
+    return dict(fwd=b["launches"][0],
+                topk=a["launches"] + b["launches"][1] + d["launches"],
+                dense_vis=b["launches"][2], trace=c["launches"][0],
+                vis=c["launches"][1])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3820,6 +4344,9 @@ def main() -> int:
     headline_split(tc, card)
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
+    # ---- phase 11: the mesh and the spatial slab ring -----------------
+    p11 = phase11(tc, dt, gm, gt, pt_settings, tiled["median_ms"], dev, card)
+
     check("jax" not in sys.modules, "jax was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -3852,7 +4379,7 @@ def main() -> int:
         entry("tile_composite_fwd", KERNEL_SOURCE, KERNEL_REPLACES,
               launches_p2 + launches_p3 + launches_p4[0]
               + tiled["launches"][0] + cap_launches["fwd"] + p9["fwd"]
-              + p10["fwd"],
+              + p10["fwd"] + p11["fwd"],
               dict(max_abs_err=max_abs_err, ms=kernel_ms, plain_ms=plain_ms),
               fwd_bound),
         entry("tile_composite_bwd", BWD_KERNEL_SOURCE, BWD_KERNEL_REPLACES,
@@ -3862,10 +4389,10 @@ def main() -> int:
                    ms=bwd["ms"], plain_ms=bwd["plain_ms"]), bwd["bound"]),
         entry("dense_topk", TOPK_SOURCE, TOPK_REPLACES,
               flat["launches"][0] + tiled["launches"][1] + p9["topk"]
-              + p10["topk"], topk, topk),
+              + p10["topk"] + p11["topk"], topk, topk),
         entry("dense_visibility", VIS_SOURCE, VIS_REPLACES,
-              flat["launches"][1] + tiled["launches"][2] + p9["dense_vis"],
-              vis, vis),
+              flat["launches"][1] + tiled["launches"][2] + p9["dense_vis"]
+              + p11["dense_vis"], vis, vis),
         # The listing modes serve visibility_dense's gradient (5e), which
         # no rendering path asks for: their launches are 5e's.
         entry("dense_visibility_pairs", VIS_SOURCE, VIS_REPLACES,
@@ -3875,13 +4402,15 @@ def main() -> int:
               "gradient on the card (0 on the render paths)"),
         entry("grid_trace", GRID_SOURCE, GRID_TRACE_REPLACES,
               g_pt["launches"][0] + g_pose["launches"][0]
-              + cap_launches["trace"] + p9["trace"] + p10["trace"],
+              + cap_launches["trace"] + p9["trace"] + p10["trace"]
+              + p11["trace"],
               dict(g_res[0], max_abs_err=max(g_res[0]["max_abs_err"],
                                              g_res[2]["max_abs_err"])),
               trace_b),
         entry("grid_visibility", GRID_SOURCE, GRID_VIS_REPLACES,
               g_pt["launches"][1] + g_pose["launches"][1]
-              + cap_launches["vis"] + p9["vis"] + p10["vis"], g_res[1],
+              + cap_launches["vis"] + p9["vis"] + p10["vis"] + p11["vis"],
+              g_res[1],
               vis_b),
         entry("tile_composite_variants", VARIANT_SOURCE, VARIANT_REPLACES,
               abl["launches"], abl, abl, launches_in="phase 7: the "

@@ -2,15 +2,22 @@
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/parallel/train.py``
 (``l1_loss``, ``l2_loss``, ``make_optimizer``, ``make_train_step``,
-``make_tiled_train_step``, ``fit_scene``, ``fit_scene_tiled``) on one
-device (the reference's ``mesh=`` is not ported). The dense step renders
-rays through ``render/reference.render_radiance_dense`` (the top-K kernel
-gives the indices, ``selected_peaks`` recomputes t and alpha in torch, so
-the gradient reaches the geometry); the tiled step bins the scene afresh,
-composites every tile through the fused kernel and back through its
-analytic backward (kernels/tile_composite.py). Either takes one Adam step
-on every scene leaf; a leaf with no gradient is not moved, as optax moves
-it by zero.
+``make_tiled_train_step``, ``fit_scene``, ``fit_scene_tiled``). The
+dense step renders rays through ``render/reference.render_radiance_dense``
+(the top-K kernel gives the indices, ``selected_peaks`` recomputes t and
+alpha in torch, so the gradient reaches the geometry); the tiled step
+bins the scene afresh, composites every tile through the fused kernel and
+back through its analytic backward (kernels/tile_composite.py). Either
+takes one Adam step on every scene leaf; a leaf with no gradient is not
+moved, as optax moves it by zero.
+
+With ``mesh=`` (a ``parallel.mesh.make_mesh``), the dense step is data
+parallel over the mesh's rays axis, as the reference's GSPMD step is:
+every rank holds the whole scene and its block of the rays and targets,
+and after the backward each gradient is all-reduced over the rays axis
+and divided by its size. The reference's loss is a mean over all R rays
+and the blocks are equal, so this is its gradient; the step's loss is
+averaged the same way.
 
 The JAX step is a pure function of (scene, opt_state); here the scene is a
 :class:`~pathtracer_gaussiansplatting_tpu_torch.models.scene.SceneParams`
@@ -29,6 +36,9 @@ from pathtracer_gaussiansplatting_tpu_torch.core.types import (
 )
 from pathtracer_gaussiansplatting_tpu_torch.models.scene import SceneParams
 from pathtracer_gaussiansplatting_tpu_torch.ops.binning import BinningConfig
+from pathtracer_gaussiansplatting_tpu_torch.parallel.mesh import (
+    RAY_AXIS, all_reduce_mean, replicate_scene, shard_rays,
+)
 from pathtracer_gaussiansplatting_tpu_torch.render.reference import (
     render_radiance_dense,
 )
@@ -55,7 +65,7 @@ def make_optimizer(lr: float = 1e-3) -> Callable:
 
 def make_train_step(settings: RenderSettings, optimizer: Callable,
                     render_fn: Optional[Callable] = None,
-                    loss_fn: Callable = l2_loss):
+                    loss_fn: Callable = l2_loss, mesh=None):
     """Train step on a batch of rays: step(params, opt_state, rays,
     target) -> (params, opt_state, loss).
 
@@ -63,7 +73,12 @@ def make_train_step(settings: RenderSettings, optimizer: Callable,
     renderer with ``settings``); ``optimizer`` is what
     :func:`make_optimizer` returns, ``params`` a SceneParams and
     ``opt_state`` the optimizer built over its parameters, both updated in
-    place.
+    place. With ``mesh``, ``params`` is the whole scene on every rank,
+    ``rays`` and ``target`` the rank's block under
+    ``mesh.ray_sharding`` (``mesh.shard_rays``), ``render_fn`` renders the
+    block with the whole scene, and the gradients and the loss are
+    averaged over the rays axis (``mesh.all_reduce_mean``), so that every
+    rank takes the same step.
     """
     del optimizer  # opt_state carries it
     if render_fn is None:
@@ -74,8 +89,14 @@ def make_train_step(settings: RenderSettings, optimizer: Callable,
         opt_state.zero_grad(set_to_none=True)
         loss = loss_fn(render_fn(params.scene(), rays), target)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            for p in params.parameters():
+                if p.grad is not None:
+                    all_reduce_mean(p.grad, mesh, RAY_AXIS)
+            all_reduce_mean(loss, mesh, RAY_AXIS)
         opt_state.step()
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step
 
@@ -146,14 +167,22 @@ def fit_scene_tiled(scene: GaussianScene, cameras, targets,
 
 def fit_scene(scene: GaussianScene, rays: Rays, target,
               settings: RenderSettings, steps: int = 100, lr: float = 5e-3,
-              render_fn: Optional[Callable] = None,
+              mesh=None, render_fn: Optional[Callable] = None,
               progress: Optional[Callable] = None):
     """Optimize a scene against target pixels (R, 3) along ``rays``.
-    Returns (scene, losses)."""
+    Returns (scene, losses). With ``mesh``, ``scene``, ``rays`` and
+    ``target`` are the whole arrays on every rank: the scene is replicated,
+    the rays and target split over the rays axis (see
+    :func:`make_train_step`), and every rank returns the same scene."""
+    if mesh is not None:
+        scene = replicate_scene(scene, mesh)
+        rays = shard_rays(rays, mesh)
+        target = shard_rays(torch.as_tensor(target, dtype=torch.float32),
+                            mesh)
     params = SceneParams.from_scene(scene)
     opt = make_optimizer(lr)
     opt_state = opt(params.parameters())
-    step = make_train_step(settings, opt, render_fn=render_fn)
+    step = make_train_step(settings, opt, render_fn=render_fn, mesh=mesh)
     target = torch.as_tensor(target, dtype=torch.float32,
                              device=params.means.device).detach()
     losses = []

@@ -1,12 +1,12 @@
 """Trace backends for the path tracer.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/render/pipeline.py``
-(``AUTO_DENSE_LIMIT``, ``make_trace_backend``). A backend is a
-:class:`TraceBackend`: an explicit pair of calls the bounce loop makes, in
-place of the reference's signature inspection of bare callables. The port
-has the dense backend and the grid backend ("auto" takes grid above
-``AUTO_DENSE_LIMIT`` Gaussians); "spatial" comes with a later slice and
-raises until then.
+(``AUTO_DENSE_LIMIT``, ``make_trace_backend``, ``_spatial_trace``,
+``_spatial_vis``). A backend is a :class:`TraceBackend`: an explicit pair
+of calls the bounce loop makes, in place of the reference's signature
+inspection of bare callables. Three backends: "dense", "grid" ("auto"
+takes grid above ``AUTO_DENSE_LIMIT`` Gaussians) and "spatial", the slab
+ring of ``parallel/spatial.py`` over a (rays, gauss) mesh.
 """
 from __future__ import annotations
 
@@ -17,9 +17,11 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
-    GaussianScene, RenderSettings,
+    GaussianScene, Rays, RenderSettings,
 )
 from pathtracer_gaussiansplatting_tpu_torch.kernels import dense_trace
+from pathtracer_gaussiansplatting_tpu_torch.parallel import mesh as mesh_mod
+from pathtracer_gaussiansplatting_tpu_torch.parallel import spatial
 from pathtracer_gaussiansplatting_tpu_torch.render import grid_trace
 from pathtracer_gaussiansplatting_tpu_torch.render import reference as ref
 
@@ -40,8 +42,9 @@ class TraceBackend:
       soft-shadow transmittance, 1 where ``active`` is false, and the
       number of shadow rays the backend stopped short (always 0 for the
       exact dense backend).
-    name: "dense" or "grid"; accel: the grid backend's GridAccel (None
-      for dense), whose ``stats`` report the binning's truncation.
+    name: "dense", "grid" or "spatial"; accel: the grid backend's
+      GridAccel (None for the others), whose ``stats`` report the
+      binning's truncation.
     """
 
     trace: Callable
@@ -106,14 +109,55 @@ def _grid_vis(accel, max_steps: int, settings: RenderSettings, origins,
                                       active=active, return_frozen=True)
 
 
+def _spatial_trace(mesh, block: GaussianScene, scene: GaussianScene, rays,
+                   settings: RenderSettings, active=None):
+    """The whole batch's interaction through the slab ring: this rank's
+    block of the batch (padded to split evenly) goes round the ring, and
+    the blocks are gathered back. ``active`` is ignored, as in the
+    reference: the slab composite is dense per slab."""
+    del scene, active
+    n = rays.num_rays
+    padded = _pad_rays(mesh, rays.origins, rays.directions)
+    layout = spatial.spatial_sharding(mesh)
+    inter = spatial.trace_spatial(
+        block, mesh_mod.shard_rays(Rays(*padded), mesh, layout), settings,
+        mesh)
+    return {k: v[:n] for k, v in
+            mesh_mod.gather_rays(inter, mesh, layout).items()}
+
+
+def _spatial_vis(mesh, block: GaussianScene, settings: RenderSettings,
+                 origins, dirs, t_end, active=None):
+    """The whole batch's shadow transmittance through the slab ring (as
+    :func:`_spatial_trace`); 1 where ``active`` is false, and a frozen
+    count of 0: the dense slabs are exact."""
+    n = origins.shape[0]
+    layout = spatial.spatial_sharding(mesh)
+    o, d, t = (mesh_mod.shard_rays(x, mesh, layout)
+               for x in _pad_rays(mesh, origins, dirs, t_end))
+    vis = mesh_mod.gather_rays(spatial.visibility_spatial(
+        block, o, d, t, settings, mesh), mesh, layout)[:n]
+    if active is not None:
+        vis = torch.where(active, vis, 1.0)
+    return vis, 0
+
+
+def _pad_rays(mesh, *arrays):
+    """The per-ray arrays padded to a multiple of the mesh's ranks with
+    copies of their first row (cut off again after the gather)."""
+    pad = -arrays[0].shape[0] % mesh.size()
+    return tuple(torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
+                 for x in arrays)
+
+
 def make_trace_backend(scene: GaussianScene, settings: RenderSettings,
                        backend: str = "auto",
                        grid_dims: Optional[Tuple[int, int, int]] = None,
                        max_per_cell: int = 32, max_steps: int = 192,
-                       accel: Optional[grid_trace.GridAccel] = None
-                       ) -> TraceBackend:
+                       accel=None) -> TraceBackend:
     """The TraceBackend named ``backend`` for ``scene``: "dense", "grid",
-    or "auto" (dense up to AUTO_DENSE_LIMIT Gaussians, else grid).
+    "auto" (dense up to AUTO_DENSE_LIMIT Gaussians, else grid) or
+    "spatial".
 
     The dense backend builds the dense kernels' table once here (it
     serves calls with this scene and settings). The grid backend builds
@@ -121,6 +165,15 @@ def make_trace_backend(scene: GaussianScene, settings: RenderSettings,
     ``max_per_cell`` Gaussians a cell) unless ``accel`` gives one, and
     marches at most ``max_steps`` occupied cells a ray; the defaults are
     the reference's.
+
+    "spatial" takes the mesh in the ``accel`` slot (``parallel.mesh
+    .make_mesh``) and ``scene`` as ``parallel.spatial.partition_slabs``
+    returns it, whole, on every rank; it keeps the rank's slab
+    (``mesh.shard_scene``). Its calls take and return the whole batch on
+    every rank, as the reference's global arrays: each rank traces its
+    block of the batch (``spatial.spatial_sharding``) around the ring and
+    the blocks are gathered back, so the bounce loop runs unchanged and
+    draws the same random numbers for every ray.
     """
     if backend == "auto":
         backend = "dense" if scene.num_gaussians <= AUTO_DENSE_LIMIT \
@@ -140,7 +193,13 @@ def make_trace_backend(scene: GaussianScene, settings: RenderSettings,
                                          settings),
             name="grid", accel=accel)
     if backend == "spatial":
-        raise NotImplementedError(
-            "backend 'spatial' is not ported yet: it waits for the "
-            "multi-GPU slab ring (slice F)")
+        mesh = accel  # the mesh rides the accel slot
+        if mesh is None:
+            raise ValueError("backend='spatial' needs accel=<mesh>")
+        block = mesh_mod.shard_scene(scene, mesh)
+        return TraceBackend(
+            trace=functools.partial(_spatial_trace, mesh, block),
+            visibility=functools.partial(_spatial_vis, mesh, block,
+                                         settings),
+            name="spatial")
     raise ValueError(f"unknown backend '{backend}'")

@@ -300,7 +300,7 @@ def test_backend_protocol_and_failures(world):
     assert backend.name == "dense" and backend.accel is None
     grid = tpipe.make_trace_backend(world["ts"], RenderSettings(), "grid")
     assert grid.name == "grid" and grid.accel is not None
-    with pytest.raises(NotImplementedError, match="slice F"):
+    with pytest.raises(ValueError, match="accel=<mesh>"):
         tpipe.make_trace_backend(world["ts"], RenderSettings(), "spatial")
     with pytest.raises(ValueError, match="unknown backend"):
         tpipe.make_trace_backend(world["ts"], RenderSettings(), "bvh")
