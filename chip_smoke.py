@@ -5,9 +5,9 @@ Run from the repository root, on a machine with one CUDA card:
 
     python3 chip_smoke.py    # build, check, render; exit 0 on success
 
-The port's kernels (the fused tile composite forward and backward,
-``pathtracer_gaussiansplatting_tpu_torch/csrc/tile_composite_{fwd,bwd}.cu``)
-are built from the checkout at first use. Then:
+The port's kernels (every ``pathtracer_gaussiansplatting_tpu_torch/csrc/
+*.cu``, one nvcc each, started together) are built from the checkout at
+first use. Then:
 
   phase 1  the forward kernel against its plain PyTorch version on the card,
            at the headline pose's packets (T=2500 tiles, K=256) with
@@ -205,6 +205,18 @@ are built from the checkout at first use. Then:
            card and on the CPU: the captures held to 8b's gates (at depth
            4, DS_MIN_SHARE of the path-traced values), the test poses'
            PSNR and SSIM within DS_PSNR_ATOL and DS_SSIM_ATOL.
+  phase 13 K5, the render RNG (csrc/threefry.cu, one launch a bounce for
+           all its uniforms and one a jittered sample): its launches in
+           each of phases 2-12, every one of them above 0 (5c, 5d, 6d, 6e
+           and 11b exactly once a bounce and a jittered sample); then the
+           kernel against its plain version (core/rng.uniforms_plain,
+           jitter_plain) bit for bit at one 1080p depth-12 bounce
+           (2,073,600 rays, 9 draws, 11 columns), one capture-pose bounce
+           (640,000 rays, 8 draws) and the 1080p jitter, each timed by
+           CUDA events (20 launches) and by the profiler's kernel record,
+           beside the plain version and the bound. The profiles of the
+           path-traced samples (5c, 6d, 6e, 10c, 11b, 12a) show K5 by
+           name as "threefry", with its launches.
 
 Everything the script prints goes to chiprun_out/chip_smoke/log.txt as
 well as to stdout.
@@ -218,7 +230,8 @@ each kernel with its launches on the main path, its error against its
 plain version, its time, its plain version's, and its bound: the larger
 of the bytes it must move over 3.35 TB/s and its float operations over
 67 TFLOP/s (the H100 SXM's published HBM rate and float32 peak), from the
-inputs of this run. For the tile kernels bound_ms keeps the yardstick
+inputs of this run; K5's operations are INT32, over half that peak (the
+card's issue rate, INT32_OPS_PER_S). For the tile kernels bound_ms keeps the yardstick
 (FWD_PAIR_FLOPS, BWD_PAIR_FLOPS on every pair evaluated); phases 1, 3, 4a
 and 7 print beside it the function's bound (the evaluation on every pair,
 the rest on the pairs with alpha > 0 alone), and the kernel table carries
@@ -250,7 +263,8 @@ sys.path.insert(0, ROOT)
 # The tile kernels' bounds and the card's line: one count for this script
 # and the bench (pathtracer_gaussiansplatting_tpu_torch/bench.py).
 from pathtracer_gaussiansplatting_tpu_torch.bench import (  # noqa: E402
-    bound, card_line, chunk_schedule, tile_bounds,
+    FP32_FLOPS_PER_S, HBM_BYTES_PER_S, bound, card_line, chunk_schedule,
+    tile_bounds,
 )
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 KERNEL_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
@@ -274,6 +288,21 @@ GRID_VIS_REPLACES = ("pathtracer_gaussiansplatting_tpu/render/"
 VARIANT_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
                   "tile_composite_variants.cu")
 VARIANT_REPLACES = "benchmarks/variant_kernel.py:58"
+K5_SOURCE = "pathtracer_gaussiansplatting_tpu_torch/csrc/threefry.cu"
+K5_REPLACES = "pathtracer_gaussiansplatting_tpu/core/rng.py:47"
+# K5's work a uniform: 78 INT32 operations (the two key adds; 20 rounds of
+# add, rotate and xor; five injections of two adds; the counter's high
+# word, the xor of the two output words, the shift and the or; the float
+# subtract and the max), and the jitter's add and fmod 2 more. The H100
+# SXM's integer rate: its issue limit, one warp instruction a clock from
+# each of an SM's four schedulers, 128 lane operations a clock, which is
+# the float32 peak (FP32_FLOPS_PER_S) with an FMA counted once. Integer
+# adds and logic issue on the 64 INT32 lanes and, as IMAD, on the FMA
+# lanes, so the mix is not held to the INT32 lanes alone: at 64 lanes an
+# SM the bound was 0.1062 ms at 1080p, and K5 ran in 0.1045 on an H100.
+K5_OPS, K5_JITTER_OPS = 78, 2
+K5_PER_THREAD = 4  # csrc/threefry.cu's kPerThread
+INT32_OPS_PER_S = FP32_FLOPS_PER_S / 2
 # Float operations (counted as the bench module counts the tile kernels')
 # of the dense top-K and shadow visibility kernels per (ray, Gaussian) pair
 # on the exact path kept by the cull, and of the cull test
@@ -317,9 +346,11 @@ GRID_PSNR_TOL = 0.3
 GRID64_BUDGET = 6.0e9  # Kc=64's memory budget (benchmarks/grid_accuracy.py:95)
 GRID_PROFILE_NAMES = dict(tile_composite_fwd="tile_composite_fwd_kernel",
                           grid_trace="grid_march_kernel<true",
-                          grid_visibility="grid_march_kernel<false")
+                          grid_visibility="grid_march_kernel<false",
+                          threefry="threefry_uniforms_kernel")
 DENSE_PROFILE_NAMES = dict(dense_topk="dense_topk",
-                           dense_visibility="dense_visibility")
+                           dense_visibility="dense_visibility",
+                           threefry="threefry_uniforms_kernel")
 # Phase 5e: the card's dense gradients against the CPU's, per leaf, over its
 # largest CPU gradient (CUDA and the CPU round exp differently).
 DENSE_GRAD_TOL = 1e-3
@@ -1328,8 +1359,8 @@ def profile_split(name: str, fn, wall_ms: float, card: str,
     split into the hand-written kernels (``names``: label -> a substring of
     the kernel's name), the kernels of the ops inside host ranges
     (``op_ranges``: label -> a substring of the range's name; by default
-    the random draws, ptgs.rng, and shading, ptgs.shade) and the rest. The
-    op table goes to OUT_DIR."""
+    the random draws, ptgs.rng, and shading, ptgs.shade) and the rest,
+    each part's launches beside its ms. The op table goes to OUT_DIR."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1372,14 +1403,22 @@ def profile_split(name: str, fn, wall_ms: float, card: str,
         return i > 0 and e.time_range.end <= r[i - 1][1]
 
     split = {label: kern(sub) for label, sub in names.items()}
+    counts = {label: sum(e.count for e in kernels if sub in e.key)
+              for label, sub in names.items()}
     split.update({label: 0.0 for label in op_ranges})
+    counts.update({label: 0 for label in op_ranges})
     for e in raw:
-        ms = sum(k.duration for k in e.kernels) / 1e3
+        # A named kernel counts by its name alone, wherever it launched.
+        ks = [k for k in e.kernels
+              if not any(sub in k.name for sub in names.values())]
+        ms = sum(k.duration for k in ks) / 1e3
         for label in op_ranges:
             if ms and inside(e, label):
                 split[label] += ms
+                counts[label] += len(ks)
                 break
     split["rest"] = total - sum(split.values())
+    counts["rest"] = sum(e.count for e in kernels) - sum(counts.values())
     os.makedirs(OUT_DIR, exist_ok=True)
     table = os.path.join(OUT_DIR, f"profile_{name}.txt")
     with open(table, "w") as fh:
@@ -1387,8 +1426,9 @@ def profile_split(name: str, fn, wall_ms: float, card: str,
                               row_limit=50))
     log(f"profile {name}: device time {total:.3f} ms of {wall_ms:.3f} ms "
         f"wall = {total / wall_ms:.1%} busy, "
-        f"{sum(e.count for e in kernels)} kernel launches; split: "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        f"{sum(e.count for e in kernels)} kernel launches; split (ms, "
+        f"launches): "
+        + ", ".join(f"{k} {v:.3f} ({counts[k]})" for k, v in split.items())
         + f"; table {os.path.relpath(table, ROOT)} ({card})")
     return split
 
@@ -1409,6 +1449,7 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
     dense call must be served the backend's table."""
     from pathtracer_gaussiansplatting_tpu_torch.data import capture
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
     from pathtracer_gaussiansplatting_tpu_torch.render import pipeline
 
     w, h = cam.width, cam.height
@@ -1418,10 +1459,12 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = pipeline.TABLE_MISSES = 0
+    k5.LAUNCHES = 0
     with HostTimer(capture, "pathtrace") as timer:
         img, total_ms = host_ms(lambda: capture.render_pose(
             render_fn, cam.c2w, w, h, cam.fov_y_deg, chunk=PT_CHUNK))
     launches = (dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
+    rng_launches = k5.LAUNCHES
     check(pipeline.TABLE_MISSES == 0, f"5c: {pipeline.TABLE_MISSES} dense "
           f"calls built their own table")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1432,6 +1475,9 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
     check(launches == (spp * n_chunks * settings.max_depth,
                        2 * spp * n_chunks * settings.max_depth),
           f"5c: kernel launches (dense_topk, dense_visibility) {launches}")
+    check(rng_launches == spp * n_chunks * settings.max_depth,
+          f"5c: threefry_uniforms launched {rng_launches} times, not once a "
+          f"bounce")
     img = img.cpu().numpy()
     mean = check_pt_image(img, settings, "5c")
     jpg = os.path.join(OUT_DIR, f"phase5c_surface_50k_800_{spp}spp.jpg")
@@ -1443,7 +1489,8 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
         f"{w * h * spp / (total_ms * 1e-3):.4e} path-traced rays/s; 512 spp "
         f"would take {512 * med / 6e4:.2f} min; launches per sample "
         f"dense_topk {launches[0] // spp}, dense_visibility "
-        f"{launches[1] // spp}; table cache misses 0; peak memory "
+        f"{launches[1] // spp}, threefry_uniforms {rng_launches // spp}; "
+        f"table cache misses 0; peak memory "
         f"{peak_gib:.2f} GiB ({card})")
     log(f"phase 5c: image finite, in [0, {settings.firefly_clamp}], mean "
         f"{mean:.5f}, max {img.max():.5f}; saved {os.path.relpath(jpg, ROOT)}")
@@ -1451,7 +1498,8 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
                                              backend="dense")
     split = profile_split("phase5c_sample", lambda: capture.render_pose(
         one, cam.c2w, w, h, cam.fov_y_deg, chunk=PT_CHUNK), med, card)
-    return dict(launches=launches, median_ms=med, split=split)
+    return dict(launches=launches, rng=rng_launches, median_ms=med,
+                split=split)
 
 
 def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
@@ -1464,13 +1512,14 @@ def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
     there."""
     from pathtracer_gaussiansplatting_tpu_torch.data import capture
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
     from pathtracer_gaussiansplatting_tpu_torch.render import pipeline
 
     w, h = cam.width, cam.height
     render = capture.make_tiled_pose_renderer(scene, settings, light, spp,
                                               bounce_backend="dense")
     torch.cuda.synchronize()
-    tc.LAUNCHES = dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    tc.LAUNCHES = dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = k5.LAUNCHES = 0
     pipeline.TABLE_MISSES = 0
     with HostTimer(capture, "prepare_tiles") as prep, \
             HostTimer(capture, "pathtrace_camera") as samples, \
@@ -1479,8 +1528,12 @@ def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
         img = render(cam.c2w, w, h, cam.fov_y_deg)
         torch.cuda.synchronize()
     launches = (tc.LAUNCHES, dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
+    rng_launches = k5.LAUNCHES
     check(pipeline.TABLE_MISSES == 0, f"5d: {pipeline.TABLE_MISSES} dense "
           f"calls built their own table")
+    check(rng_launches == spp * (settings.max_depth + 1),
+          f"5d: threefry_uniforms launched {rng_launches} times, not once a "
+          f"bounce and once a jittered sample")
     check(launches[0] == spp, f"5d: the forward tile kernel launched "
           f"{launches[0]} times for {spp} samples")
     check(launches[1:] == (spp * (settings.max_depth - 1),
@@ -1500,8 +1553,8 @@ def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
         f"{prep.ms[0]:.1f} ms; sample ms "
         f"{', '.join(f'{m:.1f}' for m in samples.ms)} (median {med:.1f}); "
         f"512 spp would take {(prep.ms[0] + 512 * med) / 6e4:.2f} min; "
-        f"launches (tile fwd, dense_topk, dense_visibility) {launches}; "
-        f"table cache misses 0 ({card})")
+        f"launches (tile fwd, dense_topk, dense_visibility) {launches}, "
+        f"threefry_uniforms {rng_launches}; table cache misses 0 ({card})")
     log(f"phase 5d: image finite, mean {mean:.5f} against {direct.mean():.5f}"
         f" at depth 1 (bounces add {mean / direct.mean() - 1:.1%}); saved "
         f"{os.path.relpath(jpg, ROOT)}")
@@ -1517,7 +1570,8 @@ def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
     log(f"phase 5d: on those launches (R={args[0].shape[0]}) dense_topk "
         f"{topk_ms:.3f} ms, dense_visibility {vis_ms:.3f} ms (CUDA events, 3 "
         f"launches; {card})")
-    return dict(launches=launches, median_ms=med, max_abs_err=(err_a, err_v))
+    return dict(launches=launches, rng=rng_launches, median_ms=med,
+                max_abs_err=(err_a, err_v))
 
 
 # ---- phase 6: the grid backend ------------------------------------------
@@ -1806,6 +1860,7 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
     prepare_tiles, then pathtrace_camera at 1920x1080, depth 4, one warm
     and three timed samples; one more sample profiled."""
     from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
     from pathtracer_gaussiansplatting_tpu_torch.render import lights
     from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
         accumulate, pathtrace_camera,
@@ -1820,7 +1875,7 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
     torch.cuda.reset_peak_memory_stats()
     packets, prep_ms = host_ms(lambda: prepare_tiles(scene, cam, settings,
                                                      cfg))
-    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
+    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = k5.LAUNCHES = 0
     acc = torch.zeros((h * w, 3), device=cam.c2w.device)
     sample_ms, frozen = [], 0
     jitters, states = [], []
@@ -1837,10 +1892,14 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
         frozen += int(aux["frozen_alive"])
     states.append(card_state())
     launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
+    rng_launches = k5.LAUNCHES
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(jitters == ["cuda"] * 4, f"6d: jitter built on {jitters}")
     check(launches == (4 * (settings.max_depth - 1), 4 * settings.max_depth),
           f"6d: grid kernel launches (trace, visibility) {launches}")
+    check(rng_launches == 4 * (settings.max_depth + 1),
+          f"6d: threefry_uniforms launched {rng_launches} times, not once a "
+          f"bounce and once a jittered sample")
     img = acc.reshape(h, w, 3).cpu().numpy()
     mean = check_pt_image(img, settings, "6d")
     med = statistics.median(sample_ms[1:])
@@ -1853,7 +1912,8 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
         f"{', '.join(f'{m:.1f}' for m in sample_ms)} (median of 2-4 "
         f"{med:.1f}); {w * h / (med * 1e-3):.4e} path-traced rays/s; "
         f"launches per sample grid_trace {launches[0] // 4}, grid_visibility "
-        f"{launches[1] // 4}; frozen rays {frozen} in 4 samples; peak memory "
+        f"{launches[1] // 4}, threefry_uniforms {rng_launches // 4}; frozen "
+        f"rays {frozen} in 4 samples; peak memory "
         f"{peak_gib:.2f} GiB ({card})")
     log(f"phase 6d: image finite, mean {mean:.5f}; saved "
         f"{os.path.relpath(jpg, ROOT)}")
@@ -1865,7 +1925,8 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
         tables=tables, backend=backend, config=cfg,
         jitter=rng.subpixel_jitter(key, h, w, 99)), med, card,
         GRID_PROFILE_NAMES)
-    return dict(launches=launches, median_ms=med, split=split)
+    return dict(launches=launches, rng=rng_launches, median_ms=med,
+                split=split)
 
 
 def grid_pose(gm, gt, capture, scene, settings, accel, card,
@@ -1879,6 +1940,7 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
         toroidal_c2w,
     )
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
 
     render = capture.make_tiled_pose_renderer(scene, settings, None, spp,
                                               bounce_backend="grid",
@@ -1886,7 +1948,7 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
     c2w = toroidal_c2w(123.0, 20.0, 2.5, 0.3)   # no device: the card
     check(c2w.device.type == "cuda", f"6e: pose built on {c2w.device}")
     torch.cuda.synchronize()
-    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
+    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = k5.LAUNCHES = 0
     stats = {}
     with HostTimer(capture, "prepare_tiles") as prep, \
             HostTimer(capture, "pathtrace_camera") as samples, \
@@ -1896,9 +1958,13 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
         img = render(c2w, 800, 800, 45.0, stats_out=stats)
         torch.cuda.synchronize()
     launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
+    rng_launches = k5.LAUNCHES
     check(launches == (spp * (settings.max_depth - 1),
                        spp * settings.max_depth),
           f"6e: grid kernel launches (trace, visibility) {launches}")
+    check(rng_launches == spp * (settings.max_depth + 1),
+          f"6e: threefry_uniforms launched {rng_launches} times, not once a "
+          f"bounce and once a jittered sample")
     img = img.cpu().numpy()
     check(bool(np.isfinite(img).all()) and float(img.min()) >= 0.0,
           "6e: image not finite or negative")
@@ -1909,7 +1975,8 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
         f"fov 45, grid bounces, {spp} spp: prepare {prep.ms[0]:.1f} ms; "
         f"sample ms {', '.join(f'{m:.1f}' for m in samples.ms)} (median "
         f"{med:.1f}); a 512-spp pose would take "
-        f"{(prep.ms[0] + 512 * med) / 6e4:.2f} min; frozen rays "
+        f"{(prep.ms[0] + 512 * med) / 6e4:.2f} min; threefry_uniforms "
+        f"{rng_launches // spp} launches a sample; frozen rays "
         f"{stats.get('frozen_alive', 0):.0f}; image mean {img.mean():.5f}; "
         f"saved {os.path.relpath(jpg, ROOT)} ({card})")
     args, kw = sample_args.calls[None]
@@ -1951,7 +2018,7 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
             f"{bnd['bound_ms'] / ms:.1%} of the bound's rate; per sample "
             f"{split[name]:.3f} ms in {launches[0 if feat else 1] // spp} "
             f"launches ({card})")
-    return dict(launches=launches, median_ms=med)
+    return dict(launches=launches, rng=rng_launches, median_ms=med)
 
 
 # ---- phase 7: the ablation harness ----------------------------------------
@@ -2187,8 +2254,7 @@ def capture_run(capture, gm, gt, tc, dt, card) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tc.LAUNCHES = gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
-    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    reset_counts(tc, gm, dt)
     with tempfile.TemporaryDirectory(dir=ROOT,
                                      prefix=".chip_smoke_capture_") as out:
         with HostTimer(gt, "build_grid_accel") as builds, \
@@ -2212,9 +2278,7 @@ def capture_run(capture, gm, gt, tc, dt, card) -> dict:
                                  progress=progress)
         torch.cuda.synchronize()
         pano_s = time.perf_counter() - t1
-        launches = dict(fwd=tc.LAUNCHES, trace=gm.TRACE_LAUNCHES,
-                        vis=gm.VIS_LAUNCHES, topk=dt.TOPK_LAUNCHES,
-                        dense_vis=dt.VIS_LAUNCHES)
+        launches = read_counts(tc, gm, dt)
 
         # The dataset: layout, split, sizes, the point cloud.
         check(lines[0] == "capture backend: tiled+grid",
@@ -2251,7 +2315,9 @@ def capture_run(capture, gm, gt, tc, dt, card) -> dict:
                 OUT_DIR, "phase8a_" + rel.replace("/", "_")))
     check(launches["fwd"] == poses * spp and launches["trace"] > 0
           and launches["vis"] > 0 and launches["topk"] == 0
-          and launches["dense_vis"] == 0, f"8a: kernel launches {launches}")
+          and launches["dense_vis"] == 0
+          and launches["rng"] > poses * spp * (settings.max_depth + 1),
+          f"8a: kernel launches {launches}")
     log(f"phase 8a: surface_scene({n}) + its emissive panel, auto -> "
         f"tiled+grid, {poses} poses {res}x{res} fov 45 / 2, {spp} spp, depth "
         f"{settings.max_depth}, torus R {torus.major_radius} r "
@@ -2707,14 +2773,20 @@ class Loaders:
 
 
 def reset_counts(tc, gm, dt) -> None:
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
+
     tc.LAUNCHES = tc.BWD_LAUNCHES = 0
     gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
     dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    k5.LAUNCHES = 0
 
 
 def read_counts(tc, gm, dt) -> dict:
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
+
     return dict(fwd=tc.LAUNCHES, trace=gm.TRACE_LAUNCHES, vis=gm.VIS_LAUNCHES,
-                topk=dt.TOPK_LAUNCHES, dense_vis=dt.VIS_LAUNCHES)
+                topk=dt.TOPK_LAUNCHES, dense_vis=dt.VIS_LAUNCHES,
+                rng=k5.LAUNCHES)
 
 
 def run_cli(cli, argv) -> list:
@@ -2836,7 +2908,8 @@ def cli_capture(cli, capture, gm, gt, tc, dt, ref, cfg_path: str, out: str,
           f"9a: build_grid_accel ran {len(builds.ms)} times")
     check(launches["fwd"] == poses * spp and launches["trace"] > 0
           and launches["vis"] > 0 and launches["topk"] == 0
-          and launches["dense_vis"] == 0, f"9a: kernel launches {launches}")
+          and launches["dense_vis"] == 0 and launches["rng"] > poses * spp,
+          f"9a: kernel launches {launches}")
     names = sorted(os.listdir(os.path.join(out, "train")))
     check(names == [f"r_{i}.jpg" for i in range(poses)],
           f"9a: train/ holds {names}")
@@ -3048,7 +3121,7 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
     from pathtracer_gaussiansplatting_tpu_torch.parallel import train
     from pathtracer_gaussiansplatting_tpu_torch.render import session
 
-    total = dict(fwd=0, trace=0, vis=0, topk=0, dense_vis=0)
+    total = dict(fwd=0, trace=0, vis=0, topk=0, dense_vis=0, rng=0)
 
     def add(counts):
         for k in total:
@@ -3072,7 +3145,7 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
     c = read_counts(tc, gm, dt)
     add(c)
     check(c["fwd"] == 16 and c["trace"] > 0 and c["vis"] > 0
-          and c["topk"] == 0, f"9d render: launches {c}")
+          and c["topk"] == 0 and c["rng"] > 16, f"9d render: launches {c}")
     img = image(png)
     check(img.shape == (800, 800, 3), f"9d render: {img.shape}")
     shutil.copy(png, os.path.join(OUT_DIR, "phase9d_render.png"))
@@ -3216,7 +3289,8 @@ def bench_launches(c) -> dict:
     the headline's warm-up and timed samples, the training steps (one
     forward and one backward each), the depth-4 and depth-12 samples (a
     bounce trace at each depth but the last, a shadow march at each), the
-    poses' samples, the dense baseline's calls."""
+    poses' samples, the dense baseline's calls; K5 once a bounce of each
+    path-traced sample."""
     from pathtracer_gaussiansplatting_tpu_torch import bench
 
     w = bench.WARMUPS
@@ -3225,7 +3299,8 @@ def bench_launches(c) -> dict:
     return dict(fwd=(c.iters + w) + (c.few + w) + pt4 + pt12,
                 bwd=c.few + w, topk=c.few + w,
                 trace=pt4 * (c.pt_depth - 1) + pt12 * (bench.PT12_DEPTH - 1),
-                vis=pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH)
+                vis=pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH,
+                rng=pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH)
 
 
 def bench_run(cli, tc, gm, dt, card) -> dict:
@@ -3726,6 +3801,7 @@ def spatial_backend_route(tc, dt, mesh, settings, dev, card,
     point light, 800x800, depth 4), spp samples, beside phase 5d's dense
     tiled sample."""
     from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
     from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
         BinningConfig,
     )
@@ -3751,7 +3827,7 @@ def spatial_backend_route(tc, dt, mesh, settings, dev, card,
     acc = torch.zeros((cam.height * cam.width, 3), device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tc.LAUNCHES = dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    tc.LAUNCHES = dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = k5.LAUNCHES = 0
     host, events = [], []
     for f in range(spp):
         jit = rng.subpixel_jitter(key, cam.height, cam.width, f, device=dev)
@@ -3768,12 +3844,13 @@ def spatial_backend_route(tc, dt, mesh, settings, dev, card,
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         events.append(start.elapsed_time(end))
-    launches = (tc.LAUNCHES, dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
+    launches = (tc.LAUNCHES, dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES, k5.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per = tuple(x / spp for x in launches)
-    want = (1, 2 * (settings.max_depth - 1), 2 * settings.max_depth)
+    want = (1, 2 * (settings.max_depth - 1), 2 * settings.max_depth,
+            settings.max_depth + 1)
     check(per == want, f"11b: launches per sample (tile fwd, dense_topk, "
-          f"dense_visibility) {per}, not {want}")
+          f"dense_visibility, threefry_uniforms) {per}, not {want}")
     out = acc.reshape(cam.height, cam.width, 3).cpu().numpy()
     mean = check_pt_image(out, settings, "11b")
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
@@ -3787,7 +3864,8 @@ def spatial_backend_route(tc, dt, mesh, settings, dev, card,
         f", median of the rest {med_h:.1f}; CUDA events "
         f"{', '.join(f'{m:.1f}' for m in events)}, median {med_e:.1f}; "
         f"phase 5d's dense tiled sample {dense_ms:.1f} ms; launches per "
-        f"sample (tile fwd, dense_topk, dense_visibility) {per}; peak memory "
+        f"sample (tile fwd, dense_topk, dense_visibility, threefry_uniforms) "
+        f"{per}; peak memory "
         f"{peak:.2f} GiB ({card})")
     log(f"phase 11b: image finite, mean {mean:.5f}; saved "
         f"{os.path.relpath(jpg, ROOT)}")
@@ -4051,7 +4129,7 @@ def phase11(tc, dt, gm, gt, pt_settings, dense_ms, dev, card) -> dict:
     return dict(fwd=b["launches"][0],
                 topk=a["launches"] + b["launches"][1] + d["launches"],
                 dense_vis=b["launches"][2], trace=c["launches"][0],
-                vis=c["launches"][1])
+                vis=c["launches"][1], rng=b["launches"][3])
 
 
 # ---- phase 12: the downstream loop -----------------------------------------
@@ -4182,10 +4260,11 @@ def downstream_run(ds, capture, train, tc, gm, gt, dt, dev, card) -> dict:
     check(launches["fwd"] == samples_n + c["fit_steps"] + 1 + n_test
           and launches["bwd"] == c["fit_steps"] and launches["trace"] > 0
           and launches["vis"] > 0 and launches["topk"] == 0
-          and launches["dense_vis"] == 0,
+          and launches["dense_vis"] == 0 and launches["rng"] > samples_n,
           f"12a: launches {launches}: the forward once a capture sample, a "
           f"fit step, the fit's last render and a test render; the backward "
-          f"once a fit step")
+          f"once a fit step; threefry_uniforms once a bounce and a jittered "
+          f"sample")
 
     # Both tile kernels against their plain versions on the first fit
     # step's packets: sh_degree 1, isotropic splats from the point cloud.
@@ -4283,6 +4362,134 @@ def downstream_card_vs_cpu(ds, capture, dev, card) -> None:
           f"12b: test PSNR {d_psnr} dB / SSIM {d_ssim} apart")
 
 
+# ---- phase 13: K5, the render RNG ----------------------------------------
+
+def sass_mix(lib, name: str) -> dict:
+    """Kernel ``name``'s SASS in the built library ``lib``, counted by
+    opcode (cuobjdump from nvcc's toolkit); empty where there is none."""
+    from pathtracer_gaussiansplatting_tpu_torch.csrc import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    counts, inside = {}, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = name in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", line)
+        if inside and m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def threefry_checks(rng, k5, key, card) -> list:
+    """Phase 13: K5 against its plain version (core/rng.uniforms_plain,
+    jitter_plain) on the card at the main path's shapes, bit for bit: one
+    1080p depth-12 bounce (9 draws, 11 columns), one capture-pose bounce
+    (640000 rays, 8 draws) and the 1080p jitter. Each timed by CUDA events
+    over 20 launches of the wrapper with the keys folded once, and by the
+    profiler's record of the kernel, beside the plain version and the
+    bound (elements x K5_OPS at INT32_OPS_PER_S, or their 4-byte stores at
+    HBM_BYTES_PER_S)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
+        bounce_dims,
+    )
+
+    dev = torch.device("cuda", 0)
+    bkey = rng.fold_in(rng.frame_key(key, 0), 1)
+    cases = []
+    # 10c's bounce 5 draws every dimension, roulette's too; 6e's bounce 1
+    # all but roulette.
+    for name, r, dims, n_draws in (
+            ("1080p depth-12 bounce", 1920 * 1080,
+             bounce_dims(RenderSettings(max_depth=12), 5), 9),
+            ("capture-pose bounce", 800 * 800,
+             bounce_dims(RenderSettings(max_depth=4), 1), 8)):
+        check(len(dims) == n_draws, f"13 {name}: draws {dims}")
+        draws = [(rng.dim_key(bkey, d), n) for d, n in dims.values()]
+        words = [tuple(int(v) for v in k.tolist()) for k, _ in draws]
+        nums = [n for _, n in draws]
+        cases.append(dict(
+            name=name, r=r, draws=len(draws), cols=sum(nums), ops=K5_OPS,
+            path=lambda r=r, dims=dims: list(rng.bounce_uniforms(
+                bkey, r, dims, dev).values()),
+            raw=lambda r=r, words=words, nums=nums: k5.threefry_uniforms(
+                words, nums, r, dev),
+            plain=lambda r=r, draws=draws: rng.uniforms_plain(draws, r,
+                                                              dev)))
+    jkey, r2 = rng.dim_key(rng.frame_key(key, 5), 0), rng.r2_host(5)
+    jwords = [tuple(int(v) for v in jkey.tolist())]
+    cases.append(dict(
+        name="1080p jitter", r=1920 * 1080, draws=1, cols=2,
+        ops=K5_OPS + K5_JITTER_OPS,
+        path=lambda: [rng.subpixel_jitter(key, 1080, 1920, 5, device=dev)],
+        raw=lambda: k5.threefry_uniforms(jwords, [2], 1920 * 1080, dev, r2),
+        plain=lambda: [rng.jitter_plain(jkey, 1080, 1920, r2, dev)]))
+    out = []
+    for c in cases:
+        before = k5.LAUNCHES
+        got = c["path"]()
+        launched = k5.LAUNCHES - before
+        want = c["plain"]()
+        raw = c["raw"]()
+        torch.cuda.synchronize()
+        check(launched == 1, f"13 {c['name']}: {launched} K5 launches")
+        for g, w in zip(got, want):
+            check(g.shape == w.shape and g.is_contiguous()
+                  and torch.equal(g.view(torch.int32), w.view(torch.int32)),
+                  f"13 {c['name']}: K5 differs from its plain version")
+        flat = torch.cat([w.reshape(-1) for w in want])
+        check(torch.equal(raw.view(torch.int32), flat.view(torch.int32)),
+              f"13 {c['name']}: the packed buffer differs from the plain "
+              f"draws")
+        del got, want, raw, flat
+        ms = cuda_ms(c["raw"], 20)
+        path_ms = cuda_ms(c["path"], 20)
+        plain_ms = cuda_ms(c["plain"], 3)
+        # The first trace of a session may miss kernel records: the second
+        # of two is kept, as in profile_once.
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    c["raw"]()
+                torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and "threefry_uniforms" in e.key]
+        n_prof = sum(e.count for e in rows)
+        prof_ms = sum(e.self_device_time_total for e in rows) / 1e3 \
+            / max(n_prof, 1)
+        elems = c["r"] * c["cols"]
+        b, o = 4.0 * elems / HBM_BYTES_PER_S, c["ops"] * elems / INT32_OPS_PER_S
+        bnd = dict(bound_ms=max(b, o) * 1e3,
+                   bound_by="bytes" if b >= o else "operations",
+                   bound_bytes=4.0 * elems, bound_flops=float(c["ops"] * elems))
+        log(f"phase 13: K5 {c['name']}: R={c['r']}, {c['draws']} draws, "
+            f"{c['cols']} columns, {elems} uniforms, bit-equal to the plain "
+            f"version (one launch); kernel {ms:.4f} ms (CUDA events, 20 "
+            f"launches of the wrapper; through the path's call "
+            f"{path_ms:.4f} ms; the profiler's kernel record "
+            f"{prof_ms:.4f} ms over {n_prof} launches), plain "
+            f"{plain_ms:.3f} ms; bound {bnd['bound_ms']:.4f} ms by "
+            f"{bnd['bound_by']} ({bnd['bound_flops']:.4e} INT32 operations, "
+            f"{bnd['bound_bytes']:.4e} bytes) = {bnd['bound_ms'] / ms:.1%} "
+            f"of the bound's rate ({card})")
+        out.append(dict(name=c["name"], ms=ms, plain_ms=plain_ms,
+                        profiled_ms=prof_ms, max_abs_err=0.0, bound=bnd))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4303,6 +4510,9 @@ def main() -> int:
     )
     from pathtracer_gaussiansplatting_tpu_torch.csrc import build
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import (
+        threefry as k5,
+    )
     from pathtracer_gaussiansplatting_tpu_torch.kernels import (
         tile_composite as tc,
     )
@@ -4406,7 +4616,7 @@ def main() -> int:
     del packets, got, want
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tc.LAUNCHES = 0
+    tc.LAUNCHES = k5.LAUNCHES = 0
     packets, prep_ms = host_ms(
         lambda: prepare_tiles(scene, cam, settings, cfg))
     acc = torch.zeros((res, res, 3), device=dev)
@@ -4419,9 +4629,11 @@ def main() -> int:
             return accumulate(acc, out["color"], f)
         acc, ms = host_ms(sample)
         sample_ms.append(ms)
-    launches_p2 = tc.LAUNCHES
+    launches_p2, rng_p2 = tc.LAUNCHES, k5.LAUNCHES
     check(launches_p2 == n_samples,
           f"phase 2 launched the kernel {launches_p2} times, not {n_samples}")
+    check(rng_p2 == n_samples, f"phase 2 launched threefry_uniforms {rng_p2} "
+          f"times, not once a jittered sample")
     stats = {k[5:]: float(v) for k, v in packets.items()
              if k.startswith("stat_")}
     img = acc.cpu().numpy()
@@ -4439,7 +4651,8 @@ def main() -> int:
     log(f"phase 2: 1M Gaussians, {res}x{res}, K=256: prepare {prep_ms:.1f} ms"
         f" (first), {prep2_ms:.1f} ms (median of 3 more); samples "
         f"{n_samples}: first {sample_ms[0]:.2f} ms, median of the rest "
-        f"{med:.2f} ms; LAUNCHES {launches_p2}; ({card})")
+        f"{med:.2f} ms; LAUNCHES {launches_p2}, threefry_uniforms {rng_p2}; "
+        f"({card})")
     log(f"phase 2: amortized over {spp} spp: {amortized:.4e} rays/s; "
         f"per-sample {rays / (med * 1e-3):.4e} rays/s; mean tile count "
         f"{mean_count:.1f} of 256; peak memory "
@@ -4477,7 +4690,7 @@ def main() -> int:
         f"{bound_text(pt_bnds['fwd'], pt_kernel_ms)}")
     del got, want
 
-    tc.LAUNCHES = 0
+    tc.LAUNCHES = k5.LAUNCHES = 0
     pt_packets, pt_prep_ms = host_ms(
         lambda: prepare_tiles(pt_scene, pt_cam, pt_settings, pt_cfg))
     pt_acc = torch.zeros((1080, 1920, 3), device=dev)
@@ -4490,9 +4703,11 @@ def main() -> int:
             return accumulate(pt_acc, out["color"], f)
         pt_acc, ms = host_ms(pt_sample)
         pt_ms.append(ms)
-    launches_p3 = tc.LAUNCHES
+    launches_p3, rng_p3 = tc.LAUNCHES, k5.LAUNCHES
     check(launches_p3 == 4,
           f"phase 3 launched the kernel {launches_p3} times, not 4")
+    check(rng_p3 == 4, f"phase 3 launched threefry_uniforms {rng_p3} times, "
+          f"not once a jittered sample")
     pt_img = pt_acc.cpu().numpy()
     check(bool(np.isfinite(pt_img).all()), "phase 3 image is not finite")
     check(0.0 < float(pt_img.mean()) < 2.0,
@@ -4504,7 +4719,7 @@ def main() -> int:
     log(f"phase 3: 500k surface Gaussians, 1920x1080, K=512: prepare "
         f"{pt_prep_ms:.1f} ms; samples {', '.join(f'{m:.2f}' for m in pt_ms)}"
         f" ms (median {statistics.median(pt_ms[1:]):.2f}); LAUNCHES "
-        f"{launches_p3}; ({card})")
+        f"{launches_p3}, threefry_uniforms {rng_p3}; ({card})")
     log(f"phase 3: binning stats {json.dumps(pt_stats)}; mean tile count "
         f"{float(pt_packets['count'].mean()):.1f} of 512")
     log(f"phase 3: image finite, mean {pt_img.mean():.5f}; saved "
@@ -4692,6 +4907,24 @@ def main() -> int:
     downstream_card_vs_cpu(ds, capture, dev, card)
     log(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
+    # ---- phase 13: K5, the render RNG ----------------------------------
+    # Every phase from 2 to 12 drew its uniforms and jitter through K5.
+    rng_by_phase = {
+        "2": rng_p2, "3": rng_p3, "5c": flat["rng"], "5d": tiled["rng"],
+        "6d": g_pt["rng"], "6e": g_pose["rng"], "8a": cap_launches["rng"],
+        "9": p9["rng"], "10a": p10["rng"], "11b": p11["rng"],
+        "12a": p12["rng"]}
+    log(f"phase 13: threefry_uniforms launches on the main path by phase "
+        f"{json.dumps(rng_by_phase)} ({card})")
+    check(all(n > 0 for n in rng_by_phase.values()),
+          f"threefry_uniforms was not launched in every phase: "
+          f"{rng_by_phase}")
+    k5_res = threefry_checks(rng, k5, key, card)
+    mix = sass_mix(lib, "threefry_uniforms_kernel")
+    log(f"phase 13: K5's SASS (cuobjdump; {K5_PER_THREAD} uniforms a "
+        f"thread, unrolled): {sum(mix.values())} instructions; by opcode "
+        f"{json.dumps(mix)}")
+
     check("jax" not in sys.modules, "jax was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -4763,6 +4996,14 @@ def main() -> int:
               abl["launches"], abl, abl, launches_in="phase 7: the "
               "harness's timing runs at both inputs (0 on the render, "
               "training and capture paths)"),
+        # Times and bound at the 1080p depth-12 bounce; the other shapes
+        # of phase 13 beside them.
+        entry("threefry_uniforms", K5_SOURCE, K5_REPLACES,
+              sum(rng_by_phase.values()), k5_res[0], k5_res[0]["bound"],
+              shapes=[dict(name=r["name"], ms=r["ms"],
+                           plain_ms=r["plain_ms"],
+                           bound_ms=r["bound"]["bound_ms"])
+                      for r in k5_res]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

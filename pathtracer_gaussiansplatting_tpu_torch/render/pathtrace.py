@@ -15,7 +15,8 @@ zero.
 
 Random numbers are the reference's, bit for bit: bounce d draws
 ``ray_uniform(fold_in(key, d), R, dim)`` over the ray's index in its
-batch, dimensions 7, 8, 10 (NEE), 11-15 (scatter) and 20 (roulette). So
+batch, dimensions 7, 8, 10 (NEE), 11-15 (scatter) and 20 (roulette), all
+in one ``rng.bounce_uniforms`` call (one K5 launch on the card). So
 the batch a ray is traced in is part of the result, as in the reference.
 
 The loop takes no host sync: light tables, fluxes, the alive mask and the
@@ -49,9 +50,8 @@ from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
 )
 
 
-def _bounce_uniforms(dkey: torch.Tensor, r: int, device, settings,
-                     d: int) -> dict:
-    """The uniforms bounce d uses, by name: (R, 1) or (R, 2) each."""
+def bounce_dims(settings: RenderSettings, d: int) -> dict:
+    """The draws bounce d makes, by name: {name: (dimension, num)}."""
     dims = {}
     if settings.nee:
         dims.update(strat=(10, 1), sel=(7, 1), disk=(8, 2))
@@ -60,9 +60,15 @@ def _bounce_uniforms(dkey: torch.Tensor, r: int, device, settings,
                     reflect=(11, 1))
         if d + 1 >= settings.rr_start_depth:
             dims.update(rr=(20, 1))
+    return dims
+
+
+def _bounce_uniforms(dkey: torch.Tensor, r: int, device, settings,
+                     d: int) -> dict:
+    """The uniforms bounce d uses, by name: (R, 1) or (R, 2) each."""
+    dims = bounce_dims(settings, d)
     with record_function("ptgs.rng"):
-        return {name: rng_mod.ray_uniform(dkey, r, dim, num, device)
-                for name, (dim, num) in dims.items()}
+        return rng_mod.bounce_uniforms(dkey, r, dims, device)
 
 
 def _nee(u: dict, scene: GaussianScene, tables: lights_mod.LightTables,

@@ -261,6 +261,8 @@ CONSTRUCTORS = {
                                                  **kw),
     "subpixel_jitter": lambda **kw: trng.subpixel_jitter(trng.prng_key(1),
                                                          4, 6, 0, **kw),
+    "bounce_uniforms": lambda **kw: trng.bounce_uniforms(
+        trng.prng_key(1), 4, dict(sel=(7, 1), disk=(8, 2)), **kw),
 }
 
 
@@ -273,6 +275,7 @@ def test_constructor_defaults_to_the_card(monkeypatch, name):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         CONSTRUCTORS[name]()
     out = CONSTRUCTORS[name](device=CPU)
-    leaves = [out] if isinstance(out, torch.Tensor) else [
+    leaves = [out] if isinstance(out, torch.Tensor) else list(
+        out.values()) if isinstance(out, dict) else [
         getattr(out, f.name) for f in dataclasses.fields(out)]
     assert all(x.device.type == "cpu" for x in leaves)
