@@ -164,11 +164,13 @@ first use. Then:
            PT12_EXTRA_REL and PT12_CHANGED_DIFF); (c) one depth-12 sample
            at the bench's 1080p timed and profiled (the march kernels'
            share once most paths have ended); (d) the bench's dense
-           baseline: one call's wall time, the table's build, the top-K
-           kernel against its plain version and timed beside its cull's
-           counts and its bound; (e) the bench's headline sample timed as
-           sample_ms is, with Python's garbage collector on and off, beside
-           the card's span by CUDA events and one sample profiled;
+           baseline (K = 256, the root bench's min(K, 256): the top-K's
+           list kernel): one call's wall time, the table's build, the
+           top-K kernel against its plain version and timed beside the
+           plain version, its cull's counts and its bound; (e) the
+           bench's headline sample timed as sample_ms is, with Python's
+           garbage collector on and off, beside the card's span by CUDA
+           events and one sample profiled;
   phase 11 the (rays, gauss) mesh and the spatial slab ring
            (pathtracer_gaussiansplatting_tpu_torch/parallel/) on a world of
            one: parallel.mesh.initialize_multihost() with no rendezvous
@@ -189,7 +191,9 @@ first use. Then:
            (RING_RTOL / RING_ATOL) against render_radiance_dense on the
            headline cloud's first 50k Gaussians and 65536 rays, K=64, and
            fit_scene(mesh=) against fit_scene, 8 steps with deterministic
-           kernels, equal losses. The group is destroyed at the end.
+           kernels, equal losses; (e) (a)'s slab composite at K = 160
+           (the top-K's list kernel, two launches) against the plain top-K
+           on 256 rays. The group is destroyed at the end.
   phase 12 the downstream loop (pathtracer_gaussiansplatting_tpu_torch/
            tools/downstream_loop.py): (a) run_downstream at
            DOWNSTREAM.json's config (surface_scene(50k), 12 poses x 32 spp
@@ -217,6 +221,31 @@ first use. Then:
            beside the plain version and the bound. The profiles of the
            path-traced samples (5c, 6d, 6e, 10c, 11b, 12a) show K5 by
            name as "threefry", with its launches.
+  phase 14 the sizes past the thread and one-block kernels' caps, each on
+           a hand kernel: (a) the top-K's list kernel (K above 128, a warp
+           a ray) bit for bit against its plain version at K = 160, 256,
+           512 and 2048 on 5a's chunks (primary, bounce and thin-far rays,
+           primary rays by tied sort depths, bounce rays half active), and
+           at K = N on surface_scene(3000), timed at every K beside the
+           plain version and the bound by code path; (b) the march
+           kernels' wide instantiation (Kc above 128) at Kc = 144 and 256
+           on surface_scene(500k)'s grid with 6b's gates on its bounce and
+           shadow chunks, timed beside the bound; (c) the tile kernels at
+           tile sizes 8, 12 and 32 on the headline's packets: the forward
+           against its plain version with phase 1's gates and, without the
+           transmittance cutoff, bit for bit against the one-block kernel
+           on the same pixels; the backward with 4a's gates; both timed
+           beside their bounds; end to end, each with its launches counted
+           from 0: (d) a headline frame at tile size 32 (phase 2's gates),
+           and at phase 1's size the slice and three fit steps at tile
+           size 32 on the card against the CPU (phases 1's and 4c's
+           gates); (e) the capture pose at Kc = 256, 2 spp, with 6e's gates
+           on the first 65536 rays of its first trace and shadow march and
+           its frozen count; (f) cli render --backend dense --max-contribs
+           256 on 5b's scene as a 3DGS checkpoint, the card against the CPU
+           with 5b's depth-1 gates. With phase 10a's dense baseline and
+           11e, these runs are the new paths' main path: each new
+           kernel's launches there must be above 0.
 
 Everything the script prints goes to chiprun_out/chip_smoke/log.txt as
 well as to stdout.
@@ -782,6 +811,34 @@ def log_fit(tag: str, tr: dict, res: int, card: str) -> float:
         f"{pose1:.2f}); fwd+bwd {res * res / (med * 1e-3):.4e} rays/s; peak "
         f"memory {tr['peak_gib']:.2f} GiB ({card})")
     return pose0
+
+
+def small_slice_check(small, cam_kw, cfg, settings, key, dev) -> float:
+    """The slice end to end at a small size, 2 jittered samples through
+    prepare_tiles and render_prepared: the card (kernel) against the CPU
+    (plain) within the kernel tolerance; the max abs error."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import Camera
+    from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
+        accumulate,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        prepare_tiles, render_prepared,
+    )
+
+    imgs = []
+    for device in (dev, torch.device("cpu")):
+        c = Camera(**{**cam_kw, "c2w": cam_kw["c2w"].to(device)})
+        pk = prepare_tiles(small.to(device), c, settings, cfg)
+        acc = torch.zeros((c.height, c.width, 3), device=device)
+        for f in range(2):
+            jit = rng.subpixel_jitter(key, c.height, c.width, f, device=device)
+            out = render_prepared(pk, c, settings, cfg, jitter=jit,
+                                  outputs=("color",))
+            acc = accumulate(acc, out["color"], f)
+        imgs.append(acc.cpu())
+    return compare(imgs[0], imgs[1],
+                   f"small slice at tile size {cfg.tile_size}, card vs CPU")
 
 
 def small_train_check(scene, cam_kw, cfg, settings, dev) -> dict:
@@ -1673,7 +1730,8 @@ def plain_counts(stats: dict) -> str:
             f"{0 if visits is None else int((visits > 0).sum())} distinct")
 
 
-def grid_kernel_check(gt, accel, settings, name, o, d, kw, card) -> dict:
+def grid_kernel_check(gt, accel, settings, name, o, d, kw, card,
+                      phase: str = "6b") -> dict:
     """6b: the grid kernel against march_plain on one chunk, on the card:
     grid_gates, CUDA-event times, and the plain march's counts for the
     bound."""
@@ -1685,10 +1743,10 @@ def grid_kernel_check(gt, accel, settings, name, o, d, kw, card) -> dict:
         accel, o, d, settings, GRID_MAX_STEPS, with_features=feat,
         stats=stats, **kw))
     torch.cuda.synchronize()
-    gates = grid_gates(f"6b {name}", got, want, feat)
+    gates = grid_gates(f"{phase} {name}", got, want, feat)
     ms = cuda_ms(lambda: gt.march(accel, o, d, settings, GRID_MAX_STEPS,
                                   with_features=feat, **kw), 5)
-    log(f"phase 6b {name}: R={o.shape[0]}, {int(kw['active'].sum())} "
+    log(f"phase {phase} {name}: R={o.shape[0]}, {int(kw['active'].sum())} "
         f"active: {gates['text']}; kernel {ms:.3f} ms, plain "
         f"{plain_ms:.1f} ms (plain: {plain_counts(stats)}) ({card})")
     return dict(gates, ms=ms, plain_ms=plain_ms, stats=stats,
@@ -1696,11 +1754,18 @@ def grid_kernel_check(gt, accel, settings, name, o, d, kw, card) -> dict:
                 cols=accel.pkt_cols if feat else gt.GEOM_COLS)
 
 
-def grid_exact_check(gt, accel, settings, name, o, d, kw, card) -> None:
+def grid_exact_check(gt, accel, settings, name, o, d, kw, card,
+                     phase: str = "6b", rays: int = 0) -> None:
     """6b, ray for ray: the grid kernel against march_plain on one chunk on
     the default schedule's rounds at capacity 1 without exit fractions.
     Every ray's trans within GRID_EXACT_TRANS, every sum within
-    GRID_EXACT_RTOL / GRID_EXACT_ATOL, the same rays frozen."""
+    GRID_EXACT_RTOL / GRID_EXACT_ATOL, the same rays frozen. There no ray
+    depends on the others, so ``rays`` > 0 checks the chunk's first rays
+    alone."""
+    if rays:
+        o, d = o[:rays], d[:rays]
+        kw = {key: v[:rays] if torch.is_tensor(v) else v
+              for key, v in kw.items()}
     feat = "t_end" not in kw
     schedule = tuple((1.0, m, a_max) for _, m, a_max, *_ in
                      gt.DEFAULT_SCHEDULE)
@@ -1710,14 +1775,15 @@ def grid_exact_check(gt, accel, settings, name, o, d, kw, card) -> None:
                                 with_features=feat, schedule=schedule, **kw)
     torch.cuda.synchronize()
     err_t = float((tk - tp).abs().max())
-    check(torch.equal(fk, fp), f"6b {name} (no exit fractions): frozen rays "
-          f"differ (kernel {int(fk.sum())}, plain {int(fp.sum())})")
-    check(err_t <= GRID_EXACT_TRANS, f"6b {name} (no exit fractions): trans "
-          f"off by {err_t:.3e} (allowed {GRID_EXACT_TRANS})")
-    err_a = compare(ak, ap, f"6b {name} (no exit fractions) sums",
+    check(torch.equal(fk, fp), f"{phase} {name} (no exit fractions): frozen "
+          f"rays differ (kernel {int(fk.sum())}, plain {int(fp.sum())})")
+    check(err_t <= GRID_EXACT_TRANS, f"{phase} {name} (no exit fractions): "
+          f"trans off by {err_t:.3e} (allowed {GRID_EXACT_TRANS})")
+    err_a = compare(ak, ap, f"{phase} {name} (no exit fractions) sums",
                     rtol=GRID_EXACT_RTOL, atol=GRID_EXACT_ATOL) if feat \
         else 0.0
-    log(f"phase 6b {name}, Kc={accel.max_per_cell}, no exit fractions, "
+    log(f"phase {phase} {name}, Kc={accel.max_per_cell}, R={o.shape[0]}, "
+        f"no exit fractions, "
         f"capacity 1: every ray's trans within {err_t:.3e} of march_plain"
         + (f", sums within {err_a:.3e} (rtol {GRID_EXACT_RTOL}, atol "
            f"{GRID_EXACT_ATOL})" if feat else "")
@@ -1929,13 +1995,16 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
                 split=split)
 
 
-def grid_pose(gm, gt, capture, scene, settings, accel, card,
-              spp: int) -> dict:
+def grid_pose(gm, gt, capture, scene, settings, accel, card, spp: int,
+              phase: str = "6e", profile: bool = True,
+              plain_rays: int = 0) -> dict:
     """6e: bench.py's capture pose: make_tiled_pose_renderer with grid
     bounces and the shared grid at toroidal_c2w(123, 20, 2.5, 0.3),
     800x800, fov 45, spp samples, extrapolated to 512; then one sample
     profiled, and both march kernels timed on the first sample's first
-    bounce trace and first shadow march beside their bound."""
+    bounce trace and first shadow march beside their bound, and held to
+    the plain march there (on its first plain_rays rays where given). Above
+    gm.REG_KC slots a cell the wide instantiations' launches are counted."""
     from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
         toroidal_c2w,
     )
@@ -1946,9 +2015,13 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
                                               bounce_backend="grid",
                                               accel=accel)
     c2w = toroidal_c2w(123.0, 20.0, 2.5, 0.3)   # no device: the card
-    check(c2w.device.type == "cuda", f"6e: pose built on {c2w.device}")
+    check(c2w.device.type == "cuda", f"{phase}: pose built on {c2w.device}")
+    wide = accel.max_per_cell > gm.REG_KC
+    counters = (("TRACE_WIDE_LAUNCHES", "VIS_WIDE_LAUNCHES") if wide
+                else ("TRACE_LAUNCHES", "VIS_LAUNCHES"))
     torch.cuda.synchronize()
     gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = k5.LAUNCHES = 0
+    gm.TRACE_WIDE_LAUNCHES = gm.VIS_WIDE_LAUNCHES = 0
     stats = {}
     with HostTimer(capture, "prepare_tiles") as prep, \
             HostTimer(capture, "pathtrace_camera") as samples, \
@@ -1957,22 +2030,27 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
                        lambda kw: kw.get("with_features", True)) as marches:
         img = render(c2w, 800, 800, 45.0, stats_out=stats)
         torch.cuda.synchronize()
-    launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
+    launches = tuple(getattr(gm, c) for c in counters)
+    other = (gm.VIS_LAUNCHES + gm.TRACE_LAUNCHES if wide
+             else gm.TRACE_WIDE_LAUNCHES + gm.VIS_WIDE_LAUNCHES)
     rng_launches = k5.LAUNCHES
     check(launches == (spp * (settings.max_depth - 1),
-                       spp * settings.max_depth),
-          f"6e: grid kernel launches (trace, visibility) {launches}")
+                       spp * settings.max_depth) and other == 0,
+          f"{phase}: grid kernel launches (trace, visibility) {launches}, "
+          f"{other} of the other instantiation")
     check(rng_launches == spp * (settings.max_depth + 1),
-          f"6e: threefry_uniforms launched {rng_launches} times, not once a "
-          f"bounce and once a jittered sample")
+          f"{phase}: threefry_uniforms launched {rng_launches} times, not "
+          f"once a bounce and once a jittered sample")
     img = img.cpu().numpy()
     check(bool(np.isfinite(img).all()) and float(img.min()) >= 0.0,
-          "6e: image not finite or negative")
-    jpg = os.path.join(OUT_DIR, f"phase6e_capture_pose_800_{spp}spp.jpg")
+          f"{phase}: image not finite or negative")
+    jpg = os.path.join(OUT_DIR, f"phase{phase}_capture_pose_800_{spp}spp_"
+                                f"kc{accel.max_per_cell}.jpg")
     save_jpg(jpg, img)
     med = statistics.median(samples.ms)
-    log(f"phase 6e: capture pose toroidal_c2w(123, 20, 2.5, 0.3), 800x800, "
-        f"fov 45, grid bounces, {spp} spp: prepare {prep.ms[0]:.1f} ms; "
+    log(f"phase {phase}: capture pose toroidal_c2w(123, 20, 2.5, 0.3), "
+        f"800x800, fov 45, grid bounces, Kc={accel.max_per_cell}, {spp} spp: "
+        f"prepare {prep.ms[0]:.1f} ms; "
         f"sample ms {', '.join(f'{m:.1f}' for m in samples.ms)} (median "
         f"{med:.1f}); a 512-spp pose would take "
         f"{(prep.ms[0] + 512 * med) / 6e4:.2f} min; threefry_uniforms "
@@ -1980,14 +2058,20 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
         f"{stats.get('frozen_alive', 0):.0f}; image mean {img.mean():.5f}; "
         f"saved {os.path.relpath(jpg, ROOT)} ({card})")
     args, kw = sample_args.calls[None]
-    split = profile_split("phase6e_sample", lambda: capture.pathtrace_camera(
-        *args, **kw), med, card, GRID_PROFILE_NAMES)
+    split = profile_split(f"phase{phase}_sample",
+                          lambda: capture.pathtrace_camera(*args, **kw), med,
+                          card, GRID_PROFILE_NAMES) if profile else {}
     for feat, name in ((True, "grid_trace"), (False, "grid_visibility")):
         (m_accel, o, d, m_settings, rounds), m_kw = marches.calls[feat]
         check(m_accel is accel and list(rounds) == gt.clip_schedule(
-            gt.DEFAULT_SCHEDULE, GRID_MAX_STEPS), f"6e: {name} ran on "
+            gt.DEFAULT_SCHEDULE, GRID_MAX_STEPS), f"{phase}: {name} ran on "
             "another grid or schedule")
         got = gm.march_kernel(m_accel, o, d, m_settings, rounds, **m_kw)
+        if plain_rays:   # the kernel's rays do not depend on their batch
+            o, d = o[:plain_rays], d[:plain_rays]
+            got = [None if x is None else x[:plain_rays] for x in got]
+            m_kw = {key: v[:plain_rays] if torch.is_tensor(v) else v
+                    for key, v in m_kw.items()}
         ms = cuda_ms(lambda: gm.march_kernel(m_accel, o, d, m_settings,
                                              rounds, **m_kw), 5)
         # The plain march over the same rays in 65536-ray chunks: its
@@ -2004,21 +2088,22 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card,
                 with_features=feat,
                 active=None if active is None else active[sl], stats=st))
         want = [None if p[0] is None else torch.cat(p) for p in zip(*parts)]
-        gates = grid_gates(f"6e {name}", got, want, feat)
+        gates = grid_gates(f"{phase} {name}", got, want, feat)
         bnd = grid_bound(gt, accel, dict(
             stats=st, rays=o.shape[0], feat=feat,
             cols=accel.pkt_cols if feat else gt.GEOM_COLS))
         n_active = o.shape[0] if active is None else int(active.sum())
-        log(f"phase 6e: {name} on the first sample's first "
+        per_sample = f"; per sample {split[name]:.3f} ms" if split else ""
+        log(f"phase {phase}: {name} on the first sample's first "
             f"{'bounce trace' if feat else 'shadow march'}: R={o.shape[0]}, "
             f"{n_active} active: {gates['text']}; kernel {ms:.3f} ms (CUDA "
-            f"events); bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
-            f"({bnd['bound_flops']:.4e} flops, {bnd['bound_bytes']:.4e} "
-            f"bytes; plain: {plain_counts(st)}) = "
-            f"{bnd['bound_ms'] / ms:.1%} of the bound's rate; per sample "
-            f"{split[name]:.3f} ms in {launches[0 if feat else 1] // spp} "
-            f"launches ({card})")
-    return dict(launches=launches, rng=rng_launches, median_ms=med)
+            f"events); bound {bnd['bound_ms']:.4f} ms "
+            f"by {bnd['bound_by']} ({bnd['bound_flops']:.4e} flops, "
+            f"{bnd['bound_bytes']:.4e} bytes; plain: {plain_counts(st)}) = "
+            f"{bnd['bound_ms'] / ms:.1%} of the bound's rate{per_sample} in "
+            f"{launches[0 if feat else 1] // spp} launches a sample ({card})")
+    return dict(launches=launches, rng=rng_launches, median_ms=med,
+                frozen=stats.get("frozen_alive", 0))
 
 
 # ---- phase 7: the ablation harness ----------------------------------------
@@ -2775,9 +2860,10 @@ class Loaders:
 def reset_counts(tc, gm, dt) -> None:
     from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
 
-    tc.LAUNCHES = tc.BWD_LAUNCHES = 0
+    tc.LAUNCHES = tc.BWD_LAUNCHES = tc.ANY_LAUNCHES = tc.BWD_ANY_LAUNCHES = 0
     gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
-    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
+    gm.TRACE_WIDE_LAUNCHES = gm.VIS_WIDE_LAUNCHES = 0
+    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = dt.TOPK_LIST_LAUNCHES = 0
     k5.LAUNCHES = 0
 
 
@@ -2786,7 +2872,10 @@ def read_counts(tc, gm, dt) -> dict:
 
     return dict(fwd=tc.LAUNCHES, trace=gm.TRACE_LAUNCHES, vis=gm.VIS_LAUNCHES,
                 topk=dt.TOPK_LAUNCHES, dense_vis=dt.VIS_LAUNCHES,
-                rng=k5.LAUNCHES)
+                rng=k5.LAUNCHES, fwd_any=tc.ANY_LAUNCHES,
+                bwd_any=tc.BWD_ANY_LAUNCHES, topk_list=dt.TOPK_LIST_LAUNCHES,
+                trace_wide=gm.TRACE_WIDE_LAUNCHES,
+                vis_wide=gm.VIS_WIDE_LAUNCHES)
 
 
 def run_cli(cli, argv) -> list:
@@ -3121,11 +3210,11 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
     from pathtracer_gaussiansplatting_tpu_torch.parallel import train
     from pathtracer_gaussiansplatting_tpu_torch.render import session
 
-    total = dict(fwd=0, trace=0, vis=0, topk=0, dense_vis=0, rng=0)
+    total = {}
 
     def add(counts):
-        for k in total:
-            total[k] += counts[k]
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
 
     def image(path):
         img = np.asarray(Image.open(path), np.float32)
@@ -3292,15 +3381,21 @@ def bench_launches(c) -> dict:
     poses' samples, the dense baseline's calls; K5 once a bounce of each
     path-traced sample."""
     from pathtracer_gaussiansplatting_tpu_torch import bench
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import (
+        dense_trace as dt,
+    )
 
     w = bench.WARMUPS
     pt4 = c.pt_iters + w + (bench.POSE_ITERS + w) * c.pose_spp
     pt12 = bench.PT12_ITERS + w
-    return dict(fwd=(c.iters + w) + (c.few + w) + pt4 + pt12,
-                bwd=c.few + w, topk=c.few + w,
-                trace=pt4 * (c.pt_depth - 1) + pt12 * (bench.PT12_DEPTH - 1),
-                vis=pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH,
-                rng=pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH)
+    # The dense baseline's K = min(k, 256) takes the list kernel above 128.
+    dense = "topk_list" if min(c.k, bench.DENSE_MAX_K) > dt.THREAD_MAX_K \
+        else "topk"
+    return {"fwd": (c.iters + w) + (c.few + w) + pt4 + pt12,
+            "bwd": c.few + w, dense: c.few + w,
+            "trace": pt4 * (c.pt_depth - 1) + pt12 * (bench.PT12_DEPTH - 1),
+            "vis": pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH,
+            "rng": pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH}
 
 
 def bench_run(cli, tc, gm, dt, card) -> dict:
@@ -3573,12 +3668,13 @@ def headline_split(tc, card, repeats: int = 5) -> dict:
     return dict(host=host, event_ms=event_ms, busy_ms=busy, split=split)
 
 
-def dense_baseline_split(dt, card) -> None:
+def dense_baseline_split(dt, card) -> dict:
     """10d: the bench's dense baseline, render_radiance_dense on the first
     50k Gaussians of the headline cloud, 64x32 rays, the list capped at
-    bench.DENSE_MAX_K: one call's wall time and the table's build; the
-    top-K kernel on those rays held to its plain version (bit-equal) and
-    timed beside the cull's counts and its bound by code path."""
+    bench.DENSE_MAX_K (the root bench's 256: the list kernel): one call's
+    wall time and the table's build; the top-K kernel on those rays held
+    to its plain version (bit-equal) and timed beside the plain version,
+    the cull's counts and its bound by code path."""
     from pathtracer_gaussiansplatting_tpu_torch import bench
     from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
         Camera, generate_rays, look_at,
@@ -3610,20 +3706,26 @@ def dense_baseline_split(dt, card) -> None:
     table, table_ms = host_ms(
         lambda: dt.dense_table(dt.gaussian_table(base, st)))
     o, d = rays.origins.contiguous(), rays.directions.contiguous()
-    topk_check(dt, (o, d, table, k, st), "the dense baseline's rays", "10d")
+    err = topk_check(dt, (o, d, table, k, st), "the dense baseline's rays",
+                     "10d")
     ms = cuda_ms(lambda: dt.dense_topk(o, d, table, k, st), 3)
+    plain_ms = cuda_ms(lambda: dt.dense_topk_plain(o, d, table.rows, k, st),
+                       1)
     cnt = dto.cull_counts(dt, o, d, table, st)
     cnt["contributing"] = contributing_pairs(dt, o, d, table.rows, st)
     bnd = dense_bound(dt, cnt, o.shape[0], n, k)
     log(f"phase 10d: dense baseline (N={n}, R={o.shape[0]}, K={k}): one "
         f"render_radiance_dense {call_ms:.1f} ms of wall time, the table's "
         f"build {table_ms:.2f} ms, dense_topk {ms:.3f} ms (CUDA events, 3 "
-        f"launches); the cull tests {cnt['tested']} pairs and keeps "
-        f"{cnt['kept']}, {cnt['contributing']} have alpha > 0 "
-        f"({cnt['contributing'] / o.shape[0]:.0f} a ray); bound by code "
+        f"launches; the {'list' if k > dt.THREAD_MAX_K else 'thread'} "
+        f"kernel), plain {plain_ms:.1f} ms; the cull tests {cnt['tested']} "
+        f"pairs and keeps {cnt['kept']}, {cnt['contributing']} have alpha "
+        f"> 0 ({cnt['contributing'] / o.shape[0]:.0f} a ray); bound by code "
         f"path {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, "
         f"{bnd['bound_ms'] / ms:.1%} of its rate; the function's bound "
         f"{bnd['function_bound_ms']:.4f} ms ({card})")
+    return dict(bnd, name="the bench's dense baseline", k=k, ms=ms,
+                plain_ms=plain_ms, max_abs_err=err)
 
 
 # ---- phase 11: the (rays, gauss) mesh and the spatial slab ring -----------
@@ -3633,6 +3735,7 @@ def dense_baseline_split(dt, card) -> None:
 SPATIAL_N, SPATIAL_TILE, SPATIAL_K = 2_000_000, 64, 64
 SPATIAL_FRAME = (3840, 2160)
 SPATIAL_SUBSET = 256  # rays held to the plain version
+SPATIAL_K_LIST = 160  # 11e's K, above the thread kernel's 128
 # 11b: phase 5's scene and pose; 11c: phase 6's scene and 6b's chunks;
 # 11d: the headline cloud's first SHARD_N Gaussians and SHARD_RAYS rays of
 # its camera.
@@ -3790,8 +3893,29 @@ def spatial_2m(dt, mesh, dev, card) -> dict:
         f"{int((g != 0).sum())} Gaussians with a gradient ({card})")
     log(f"phase 11a: card vs plain top-K on {SPATIAL_SUBSET} rays: max abs "
         f"err {err:.3e} (rtol {RING_RTOL}, atol {RING_ATOL})")
-    return dict(launches=launches, fwd_ms=fwd_ms, grad_ms=grad_ms,
-                peak_gib=peak)
+    # 11e: the slab composite at K = SPATIAL_K_LIST (the JAX package's
+    # tests/test_spatial.py:324's max_contribs), through the top-K's list
+    # kernel, against the plain top-K on the same rays.
+    settings_l = RenderSettings(max_contribs=SPATIAL_K_LIST)
+    dt.TOPK_LAUNCHES = dt.TOPK_LIST_LAUNCHES = 0
+    with torch.no_grad():
+        got, ms_l = host_ms(lambda: spatial.render_spatial(
+            block, sub, settings_l, mesh))
+        list_launches = dt.TOPK_LIST_LAUNCHES
+        with PlainTopK(dt):
+            want = spatial.render_spatial(block, sub, settings_l, mesh)
+    check(list_launches == 2 and dt.TOPK_LAUNCHES == 0,
+          f"11e: the list kernel launched {list_launches} times, the thread "
+          f"kernel {dt.TOPK_LAUNCHES}, not 2 and 0")
+    err_l = compare(got, want, f"11e render_spatial at K={SPATIAL_K_LIST} "
+                    "vs plain top-K", rtol=RING_RTOL, atol=RING_ATOL)
+    log(f"phase 11e: render_spatial at K={SPATIAL_K_LIST} on "
+        f"{SPATIAL_SUBSET} rays of the same slab: {ms_l:.1f} ms (host clock, "
+        f"synchronized), the list kernel's launches {list_launches}; card "
+        f"vs plain top-K max abs err {err_l:.3e} (rtol {RING_RTOL}, atol "
+        f"{RING_ATOL}) ({card})")
+    return dict(launches=launches, list_launches=list_launches,
+                fwd_ms=fwd_ms, grad_ms=grad_ms, peak_gib=peak)
 
 
 def spatial_backend_route(tc, dt, mesh, settings, dev, card,
@@ -4128,6 +4252,7 @@ def phase11(tc, dt, gm, gt, pt_settings, dense_ms, dev, card) -> dict:
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
     return dict(fwd=b["launches"][0],
                 topk=a["launches"] + b["launches"][1] + d["launches"],
+                topk_list=a["list_launches"],
                 dense_vis=b["launches"][2], trace=c["launches"][0],
                 vis=c["launches"][1], rng=b["launches"][3])
 
@@ -4490,6 +4615,478 @@ def threefry_checks(rng, k5, key, card) -> list:
     return out
 
 
+# ---- phase 14: every K, Kc and tile size on a hand kernel ------------------
+
+# 14a: the top-K's list kernel at these K on 5a's chunks, and at K = N on
+# surface_scene(TOPK_N_SMALL); timed at every K on the primary and bounce
+# chunks.
+TOPK_LIST_KS = (160, 256, 512, 2048)
+TOPK_N_SMALL = 3000
+# 14b: the march kernels' wide instantiation at these Kc on 6b's chunks,
+# with a memory budget for the tables (Kc = 256 builds ~11 GiB at 500k);
+# ray for ray (grid_exact_check) on each chunk's first WIDE_EXACT_RAYS:
+# the plain march without exit fractions took ~60 s on the whole bounce
+# chunk at Kc = 256.
+WIDE_KCS = (144, 256)
+WIDE_BUDGET = 16e9
+WIDE_EXACT_RAYS = 16384
+# 14c: tile sizes beside 16: P = 64, 144 and 1024 pixels a tile.
+TILE_SIZES = (8, 12, 32)
+# 14e: the capture pose at the widest Kc, its first trace and shadow march
+# held to the plain march on their first WIDE_POSE_RAYS rays.
+WIDE_POSE_SPP, WIDE_POSE_RAYS = 2, 16384
+# 14d: the fit at tile size 32 held to the CPU step by step. Three
+# free-running Adam steps amplify gradient signs flipped below 1e-6 of a
+# leaf's scale (Adam moves such a parameter by about lr either way): on the
+# CPU alone, noise of 1e-7 of the largest packet gradient moved the third
+# loss of 4c's fit by up to 1.3% at tile size 16 and 32, and the card's
+# free-running third loss at tile size 32 differed by 2.8% while its step-0
+# gradients matched as at 16. So each step's loss and gradients are taken
+# on the card from the CPU's parameters, with 4c's tolerances.
+FIT_STEPS_14 = 3
+
+
+def topk_equal(got, want, name: str) -> None:
+    """Every output of the top-K kernel bit-equal to its plain version's."""
+    bad = [int((g != w).sum()) for g, w in zip(got, want)]
+    check(bad == [0, 0, 0], f"{name}: dense_topk not bit-equal to its plain "
+          f"version ({bad[0]} idx, {bad[1]} t, {bad[2]} alpha slots differ)")
+
+
+def topk_lists(dt, dev, card) -> dict:
+    """14a: the top-K's list kernel (K above 128) against dense_topk_plain,
+    every output bit for bit, at each K of TOPK_LIST_KS on 5a's chunks:
+    primary, bounce and thin-far rays, the primary rays ordered by tied
+    sort depths, the bounce rays under a 50% active mask. Each K is held to
+    the first K columns of the plain version at the largest (a stable
+    sort's first K are its K smallest). Timed at each K on the primary and
+    bounce chunks beside the plain version and the bound by code path;
+    then K = N on surface_scene(TOPK_N_SMALL)'s primary chunk."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools import (
+        dense_table_order as dto,
+    )
+
+    st = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
+    scene, light, cam = pt_world(50_000, 800, 800, dev)
+    ch = dto.dense_chunks(dt, scene, light, cam, st, PT_CHUNK)
+    table, n = ch["table"], scene.num_gaussians
+    (_, po, pd), (_, bo, bd), _ = ch["topk"]
+    tied = torch.round(scene.means[:, 2] * 4.0) / 4.0
+    half = torch.from_numpy(np.random.default_rng(16).uniform(
+        size=PT_CHUNK) < 0.5).to(dev)
+    chunks = [(name, o, d, None, None) for name, o, d in ch["topk"]] + [
+        ("primary rays, tied sort depths", po, pd, tied, None),
+        ("bounce rays, half active", bo, bd, None, half)]
+    timed = ("primary rays", "bounce rays")
+    k_max = max(TOPK_LIST_KS)
+    res = {}
+    for name, o, d, sd, act in chunks:
+        t0 = time.perf_counter()
+        want = dt.dense_topk_plain(o, d, table.rows, k_max, st, sd, act)
+        for k in TOPK_LIST_KS:
+            got = dt.dense_topk(o, d, table, k, st, sd, act)
+            torch.cuda.synchronize()
+            topk_equal(got, tuple(x[:, :k] for x in want),
+                       f"14a {name}, K={k}")
+        kept = (want[2] > 0).sum(-1)
+        log(f"phase 14a {name}: dense_topk's list kernel at K = "
+            f"{', '.join(map(str, TOPK_LIST_KS))} bit-equal to the plain "
+            f"version (R={o.shape[0]}, N={n}); contributions a ray: mean "
+            f"{float(kept.float().mean()):.1f}, max {int(kept.max())}, "
+            f"{int((kept > TOPK_LIST_KS[0]).sum())} rays above "
+            f"K={TOPK_LIST_KS[0]}; {time.perf_counter() - t0:.1f} s")
+        if name not in timed:
+            continue
+        t0 = time.perf_counter()
+        cnt = dto.cull_counts(dt, o, d, table, st)
+        cnt["contributing"] = contributing_pairs(dt, o, d, table.rows, st)
+        log(f"phase 14a {name}: the cull's counts in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # The plain version's time hardly depends on K (its sort over N
+        # does not): taken once, at K = 256.
+        _, plain_ms = host_ms(
+            lambda: dt.dense_topk_plain(o, d, table.rows, 256, st))
+        for k in TOPK_LIST_KS:
+            ms = cuda_ms(lambda: dt.dense_topk(o, d, table, k, st), 3)
+            bnd = dense_bound(dt, cnt, o.shape[0], n, k)
+            res[(name, k)] = dict(bnd, ms=ms, plain_ms=plain_ms,
+                                  max_abs_err=0.0)
+            log(f"phase 14a {name}, K={k}: list kernel {ms:.3f} ms (CUDA "
+                f"events, 3 launches), plain {plain_ms:.1f} ms (host clock, "
+                f"at K=256); bound by "
+                f"code path {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+                f"({bnd['bound_flops']:.4e} flops, {bnd['bound_bytes']:.4e} "
+                f"bytes) = {bnd['bound_ms'] / ms:.1%} of its rate; the "
+                f"function's bound {bnd['function_bound_ms']:.4f} ms ({card})")
+    del ch, table, scene, chunks, want
+    # K = N: the lists in global memory, every contribution of a ray kept.
+    small, light, cam = pt_world(TOPK_N_SMALL, 800, 800, dev)
+    ch = dto.dense_chunks(dt, small, light, cam, st, PT_CHUNK)
+    (_, o, d), (_, bo, bd), _ = ch["topk"]
+    for name, ro, rd in (("primary rays", o, d), ("bounce rays", bo, bd)):
+        before = dt.TOPK_LIST_LAUNCHES
+        got = dt.dense_topk(ro, rd, ch["table"], TOPK_N_SMALL, st)
+        launches = dt.TOPK_LIST_LAUNCHES - before
+        want = dt.dense_topk_plain(ro, rd, ch["table"].rows, TOPK_N_SMALL, st)
+        torch.cuda.synchronize()
+        topk_equal(got, want, f"14a {name}, K=N={TOPK_N_SMALL}")
+        ms = cuda_ms(lambda: dt.dense_topk(ro, rd, ch["table"], TOPK_N_SMALL,
+                                           st), 3)
+        log(f"phase 14a {name} of surface_scene({TOPK_N_SMALL}), K=N: the "
+            f"list kernel bit-equal to the plain version; {ms:.3f} ms (CUDA "
+            f"events, 3 calls, {launches} launches a call: the lists in "
+            f"global memory, a chunk of rays a launch); most contributions a "
+            f"ray "
+            f"{int((want[2] > 0).sum(-1).max())} ({card})")
+    return res
+
+
+def grid_wide_checks(gm, gt, capture, dev, card) -> dict:
+    """14b: the march kernels' wide instantiation at each Kc of WIDE_KCS on
+    surface_scene(500k)'s grid: 6b's gates on its bounce and shadow chunks
+    (the default schedule, and ray for ray on its rounds without exit
+    fractions), timed beside the bound; then 14e, the capture pose at the
+    largest Kc (WIDE_POSE_SPP samples, the main path of the wide
+    instantiations) with 6e's gates on its first trace and shadow march
+    and its frozen count."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
+        BinningConfig,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools.grid_march_lanes import (
+        march_chunks,
+    )
+
+    scene = surface_scene(500_000, seed=13, device=dev)
+    cam = Camera(c2w=look_at(PT_EYE, PT_TARGET, device=dev), fov_y_deg=60.0,
+                 width=1920, height=1080)
+    st = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
+    chunks = march_chunks(scene, cam, st, BinningConfig())[:2]
+    res = {}
+    for kc in WIDE_KCS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accel = gt.build_grid_accel(scene, max_per_cell=kc,
+                                    memory_budget_bytes=WIDE_BUDGET)
+        torch.cuda.synchronize()
+        log(f"phase 14b: build_grid_accel(surface_scene(500k), Kc={kc}) "
+            f"{time.perf_counter() - t0:.2f} s, tables "
+            f"{grid_bytes(accel) / 2 ** 30:.3f} GiB, stats "
+            f"{json.dumps(accel.stats_dict)} ({card})")
+        for name, o, d, kw in chunks:
+            t0 = time.perf_counter()
+            r = grid_kernel_check(gt, accel, st, f"{name}, Kc={kc}", o, d,
+                                  kw, card, phase="14b")
+            grid_exact_check(gt, accel, st, name, o, d, kw, card,
+                             phase="14b", rays=WIDE_EXACT_RAYS)
+            bnd = grid_bound(gt, accel, r)
+            res[(r["feat"], kc)] = dict(r, **bnd)
+            log(f"phase 14b {name}, Kc={kc}: kernel {r['ms']:.3f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+                f"({bnd['bound_flops']:.4e} flops, {bnd['bound_bytes']:.4e} "
+                f"bytes) = {bnd['bound_ms'] / r['ms']:.1%} of its rate; "
+                f"checks {time.perf_counter() - t0:.1f} s ({card})")
+        if kc == max(WIDE_KCS):
+            pose = grid_pose(gm, gt, capture, scene, st, accel, card,
+                             spp=WIDE_POSE_SPP, phase="14e", profile=False,
+                             plain_rays=WIDE_POSE_RAYS)
+        del accel
+    return dict(marches=res, pose=pose)
+
+
+def tile_size_checks(tc, scene, cam, key, card) -> dict:
+    """14c: the tile kernels at each tile size of TILE_SIZES on the
+    headline's packets (800x800, K=256, jittered): the forward against its
+    plain version with phase 1's gates, and at transmittance_min=0 (no
+    chunk skip that depends on how the pixels are grouped) bit-equal to
+    the one-block kernel on the same pixels cut into its tiles
+    (as_block_tiles); the backward with 4a's gates (bwd_check); both timed
+    beside their bounds."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
+        BinningConfig,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        _tile_dirs, prepare_tiles,
+    )
+
+    settings = RenderSettings(background=(0.1, 0.2, 0.3))
+    full = dataclasses.replace(settings, transmittance_min=0.0)
+    res = {}
+    for ts in TILE_SIZES:
+        t0 = time.perf_counter()
+        cfg = BinningConfig(max_per_tile=256, tile_size=ts)
+        prepared = prepare_tiles(scene, cam, settings, cfg)
+        packets = {k: prepared[k] for k in ("geom", "featsT", "count")}
+        dirs, _ = _tile_dirs(cam, cfg, rng.subpixel_jitter(
+            key, cam.height, cam.width, 0, device=scene.means.device))
+        got = tc.tile_composite(packets, dirs, settings)
+        want = tc.tile_composite_plain(packets, dirs, settings)
+        torch.cuda.synchronize()
+        err = max(compare(got[0], want[0], f"14c tile {ts} out"),
+                  compare(got[1], want[1], f"14c tile {ts} alpha_acc"),
+                  compare(got[2], want[2], f"14c tile {ts} depth",
+                          mask=want[1] > 1e-3))
+        got = tc.tile_composite(packets, dirs, full)
+        bpk, bdirs, p = tc.as_block_tiles(packets, dirs)
+        ref = tc.tile_composite(bpk, bdirs, full)
+        torch.cuda.synchronize()
+        bits = [bool(torch.equal(g, r.reshape(g.shape[0], -1,
+                                              *r.shape[2:])[:, :p]))
+                for g, r in zip(got, ref)]
+        check(all(bits), f"14c tile {ts}: the forward at transmittance_min=0 "
+              f"not bit-equal to the one-block kernel on the same pixels "
+              f"(out, alpha_acc, depth: {bits})")
+        ms = cuda_ms(lambda: tc.tile_composite(packets, dirs, settings), 20)
+        plain_ms = cuda_ms(
+            lambda: tc.tile_composite_plain(packets, dirs, settings), 3)
+        bnds = tile_bounds(packets, dirs, settings)
+        kernel = "one-block" if tc.one_block(p) else "any-P"
+        log(f"phase 14c tile size {ts} (T={dirs.shape[0]}, P={p}, K=256; "
+            f"the {kernel} kernels): forward vs plain max abs err {err:.3e} "
+            f"(rtol {RTOL}, atol {ATOL}); at transmittance_min=0 bit-equal "
+            f"to the one-block kernel on the same pixels; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms (CUDA events; {card}); "
+            f"{bnds['pairs']} pixel-slot pairs, {bnds['live_pairs']} with "
+            f"alpha > 0; {bound_text(bnds['fwd'], ms)}")
+        bwd = bwd_check(tc, packets, dirs, settings, f"tile size {ts}", card,
+                        phase="14c")
+        res[ts] = dict(fwd=dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                bound=bnds["fwd"]), bwd=bwd)
+        log(f"phase 14c tile size {ts}: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def tile32_paths(tc, gm, dt, scene, cam, small, small_cam, key, dev,
+                 card) -> dict:
+    """14d: the tile path at tile size 32 (P = 1024, the any-P kernels) end
+    to end: a headline frame (prepare_tiles and one jittered
+    render_prepared of the 1M cloud at 800x800, K=256; phase 2's gates);
+    at phase 1's small size the slice (2 samples) and three fit steps, the
+    card against the CPU (phase 1's gates; 4c's tolerances at each step,
+    stepwise_train_check). Returns the launches of this path by kernel."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
+        BinningConfig,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        prepare_tiles, render_prepared,
+    )
+
+    settings = RenderSettings(background=(0.1, 0.2, 0.3))
+    cfg = BinningConfig(max_per_tile=256, tile_size=32)
+    reset_counts(tc, gm, dt)
+    packets, prep_ms = host_ms(lambda: prepare_tiles(scene, cam, settings,
+                                                     cfg))
+    out, ms = host_ms(lambda: render_prepared(
+        packets, cam, settings, cfg, outputs=("color",),
+        jitter=rng.subpixel_jitter(key, cam.height, cam.width, 0,
+                                   device=dev)))
+    frame = read_counts(tc, gm, dt)
+    img = out["color"].cpu().numpy()
+    check(frame["fwd_any"] == 1 and frame["fwd"] == 0,
+          f"14d: the headline frame at tile size 32 launched {frame}")
+    check(img.shape == (cam.height, cam.width, 3)
+          and bool(np.isfinite(img).all()) and 0.0 < float(img.mean()) < 2.0,
+          f"14d: the headline frame at tile size 32: shape {img.shape}, "
+          f"mean {img.mean()}")
+    small_cfg = BinningConfig(max_per_tile=512, tile_size=32)
+    reset_counts(tc, gm, dt)
+    slice_err = small_slice_check(small, small_cam, small_cfg, settings, key,
+                                  dev)
+    fit = stepwise_train_check(small, small_cam, small_cfg, settings, dev)
+    small_counts = read_counts(tc, gm, dt)
+    check(small_counts["fwd_any"] > 0 and small_counts["bwd_any"] > 0
+          and small_counts["fwd"] == 0,
+          f"14d: the small slice and fit at tile size 32 launched "
+          f"{small_counts}")
+    log(f"phase 14d: tile size 32: the headline frame (1M Gaussians, "
+        f"800x800, K=256, T={packets['count'].shape[0]}) prepare "
+        f"{prep_ms:.1f} ms, one sample {ms:.2f} ms (host clock, first "
+        f"call), image mean {img.mean():.5f}, finite; the small slice "
+        f"(2000 Gaussians, 96x64, K=512, 2 spp) card vs CPU max abs err "
+        f"{slice_err:.3e}; the small fit card vs CPU, step by step from the "
+        f"same parameters ({FIT_STEPS_14} steps): gradients max err "
+        f"{fit['grad']:.3e} of the leaf's max |g|, losses max rel err "
+        f"{fit['loss']:.3e}; any-P launches: forward "
+        f"{frame['fwd_any'] + small_counts['fwd_any']}, backward "
+        f"{small_counts['bwd_any']} ({card})")
+    return dict(fwd_any=frame["fwd_any"] + small_counts["fwd_any"],
+                bwd_any=small_counts["bwd_any"])
+
+
+def stepwise_train_check(scene, cam_kw, cfg, settings, dev,
+                         steps: int = FIT_STEPS_14) -> dict:
+    """FIT_STEPS_14 steps of 4c's fit (the small scene from the same noised
+    start, two poses in turn, Adam at lr 2e-2, transmittance_min=0) on the
+    CPU, and before each the card's make_tiled_train_step from the CPU's
+    parameters of that step: each step's loss within rtol 1e-3 and each
+    leaf's gradient within 1e-3 of the CPU's largest |g| (plus rtol 2e-3),
+    4c's tolerances (see FIT_STEPS_14)."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        SCENE_FIELDS,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        SceneParams,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import train
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        render_tiled_fused,
+    )
+
+    settings = dataclasses.replace(settings, transmittance_min=0.0)
+    cpu = torch.device("cpu")
+    cams = {d: [Camera(**{**cam_kw, "c2w": look_at(eye, (0.0, 0.0, 0.0),
+                                                   device=d)})
+                for eye in ((0.0, 0.5, 4.0), (2.5, 0.5, 2.5))]
+            for d in (dev, cpu)}
+    with torch.no_grad():
+        targets = [render_tiled_fused(scene, c, settings, cfg)["color"]
+                   for c in cams[cpu]]
+    params = SceneParams.from_scene(noised_start(scene, 0.15, seed=6))
+    opt = train.make_optimizer(2e-2)
+    opt_state = opt(params.parameters())
+    step = train.make_tiled_train_step(settings, opt, config=cfg)
+    grad_err = loss_err = 0.0
+    for i in range(steps):
+        p = i % 2
+        card = SceneParams.from_scene(params.scene().to(dev))
+        _, _, card_loss = step(card, opt(card.parameters()), cams[dev][p],
+                               targets[p].to(dev))
+        card_grads = {f: getattr(card.grad_scene(), f).cpu()
+                      for f in SCENE_FIELDS}
+        params, opt_state, loss = step(params, opt_state, cams[cpu][p],
+                                       targets[p])
+        grads = params.grad_scene()
+        loss_err = max(loss_err, compare(
+            card_loss.cpu()[None], loss[None], f"14d fit step {i} loss",
+            rtol=1e-3, atol=0.0) / float(loss))
+        for f in SCENE_FIELDS:
+            want = getattr(grads, f)
+            scale = float(want.abs().max())
+            if scale > 0:
+                grad_err = max(grad_err, compare(
+                    card_grads[f], want, f"14d fit step {i} grad {f}",
+                    rtol=2e-3, atol=1e-3 * scale) / scale)
+            else:
+                check(bool((card_grads[f] == 0).all()), f"14d fit step {i} "
+                      f"grad {f}: nonzero on the card, 0 on the CPU")
+    return dict(grad=grad_err, loss=loss_err)
+
+
+def cli_dense_k256(cli, dt, dev, card) -> int:
+    """14f: ``cli render --backend dense --max-contribs 256`` on 5b's scene
+    (surface_scene(2000, seed 13) as a 3DGS checkpoint, phase 5's ambient
+    and a sun, phase 8's torus; 96x64, 2 spp, depth 1) with --device cuda
+    and --device cpu: the float images handed to save_png held to 5b's
+    depth-1 gates. Returns the list kernel's launches on the card's run."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.data.ply import save_3dgs_ply
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+
+    with tempfile.TemporaryDirectory(dir=ROOT,
+                                     prefix=".chip_smoke_k256_") as root:
+        save_3dgs_ply(os.path.join(root, "room.ply"),
+                      surface_scene(2000, seed=13, device="cpu"))
+        cfg = os.path.join(root, "scene.json")
+        with open(cfg, "w") as fh:
+            # The checkpoint drops the panel's emission, and the room's
+            # walls shade the sun: 5b's gates hold the port here, not
+            # under a bright ambient, where thin surfels' alpha cutoffs
+            # round apart on the card and the CPU (at ambient 0.6, 95.5%
+            # of pixels within the tolerance, the same with K=64's thread
+            # kernel as with the list kernel).
+            json.dump({"settings": {
+                "ambient_light": [0.05, 0.05, 0.06, 1.0],
+                "torus_settings": dict(CAPTURE_TORUS, num_rays=4096),
+                "sun": {"color": [1.0, 0.95, 0.9],
+                        "direction": [0.3, -1.0, 0.2], "intensity": 1.5},
+                "width": 96, "height": 64, "fov": 60, "max_depth": 1},
+                "objects": [{"model": "room.ply"}]}, fh)
+        imgs, launches = [], {}
+        for device in (dev, torch.device("cpu")):
+            dt.TOPK_LAUNCHES = dt.TOPK_LIST_LAUNCHES = 0
+            with HostTimer(cli, "save_png", keep=True) as png:
+                run_cli(cli, ["render", "--scene", cfg, "--output",
+                              os.path.join(root, f"{device.type}.png"),
+                              "--backend", "dense", "--max-contribs", "256",
+                              "--spp", "2", "--device", device.type])
+            launches[device.type] = (dt.TOPK_LIST_LAUNCHES, dt.TOPK_LAUNCHES)
+            imgs.append(torch.from_numpy(np.asarray(png.calls[0][0][1],
+                                                    np.float32)))
+    check(launches["cuda"][0] > 0 and launches["cuda"][1] == 0
+          and launches["cpu"] == (0, 0),
+          f"14f: top-K launches (list, thread) by device {launches}")
+    pt_gates("14f", "cli render --backend dense --max-contribs 256", imgs[0],
+             imgs[1], PT_MIN_SHARE, RenderSettings(max_depth=1),
+             "5b's scene as a 3DGS checkpoint with a sun, 96x64, 2 spp")
+    return launches["cuda"][0]
+
+
+def phase14(cli, tc, gm, gt, dt, capture, small, small_cam, key, dev,
+            card) -> dict:
+    """Phase 14: the sizes above the one-block and thread kernels' caps;
+    returns the figures for the kernel table."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, look_at,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        random_cloud,
+    )
+
+    t14 = time.perf_counter()
+    marks = [("start", t14)]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    topk = topk_lists(dt, dev, card)
+    mark("14a")
+    grid = grid_wide_checks(gm, gt, capture, dev, card)
+    mark("14b, 14e")
+    scene = random_cloud(1_000_000, seed=13, spread=1.5, device=dev)
+    cam = Camera(c2w=look_at((0.0, 0.5, 4.0), (0.0, 0.0, 0.0), device=dev),
+                 fov_y_deg=50.0, width=800, height=800)
+    tiles = tile_size_checks(tc, scene, cam, key, card)
+    mark("14c")
+    paths = tile32_paths(tc, gm, dt, scene, cam, small, small_cam, key, dev,
+                         card)
+    mark("14d")
+    del scene
+    cli_launches = cli_dense_k256(cli, dt, dev, card)
+    mark("14f")
+    log(f"phase 14: {time.perf_counter() - t14:.1f} s ("
+        + ", ".join(f"{n} {t - marks[i][1]:.1f} s"
+                    for i, (n, t) in enumerate(marks[1:])) + ")")
+    return dict(topk=topk, grid=grid, tiles=tiles, paths=paths,
+                cli_launches=cli_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4597,18 +5194,8 @@ def main() -> int:
                                  device="cpu"),
                      fov_y_deg=50.0, width=96, height=64)
     small_cfg = BinningConfig(max_per_tile=512)
-    imgs = []
-    for device in (dev, torch.device("cpu")):
-        c = Camera(**{**small_cam, "c2w": small_cam["c2w"].to(device)})
-        pk = prepare_tiles(small.to(device), c, settings, small_cfg)
-        acc = torch.zeros((c.height, c.width, 3), device=device)
-        for f in range(2):
-            jit = rng.subpixel_jitter(key, c.height, c.width, f, device=device)
-            out = render_prepared(pk, c, settings, small_cfg, jitter=jit,
-                                  outputs=("color",))
-            acc = accumulate(acc, out["color"], f)
-        imgs.append(acc.cpu())
-    small_err = compare(imgs[0], imgs[1], "small slice, card vs CPU")
+    small_err = small_slice_check(small, small_cam, small_cfg, settings, key,
+                                  dev)
     log(f"phase 1: small slice (2000 Gaussians, 96x64, K=512, 2 spp) card "
         f"vs CPU max abs err {small_err:.3e}")
 
@@ -4890,7 +5477,7 @@ def main() -> int:
     p10 = bench_run(cli, tc, gm, dt, card)["launches"]
     pt12_card_vs_cpu(dev, card)
     pt12_profile(gm, card)
-    dense_baseline_split(dt, card)
+    base10 = dense_baseline_split(dt, card)
     headline_split(tc, card)
     log(f"phase 10: {time.perf_counter() - t10:.1f} s")
 
@@ -4925,6 +5512,10 @@ def main() -> int:
         f"thread, unrolled): {sum(mix.values())} instructions; by opcode "
         f"{json.dumps(mix)}")
 
+    # ---- phase 14: every K, Kc and tile size on a hand kernel ----------
+    p14 = phase14(cli, tc, gm, gt, dt, capture, small, small_cam, key, dev,
+                  card)
+
     check("jax" not in sys.modules, "jax was imported")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -4948,6 +5539,23 @@ def main() -> int:
                     plain_ms=res["plain_ms"], bound_ms=bnd["bound_ms"],
                     bound_by=bnd["bound_by"], library_ms=None, **fn_key,
                     **extra)
+
+    topk_list = p14["topk"][("primary rays", 256)]
+    marches = p14["grid"]["marches"]
+    trace_w, vis_w = marches[(True, 256)], marches[(False, 256)]
+    tile32 = p14["tiles"][32]
+
+    def wide_shapes(feat):
+        return [dict(name=f"Kc={kc}", ms=r["ms"], plain_ms=r["plain_ms"],
+                     bound_ms=r["bound_ms"])
+                for (f, kc), r in marches.items() if f == feat]
+
+    def tile_shapes(which):
+        return [dict(name=f"tile size {ts}", ms=r[which]["ms"],
+                     plain_ms=r[which]["plain_ms"],
+                     bound_ms=r[which]["bound"]["bound_ms"])
+                for ts, r in p14["tiles"].items()
+                if not tc.one_block(ts * ts)]
 
     topk = dict(dense["topk"], max_abs_err=max(
         dense["topk"]["max_abs_err"], tiled["max_abs_err"][0]))
@@ -5004,6 +5612,30 @@ def main() -> int:
                            plain_ms=r["plain_ms"],
                            bound_ms=r["bound"]["bound_ms"])
                       for r in k5_res]),
+        # Phase 14's new paths: times at 5a's primary chunk at K = 256, at
+        # 6b's chunks at Kc = 256, at the headline at tile size 32; the
+        # other shapes beside them.
+        entry("dense_topk_list", TOPK_SOURCE, TOPK_REPLACES,
+              p10["topk_list"] + p11["topk_list"] + p14["cli_launches"],
+              topk_list, topk_list, shapes=[
+                  dict(name=f"{name}, K={k}", ms=r["ms"],
+                       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"])
+                  for (name, k), r in p14["topk"].items()] + [
+                  dict(name=f"{base10['name']}, K={base10['k']}",
+                       ms=base10["ms"], plain_ms=base10["plain_ms"],
+                       bound_ms=base10["bound_ms"])]),
+        entry("grid_trace_wide", GRID_SOURCE, GRID_TRACE_REPLACES,
+              p14["grid"]["pose"]["launches"][0], trace_w, trace_w,
+              shapes=wide_shapes(True)),
+        entry("grid_visibility_wide", GRID_SOURCE, GRID_VIS_REPLACES,
+              p14["grid"]["pose"]["launches"][1], vis_w, vis_w,
+              shapes=wide_shapes(False)),
+        entry("tile_composite_fwd_any", KERNEL_SOURCE, KERNEL_REPLACES,
+              p14["paths"]["fwd_any"], tile32["fwd"], tile32["fwd"]["bound"],
+              shapes=tile_shapes("fwd")),
+        entry("tile_composite_bwd_any", BWD_KERNEL_SOURCE,
+              BWD_KERNEL_REPLACES, p14["paths"]["bwd_any"], tile32["bwd"],
+              tile32["bwd"]["bound"], shapes=tile_shapes("bwd")),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

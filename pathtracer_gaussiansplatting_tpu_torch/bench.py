@@ -62,7 +62,7 @@ from pathtracer_gaussiansplatting_tpu_torch.data.capture import (  # noqa: E402
     make_tiled_pose_renderer,
 )
 from pathtracer_gaussiansplatting_tpu_torch.kernels import (  # noqa: E402
-    dense_trace, tile_composite as tc,
+    tile_composite as tc,
 )
 from pathtracer_gaussiansplatting_tpu_torch.models.scene import (  # noqa: E402
     random_cloud, surface_scene,
@@ -119,9 +119,9 @@ POSE_SPP_FULL, POSE_FOV = 512, 45.0
 # alone run past opaque_depth.
 PT12_DEPTH, PT12_OPAQUE_DEPTH = 12, 4
 PT_AMBIENT = (0.05, 0.05, 0.06, 1.0)
-# The dense baseline's list a ray: the root bench's min(K, 256), capped at
-# the longest list the top-K kernel keeps (dense_trace.MAX_K).
-DENSE_MAX_K = min(256, dense_trace.MAX_K)
+# The dense baseline's list a ray: the root bench's min(K, 256)
+# (bench.py:195).
+DENSE_MAX_K = 256
 # Timed calls: one warm-up before each timed section; the depth-12 samples
 # and the capture poses timed (bench.py:250, 280). The other sections'
 # counts follow BenchConfig.iters (BenchConfig.few, BenchConfig.pt_iters).
@@ -199,10 +199,13 @@ def live_share(packets, dirs, settings):
     pixels has alpha > 0, and the (pixel, slot) pairs evaluated with alpha
     > 0, counted in torch from the plain version's alpha. The backward's
     phase 2 works on the live (warp, slot)s alone, and the forward's
-    composite step runs only there."""
+    composite step runs only there. Where P is not a whole number of a
+    block's warps, the any-P kernels' lanes past P repeat pixel P - 1."""
     geom = packets["geom"]
     t_total, p, _ = dirs.shape
     k = geom.shape[-1]
+    block = min(tc.BLOCK_PIXELS, -(-p // 32) * 32)
+    lanes = -(-p // block) * block
     _, skip_from, kc = chunk_schedule(packets, dirs, settings)
     slot = torch.arange(k, device=dirs.device)
     run = (slot[None] < torch.ceil(packets["count"]).long()[:, None]) \
@@ -215,9 +218,11 @@ def live_share(packets, dirs, settings):
                                settings)
         pair_live = (alpha > 0) & run[s:s + step, None]
         live_pairs += int(pair_live.sum())
-        live += int(pair_live.reshape(g.shape[0], p // 32, 32, k).any(2)
+        lane_live = torch.cat([pair_live, pair_live[:, -1:].expand(
+            -1, lanes - p, -1)], 1)
+        live += int(lane_live.reshape(g.shape[0], lanes // 32, 32, k).any(2)
                     .sum())
-    return live, int(run.sum()) * (p // 32), live_pairs
+    return live, int(run.sum()) * (lanes // 32), live_pairs
 
 
 def tile_bounds(packets, dirs, settings) -> dict:

@@ -56,6 +56,14 @@
 //   this summation order differs from a serial march.
 // - No local arrays: every per-lane array has a compile-time size and is
 //   indexed by unrolled loops.
+// - Kc above kRegSlots (the NS = 0 instantiation, any multiple of 16): a
+//   lane's slots would grow as register arrays past what a thread holds,
+//   so a feature trace keeps the cell's alpha, peak t and exclusive
+//   products in shared memory (12 bytes a slot a ray, beside a ballot word
+//   a 32 slots), and a shadow segment, which needs only the cell's product
+//   in slot order, takes the cell in passes of L slots with no array at
+//   all. Both walk the live slots in the order above, with the same
+//   operands, so they give the register path's bits.
 //
 // Plain C entry points (bound with ctypes); each returns cudaGetLastError().
 
@@ -74,7 +82,9 @@ using ptgs_grid::Ray;
 
 constexpr int kThreads = 128;
 constexpr int kWarp = 32;
-constexpr int kMaxKc = 128;
+// Kc up to this keeps a lane's NS = ceil(Kc / L) slots in registers;
+// above, the NS = 0 instantiation (composite_cell_wide).
+constexpr int kRegSlots = 128;
 // Lanes a ray: a warp for a feature trace, half a warp for a shadow
 // segment, which is mostly probes (about 20 a segment against 1.6 cells
 // composited), so fewer lanes repeat them.
@@ -209,6 +219,95 @@ __device__ __forceinline__ float composite_cell(
     }
   }
   return ct;
+}
+
+// composite_cell for any Kc (the NS = 0 instantiation): the same walk
+// over the cell's live slots in slot order, with the same operands, so the
+// same bits. A shadow segment multiplies its cell's transmittance in
+// passes of L slots, each slot's alpha broadcast from its lane. A feature
+// trace first writes every slot's alpha and peak t (0 where not live) to
+// the ray's region of shared memory, wide = [alpha (Kc), t_peak (Kc),
+// excl (Kc), ballot words (Kc / L)], its lanes taking slots l, l + L, ...
+template <bool FEAT, int L>
+__device__ __forceinline__ float composite_cell_wide(
+    const Ray& r, const float* row, float t0, float t1, bool segment,
+    float t_cap, float t_enter, float* acc, const Params& prm,
+    const RayLanes<L>& rl, float* wide) {
+  const int kc = prm.kc;
+  float ct = 1.0f;
+  if (!FEAT) {
+    for (int s0 = 0; s0 < kc; s0 += L) {
+      const int j = s0 + rl.lane;
+      float alpha = 0.0f;
+      if (j < kc) {
+        const ptgs_grid::Response e =
+            ptgs_grid::respond(r, row, kc, j, t0, t1, segment, t_cap, prm);
+        if (e.alpha > 0.0f) alpha = e.alpha;
+      }
+      unsigned m = rl.ballot(alpha > 0.0f);
+      while (m != 0u) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1u;
+        ct = fmul(ct, fsub(1.0f, rl.bcast(alpha, src)));
+      }
+    }
+    return ct;
+  }
+  float* sa = wide;
+  float* st = wide + kc;
+  float* se = wide + 2 * kc;
+  unsigned* sl = reinterpret_cast<unsigned*>(wide + 3 * kc);
+  for (int s0 = 0; s0 < kc; s0 += L) {
+    const int j = s0 + rl.lane;
+    float alpha = 0.0f, tpk = 0.0f;
+    if (j < kc) {
+      const ptgs_grid::Response e =
+          ptgs_grid::respond(r, row, kc, j, t0, t1, segment, t_cap, prm);
+      if (e.alpha > 0.0f) {
+        alpha = e.alpha;
+        tpk = e.t_peak;
+      }
+      sa[j] = alpha;
+      st[j] = tpk;
+      se[j] = 1.0f;
+    }
+    const unsigned live = rl.ballot(alpha > 0.0f);
+    if (rl.lane == 0) sl[s0 / L] = live;
+  }
+  __syncwarp(rl.mask);
+  // The live slots in slot order: the cell transmittance in every lane, and
+  // each of this lane's live slots' exclusive product over the Gaussians
+  // before it in (t, slot) order.
+  for (int w = 0; w * L < kc; ++w) {
+    unsigned m = sl[w];
+    while (m != 0u) {
+      const int j = w * L + __ffs(m) - 1;
+      m &= m - 1u;
+      const float om = fsub(1.0f, sa[j]);
+      ct = fmul(ct, om);
+      const float tj = st[j];
+      for (int i = rl.lane; i < kc; i += L) {
+        const float ti = st[i];
+        if (sa[i] > 0.0f && (tj < ti || (tj == ti && j < i)))
+          se[i] = fmul(se[i], om);
+      }
+    }
+  }
+  const bool deg1 = prm.cols >= ptgs_grid::kPktDeg1;
+  for (int i = rl.lane; i < kc; i += L) {
+    const float alpha = sa[i];
+    if (!(alpha > 0.0f)) continue;
+    const float w = fmul(fmul(t_enter, se[i]), alpha);
+    if (w > 0.0f) add_features(r, row, kc, i, w, st[i], deg1, acc);
+  }
+  __syncwarp(rl.mask);  // the region is read no more: the next cell may
+  return ct;           // write it
+}
+
+// Floats of a ray's region for composite_cell_wide (ballot words for
+// L = 16 or 32 lanes).
+__host__ __device__ constexpr int wide_floats(int kc) {
+  return 3 * kc + (kc + 15) / 16;
 }
 
 // The transmittance bookkeeping of one round's slot groups.
@@ -353,9 +452,18 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
           const unsigned below_hi = hi_word ? (mhi & below) : 0u;
           const int slot = base + __popc(below_lo) + __popc(below_hi);
           const float t_enter = fmul(grp.t_group, grp.e_prod);
-          const float ct = composite_cell<FEAT, NS, L>(
-              r, table + static_cast<size_t>(slot) * row_len, tk, tex,
-              segment, t_cap, t_enter, acc, prm, rl);
+          const float* cell_row = table + static_cast<size_t>(slot) * row_len;
+          float ct;
+          if constexpr (NS == 0) {
+            // The ray's region of the block's dynamic shared memory.
+            extern __shared__ float wide_smem[];
+            ct = composite_cell_wide<FEAT, L>(
+                r, cell_row, tk, tex, segment, t_cap, t_enter, acc, prm, rl,
+                wide_smem + (threadIdx.x / L) * wide_floats(prm.kc));
+          } else {
+            ct = composite_cell<FEAT, NS, L>(r, cell_row, tk, tex, segment,
+                                             t_cap, t_enter, acc, prm, rl);
+          }
           grp.e_last = grp.e_prod;
           grp.ct_last = ct;
           grp.e_prod = fmul(grp.e_prod, ct);
@@ -406,7 +514,7 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
 // Launches the instantiation for ns = ceil(Kc / L) slots a lane.
 template <bool FEAT, int NS = 1, typename... Args>
 void launch_ns(int ns, int blocks, cudaStream_t stream, Args... args) {
-  if constexpr (NS * lanes<FEAT>() < kMaxKc) {
+  if constexpr (NS * lanes<FEAT>() < kRegSlots) {
     if (ns > NS) return launch_ns<FEAT, NS + 1>(ns, blocks, stream, args...);
   }
   grid_march_kernel<FEAT, NS><<<blocks, kThreads, 0, stream>>>(args...);
@@ -421,11 +529,26 @@ cudaError_t launch(const float* origins, const float* dirs,
                    cudaStream_t stream) {
   constexpr int L = lanes<FEAT>();
   const int rays_per_block = kThreads / L;
-  launch_ns<FEAT>((prm.kc + L - 1) / L,
-                  (n_rays + rays_per_block - 1) / rays_per_block, stream,
-                  origins, dirs, t_end, active,
-                  reinterpret_cast<const int4*>(btab), table, lo, hi, trans,
-                  acc, frozen, n_rays, prm);
+  const int blocks = (n_rays + rays_per_block - 1) / rays_per_block;
+  const int4* bt = reinterpret_cast<const int4*>(btab);
+  if (prm.kc <= kRegSlots) {
+    launch_ns<FEAT>((prm.kc + L - 1) / L, blocks, stream, origins, dirs,
+                    t_end, active, bt, table, lo, hi, trans, acc, frozen,
+                    n_rays, prm);
+    return cudaGetLastError();
+  }
+  // Wider cells: the NS = 0 instantiation, with a feature trace's regions.
+  const size_t smem =
+      FEAT ? sizeof(float) * rays_per_block * wide_floats(prm.kc) : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        grid_march_kernel<FEAT, 0>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  grid_march_kernel<FEAT, 0><<<blocks, kThreads, smem, stream>>>(
+      origins, dirs, t_end, active, bt, table, lo, hi, trans, acc, frozen,
+      n_rays, prm);
   return cudaGetLastError();
 }
 
@@ -434,7 +557,7 @@ bool make_params(const int* sched, int n_rounds, int gx, int gy, int gz,
                  float alpha_max, float gval_cut, float transmittance_min,
                  float jump_unit, Params* prm) {
   if (n_rounds < 0 || n_rounds > ptgs_grid::kMaxRounds || kc <= 0 ||
-      kc > kMaxKc || gx <= 0 || gy <= 0 || gz <= 0)
+      gx <= 0 || gy <= 0 || gz <= 0)
     return false;
   *prm = Params{t_min, t_max, alpha_min, alpha_max, gval_cut,
                 transmittance_min, jump_unit, gx, gy, gz, kc, cols,

@@ -40,7 +40,20 @@
 // no TF32 or bf16 anywhere (exp of the quadratic amplifies truncated
 // operands).
 //
-// Plain C entry point (bound with ctypes); returns cudaGetLastError().
+// Every other tile size (tile_composite_fwd_any_kernel: P not a multiple
+// of 32, or above 256): one block a tile still, of min(P, 256) threads
+// rounded up to a warp, takes the tile's pixels in groups of its size,
+// pixel g * blockDim + thread in group g, chunk by chunk. A chunk's skip
+// needs the block-wide max of T over every pixel of the tile, so each
+// group runs the chunk in turn, with the forward's per-pixel code, and
+// where the tile has more than one group it keeps each pixel's T, depth
+// sum and feature sums in its outputs between chunks. The lanes past P
+// repeat pixel P - 1 and store nothing: their T is a pixel's T, so the
+// max does not change, and their votes only make a warp evaluate a slot
+// it could skip, which changes no bit. Each pixel's result is the
+// 16x16 kernel's for the same pixel under the same chunk schedule.
+//
+// Plain C entry points (bound with ctypes); each returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -91,12 +104,104 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
 }
 
 template <int F>
+__global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_any_kernel(
+    const float* __restrict__ count, const float* __restrict__ dirs,
+    const float* __restrict__ geom, const float* __restrict__ feats,
+    float* __restrict__ out, float* __restrict__ alpha_acc,
+    float* __restrict__ depth, int p, int k, int kc, Params prm) {
+  constexpr int kS = ptgs::slot_floats<F>();
+  __shared__ __align__(16) float stage[2][kStage * kS];
+  __shared__ float red[32];
+
+  const int tile = blockIdx.x;
+  const int n_groups = (p + blockDim.x - 1) / blockDim.x;
+  const bool multi = n_groups > 1;  // state kept in the outputs between chunks
+  const int n_valid = min(k, max(0, static_cast<int>(ceilf(count[tile]))));
+  const float* g_tile = geom + static_cast<size_t>(tile) * kGeomRows * k;
+  const float* f_tile = feats + static_cast<size_t>(tile) * F * k;
+
+  float trans = 1.0f, s_depth = 0.0f;
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+  ptgs::PixelDir pd{};
+  float t_hi = 1.0f;  // this thread's largest T after the last chunk
+  for (int c0 = 0; c0 < n_valid; c0 += kc) {
+    if (c0 > 0 && !(ptgs::block_max(t_hi, red) > prm.transmittance_min))
+      break;
+    const int n = min(kc, n_valid - c0);
+    float t_next = 0.0f;
+    for (int g = 0; g < n_groups; ++g) {
+      const int pix = g * blockDim.x + threadIdx.x;
+      const size_t px = static_cast<size_t>(tile) * p + min(pix, p - 1);
+      if (multi || c0 == 0) pd = ptgs::load_dir(dirs + px * 3);
+      if (multi && c0 > 0) {
+        trans = alpha_acc[px];
+        s_depth = depth[px];
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = out[px * F + f];
+      } else if (multi) {
+        trans = 1.0f;
+        s_depth = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+      }
+      ptgs::stage_loop<F, false>(
+          g_tile + c0, f_tile + c0, k, kc, n, prm.transmittance_min, stage,
+          red, trans, [&](const float* sb, int, int m) {
+#pragma unroll 4
+            for (int j = 0; j < m; ++j) {
+              const ptgs::SlotEval e =
+                  ptgs::eval_geom(pd, ptgs::stage_geom(sb, kS, j), prm);
+              if (__any_sync(ptgs::kFullWarp, e.live)) {
+                float fv[F];
+                ptgs::stage_feats<F>(sb, j, fv);
+                ptgs::composite_step<F>(e, [&](int f) { return fv[f]; },
+                                        trans, s_depth, acc);
+              }
+            }
+          });
+      t_next = fmaxf(t_next, trans);
+      if (multi && pix < p) {
+        alpha_acc[px] = trans;
+        depth[px] = s_depth;
+#pragma unroll
+        for (int f = 0; f < F; ++f) out[px * F + f] = acc[f];
+      }
+    }
+    t_hi = t_next;
+  }
+
+  for (int g = 0; g < n_groups; ++g) {
+    const int pix = g * blockDim.x + threadIdx.x;
+    if (pix >= p) break;
+    const size_t px = static_cast<size_t>(tile) * p + pix;
+    if (multi && n_valid > 0) {  // this thread stored them
+      trans = alpha_acc[px];
+      s_depth = depth[px];
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = out[px * F + f];
+    }
+    const float aa = 1.0f - trans;
+    alpha_acc[px] = aa;
+    depth[px] = s_depth / fmaxf(aa, 1e-8f);
+#pragma unroll
+    for (int f = 0; f < F; ++f) out[px * F + f] = acc[f];
+  }
+}
+
+template <int F>
 cudaError_t launch(const float* count, const float* dirs, const float* geom,
                    const float* feats, float* out, float* alpha_acc,
                    float* depth, int n_tiles, int p, int k, int kc,
                    Params prm, cudaStream_t stream) {
-  tile_composite_fwd_kernel<F><<<n_tiles, p, 0, stream>>>(
-      count, dirs, geom, feats, out, alpha_acc, depth, p, k, kc, prm);
+  if (p % 32 == 0 && p <= kMaxPixels)
+    tile_composite_fwd_kernel<F><<<n_tiles, p, 0, stream>>>(
+        count, dirs, geom, feats, out, alpha_acc, depth, p, k, kc, prm);
+  else
+    tile_composite_fwd_any_kernel<F>
+        <<<n_tiles, min(kMaxPixels, (p + 31) / 32 * 32), 0, stream>>>(
+            count, dirs, geom, feats, out, alpha_acc, depth, p, k, kc, prm);
   return cudaGetLastError();
 }
 
@@ -104,17 +209,17 @@ cudaError_t launch(const float* count, const float* dirs, const float* geom,
 
 // count (T,), dirs (T, P, 3), geom (T, 16, K), feats (T, F, K) in;
 // out (T, P, F), alpha_acc (T, P), depth (T, P) out; all float32,
-// contiguous. P must be a multiple of 32 and at most 256, kc must divide
-// K and be K or a multiple of 32, and F must be 14 (the packet features).
-// Returns a cudaError_t.
+// contiguous. P a multiple of 32 up to 256 launches the 16x16 kernel, any
+// other P the any-P kernel. kc must divide K and be K or a multiple of 32,
+// and F must be 14 (the packet features). Returns a cudaError_t.
 extern "C" int ptgs_tile_composite_fwd(
     const float* count, const float* dirs, const float* geom,
     const float* feats, float* out, float* alpha_acc, float* depth,
     int n_tiles, int p, int k, int f, int kc, float t_min, float t_max,
     float alpha_min, float alpha_max, float gval_cut,
     float transmittance_min, void* stream) {
-  if (n_tiles <= 0 || p <= 0 || p > kMaxPixels || p % 32 != 0 || kc <= 0 ||
-      k % kc != 0 || (kc != k && kc % kStage != 0))
+  if (n_tiles <= 0 || p <= 0 || kc <= 0 || k % kc != 0 ||
+      (kc != k && kc % kStage != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{t_min, t_max, alpha_min, alpha_max, gval_cut,
                    transmittance_min};

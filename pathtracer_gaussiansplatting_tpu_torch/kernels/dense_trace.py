@@ -9,7 +9,9 @@ the active mask of ``render/pipeline.py:_dense_vis``). Both evaluate the
 Gaussians from one (N, 16) table, :func:`gaussian_table`.
 
 For CUDA tensors they launch the CUDA kernels ``csrc/dense_topk.cu``
-(counted in ``TOPK_LAUNCHES``) and ``csrc/dense_visibility.cu`` (counted in
+(counted in ``TOPK_LAUNCHES`` for K <= 128, a thread a ray; in
+``TOPK_LIST_LAUNCHES`` above, a warp a ray with its list in shared or
+global memory) and ``csrc/dense_visibility.cu`` (counted in
 ``VIS_LAUNCHES``); for CPU tensors they run ``dense_topk_plain`` and
 ``dense_visibility_plain``, the unculled math. ``dense_visibility_pairs``
 (the shadow product with the list of its pairs with alpha > 0, for its
@@ -50,7 +52,12 @@ from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as gops
 # R0 of the trace, R1, R0 of a shadow segment. 64 bytes a row.
 TABLE_COLS = 16
 COL_R0_TRACE, COL_R1, COL_R0_SHADOW = 13, 14, 15
-MAX_K = 128      # the largest list the top-K kernel keeps per ray
+# The top-K kernel keeps up to THREAD_MAX_K a ray in each thread's
+# registers and local memory; above, a warp a ray keeps the list sorted in
+# shared memory up to LIST_SHARED_MAX_K, and past that in a global scratch
+# of at most LIST_SCRATCH_BYTES a launch (the rays go in chunks).
+THREAD_MAX_K, LIST_SHARED_MAX_K = 128, 1024
+LIST_SCRATCH_BYTES = 1 << 30
 
 # Rows a group sphere bounds (a warp's cull step, csrc/dense_common.cuh),
 # and its columns: center (3), radius, the group's largest R0 of the trace,
@@ -58,6 +65,7 @@ MAX_K = 128      # the largest list the top-K kernel keeps per ray
 GROUP_ROWS, GROUP_COLS = 32, 8
 
 TOPK_LAUNCHES = 0  # dense_topk kernel launches; read by chip_smoke.py
+TOPK_LIST_LAUNCHES = 0  # its K > 128 kernel's launches; read likewise
 VIS_LAUNCHES = 0   # dense_visibility kernel launches; read by chip_smoke.py
 # dense_visibility_pairs' launches of the same kernel (two a call: the
 # counts, then the pairs); read by chip_smoke.py
@@ -379,6 +387,8 @@ def _check_table(name: str, dtab: DenseTable, tensors: dict,
 
 _TOPK_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+_TOPK_LIST_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 _VIS_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 _VIS_COUNT_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
@@ -395,14 +405,17 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: Table,
                active: Optional[torch.Tensor] = None):
     """The K nearest contributing Gaussians of every ray (see
     :func:`dense_topk_plain` for the outputs). CPU tensors run the plain
-    version; CUDA tensors launch ``csrc/dense_topk.cu``, bit-equal to it.
+    version; CUDA tensors launch ``csrc/dense_topk.cu``, bit-equal to it:
+    for K <= ``THREAD_MAX_K`` its thread-a-ray kernel, above it the
+    warp-a-ray list kernel (one launch, or one a chunk of rays where the
+    lists go to global memory).
 
     Args: origins, dirs (R, 3); table: the (N, 16) :func:`gaussian_table`
     for this scene and ``settings``, or its :func:`dense_table` (built once
-    for the card); 1 <= k <= min(N, 128); sort_depths (N,) to order by in
-    place of t; active (R,) bool.
+    for the card); 1 <= k <= N; sort_depths (N,) to order by in place of
+    t; active (R,) bool.
     """
-    global TOPK_LAUNCHES
+    global TOPK_LAUNCHES, TOPK_LIST_LAUNCHES
     tensors = dict(origins=origins, dirs=dirs)
     if sort_depths is not None:
         tensors["sort_depths"] = sort_depths
@@ -415,32 +428,53 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: Table,
     r, n = origins.shape[0], rows.shape[0]
     _check_table("dense_topk", dtab, tensors, dict(
         origins=(r, 3), dirs=(r, 3), sort_depths=(n,), active=(r,)))
-    if not 1 <= k <= min(n, MAX_K):
-        raise ValueError(f"dense_topk: K={k} must lie in [1, min(N={n}, "
-                         f"{MAX_K})]")
+    if not 1 <= k <= n:
+        raise ValueError(f"dense_topk: K={k} must lie in [1, N={n}]")
     dev = origins.device
     idx = torch.empty((r, k), dtype=torch.int32, device=dev)
     t = torch.empty((r, k), dtype=torch.float32, device=dev)
     alpha = torch.empty((r, k), dtype=torch.float32, device=dev)
     if r == 0:
         return idx, t, alpha
-    # The kernel reads the sort depths in the staged (sorted) order.
+    # The kernels read the sort depths in the staged (sorted) order.
     sd = None if sort_depths is None \
         else sort_depths.index_select(0, dtab.order)
+    table_args = (rows.data_ptr(), dtab.sorted_rows.data_ptr(),
+                  dtab.order.data_ptr(), dtab.groups.data_ptr(), _ptr(sd))
+    params = (settings.t_min, settings.t_max, settings.alpha_min,
+              settings.alpha_max, _gval_cut(settings))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn("ptgs_dense_topk", _TOPK_ARGTYPES)(
-            origins.data_ptr(), dirs.data_ptr(), rows.data_ptr(),
-            dtab.sorted_rows.data_ptr(), dtab.order.data_ptr(),
-            dtab.groups.data_ptr(), _ptr(sd), _ptr(active), idx.data_ptr(),
-            t.data_ptr(), alpha.data_ptr(), r, n, k, settings.t_min, settings.t_max,
-            settings.alpha_min, settings.alpha_max, _gval_cut(settings),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"dense_topk: kernel launch failed with CUDA "
-                           f"error {err}")
-    TOPK_LAUNCHES += 1
+        if k <= THREAD_MAX_K:
+            err = _kernel_fn("ptgs_dense_topk", _TOPK_ARGTYPES)(
+                origins.data_ptr(), dirs.data_ptr(), *table_args,
+                _ptr(active), idx.data_ptr(), t.data_ptr(), alpha.data_ptr(),
+                r, n, k, *params, stream)
+            _raise_on("dense_topk", err)
+            TOPK_LAUNCHES += 1
+            return idx, t, alpha
+        # Lists past LIST_SHARED_MAX_K live in a (rays, 2K) int64 scratch,
+        # a chunk of rays a launch.
+        step, lists = r, None
+        if k > LIST_SHARED_MAX_K:
+            step = max(1, min(r, LIST_SCRATCH_BYTES // (16 * k)))
+            lists = torch.empty((step, 2 * k), dtype=torch.int64, device=dev)
+        for s in range(0, r, step):
+            e = min(s + step, r)
+            err = _kernel_fn("ptgs_dense_topk_list", _TOPK_LIST_ARGTYPES)(
+                origins[s:e].data_ptr(), dirs[s:e].data_ptr(), *table_args,
+                _ptr(None if active is None else active[s:e]), _ptr(lists),
+                idx[s:e].data_ptr(), t[s:e].data_ptr(), alpha[s:e].data_ptr(),
+                e - s, n, k, *params, stream)
+            _raise_on("dense_topk", err)
+            TOPK_LIST_LAUNCHES += 1
     return idx, t, alpha
+
+
+def _raise_on(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
 
 
 def dense_visibility(origins: torch.Tensor, dirs: torch.Tensor,

@@ -6,9 +6,12 @@ Counterpart of the march of
 :func:`march_kernel` launches ``ptgs_grid_trace`` (features into the 15
 sums of ``render.grid_trace.ACC_KEYS``, counted in ``TRACE_LAUNCHES``) or
 ``ptgs_grid_visibility`` (geometry only, shadow segments, counted in
-``VIS_LAUNCHES``). The dispatch, and the plain march that CPU tensors run,
-are ``render.grid_trace.march`` and ``march_plain``; this module imports
-nothing of ``render``.
+``VIS_LAUNCHES``); above ``REG_KC`` slots a cell the kernel's wide
+instantiation runs instead (a feature trace's cells in shared memory, a
+segment's in passes of its lanes), counted in ``TRACE_WIDE_LAUNCHES`` and
+``VIS_WIDE_LAUNCHES``. The dispatch, and the plain march that CPU
+tensors run, are ``render.grid_trace.march`` and ``march_plain``; this
+module imports nothing of ``render``.
 
 The kernel runs L lanes per ray (a warp for a trace, half a warp for a
 shadow segment) through the same per-round state machine as the plain
@@ -42,7 +45,9 @@ TRACE_LAUNCHES = 0  # ptgs_grid_trace launches; read by chip_smoke.py
 VIS_LAUNCHES = 0    # ptgs_grid_visibility launches; read by chip_smoke.py
 N_SUMS = 15         # the per-ray sums of a feature trace
 MAX_ROUNDS = 8      # rounds the kernel's schedule holds
-MAX_KC = 128        # the largest max_per_cell the kernel takes
+REG_KC = 128        # max_per_cell up to which a lane's slots are registers
+TRACE_WIDE_LAUNCHES = 0  # the wide instantiations' launches; read by
+VIS_WIDE_LAUNCHES = 0    # chip_smoke.py
 
 _ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
              + [ctypes.c_float] * 7 + [ctypes.c_void_p])
@@ -76,7 +81,8 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
     GridAccel``; ``rounds`` the clipped schedule's (frac, M, a_max, a_exit)
     entries, of which the kernel reads M and a_max (see the module
     docstring). CPU tensors raise: they go to the plain march."""
-    global TRACE_LAUNCHES, VIS_LAUNCHES
+    global TRACE_LAUNCHES, VIS_LAUNCHES, TRACE_WIDE_LAUNCHES
+    global VIS_WIDE_LAUNCHES
     tensors = dict(origins=origins, dirs=dirs, btab=accel.btab,
                    geom=accel.geom, packet=accel.packet, lo=accel.lo,
                    hi=accel.hi)
@@ -96,8 +102,6 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
     r = origins.shape[0]
     _check(tensors, r)
     kc = accel.max_per_cell
-    if kc > MAX_KC:
-        raise ValueError(f"grid_march: max_per_cell {kc} above {MAX_KC}")
     if len(rounds) > MAX_ROUNDS:
         raise ValueError(f"grid_march: {len(rounds)} rounds, at most "
                          f"{MAX_ROUNDS}")
@@ -128,8 +132,12 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"grid_march: {name} launch failed with CUDA "
                            f"error {err}")
-    if with_features:
+    if with_features and kc > REG_KC:
+        TRACE_WIDE_LAUNCHES += 1
+    elif with_features:
         TRACE_LAUNCHES += 1
+    elif kc > REG_KC:
+        VIS_WIDE_LAUNCHES += 1
     else:
         VIS_LAUNCHES += 1
     return trans, acc, frozen

@@ -17,7 +17,11 @@ with Q the world-space inverse covariance, composited front to back into
 
 For CUDA tensors ``tile_composite`` launches the CUDA kernel
 ``csrc/tile_composite_fwd.cu`` (counted in ``LAUNCHES``) and its backward
-launches ``csrc/tile_composite_bwd.cu`` (counted in ``BWD_LAUNCHES``); for
+launches ``csrc/tile_composite_bwd.cu`` (counted in ``BWD_LAUNCHES``): a
+block a tile, a thread a pixel, where P is a multiple of 32 up to 256
+(tiles of 16x16 or 8x8); any other P launches the files' any-P kernels
+(counted in ``ANY_LAUNCHES`` and ``BWD_ANY_LAUNCHES``), a block a tile that
+takes the pixels in groups of up to 256; for
 CPU tensors they run ``tile_composite_plain`` and
 ``tile_composite_bwd_plain``. There is no fallback from the card to the
 plain versions: a CUDA input either launches the kernel or raises.
@@ -44,6 +48,9 @@ FEATURE_DIM = 14  # the packet features of render.tiled._packet_features
 
 LAUNCHES = 0  # forward kernel launches; read by chip_smoke.py
 BWD_LAUNCHES = 0  # backward kernel launches; read by chip_smoke.py
+ANY_LAUNCHES = 0  # the any-P kernels' launches; read by chip_smoke.py
+BWD_ANY_LAUNCHES = 0
+BLOCK_PIXELS = 256  # a block's threads: one tile of up to 16x16 pixels
 PLAIN_CHUNK_ELEMS = 1 << 24  # (tiles, P, K) elements per plain-version chunk
 
 
@@ -217,7 +224,7 @@ def tile_composite_bwd_plain(packets, dirs: torch.Tensor, cot,
 
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                  + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                  + [ctypes.c_float] * 6 + [ctypes.c_void_p])
 
 
@@ -255,10 +262,28 @@ def _check_shapes(name: str, tensors, expect) -> None:
                 f"{name}: {key} must be a contiguous float32 tensor of shape "
                 f"{expect[key]}, got {x.dtype} {tuple(x.shape)} "
                 f"contiguous={x.is_contiguous()}")
-    p = tensors["dirs"].shape[1]
-    if p % 32 != 0 or p > 256:
-        raise ValueError(f"{name}: P={p} must be a multiple of 32 and at "
-                         "most 256 (tile_size 16 or less)")
+
+
+def one_block(p: int) -> bool:
+    """Whether a tile of P pixels takes the kernels' thread-a-pixel block
+    (P a multiple of 32 up to BLOCK_PIXELS) rather than their any-P one."""
+    return p % 32 == 0 and p <= BLOCK_PIXELS
+
+
+def as_block_tiles(packets, dirs: torch.Tensor):
+    """The same pixels as tiles of the one-block kernels' size, for holding
+    the any-P kernels to them: each tile's P pixels padded with copies of
+    its last one to a multiple of 32 (of 256 above 256) and cut into
+    sub-tiles of up to 256, each with the tile's packets. Returns (packets,
+    dirs (T * S, Q, 3), P), the first P pixels of each tile's S sub-tiles
+    in order being the tile's."""
+    t_total, p, _ = dirs.shape
+    q = -(-p // 32) * 32 if p <= BLOCK_PIXELS else BLOCK_PIXELS
+    padded = -(-p // q) * q
+    dirs = torch.cat([dirs, dirs[:, -1:].expand(-1, padded - p, -1)], 1)
+    s = padded // q
+    return ({key: v.repeat_interleave(s, 0) for key, v in packets.items()},
+            dirs.reshape(t_total * s, q, 3).contiguous(), p)
 
 
 def _kernel_settings(settings: RenderSettings):
@@ -270,7 +295,7 @@ def _kernel_settings(settings: RenderSettings):
 def _fwd(geom, featsT, dirs, count, settings: RenderSettings):
     """Forward dispatch: the plain version on the CPU, the kernel on the
     card."""
-    global LAUNCHES
+    global LAUNCHES, ANY_LAUNCHES
     tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count)
     if _on_cpu("tile_composite", tensors):
         return tile_composite_plain(dict(geom=geom, featsT=featsT), dirs,
@@ -297,7 +322,10 @@ def _fwd(geom, featsT, dirs, count, settings: RenderSettings):
     if err != 0:
         raise RuntimeError(f"tile_composite: kernel launch failed with CUDA "
                            f"error {err}")
-    LAUNCHES += 1
+    if one_block(p):
+        LAUNCHES += 1
+    else:
+        ANY_LAUNCHES += 1
     return out, alpha_acc, depth
 
 
@@ -317,7 +345,7 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
     kernel, which follows the forward kernel's chunk schedule: slots of the
     chunks it skipped get exactly zero.
     """
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_ANY_LAUNCHES
     geom, featsT, count = packets["geom"], packets["featsT"], packets["count"]
     g_out, g_alpha, g_depth = cot
     tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count,
@@ -338,19 +366,27 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
     d_dirs = torch.empty_like(dirs) if want_dirs else None
     if t_total == 0:
         return d_geom, d_featsT, d_dirs
+    # Above a block's pixels, each pixel's forward state between chunks and
+    # phases: T, depth sum and the two cotangent sums, in double.
+    scratch = None if p <= BLOCK_PIXELS else torch.empty(
+        (t_total, p, 4), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn("ptgs_tile_composite_bwd", _BWD_ARGTYPES)(
             count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
             featsT.data_ptr(), g_out.data_ptr(), g_alpha.data_ptr(),
             g_depth.data_ptr(), None if d_dirs is None else d_dirs.data_ptr(),
-            d_geom.data_ptr(), d_featsT.data_ptr(), t_total, p, k,
+            d_geom.data_ptr(), d_featsT.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), t_total, p, k,
             FEATURE_DIM, _chunk_size(k), int(want_dirs),
             *_kernel_settings(settings), stream)
     if err != 0:
         raise RuntimeError(f"tile_composite_bwd: kernel launch failed with "
                            f"CUDA error {err}")
-    BWD_LAUNCHES += 1
+    if one_block(p):
+        BWD_LAUNCHES += 1
+    else:
+        BWD_ANY_LAUNCHES += 1
     return d_geom, d_featsT, d_dirs
 
 

@@ -117,24 +117,10 @@ def partition_slabs(scene: GaussianScene, n_slabs: int,
     return pad_to_multiple(sorted_scene, n_slabs), axis
 
 
-def _slab_k(settings: RenderSettings, n: int, device) -> int:
-    """K of a slab's composite, min(max_contribs, Nb). The top-K kernel
-    keeps at most ``dense_trace.MAX_K`` a ray, so on the card a larger K
-    raises; the plain version on the CPU serves any."""
-    k = min(settings.max_contribs, n)
-    if torch.device(device).type == "cuda" and k > dense_trace.MAX_K:
-        raise ValueError(
-            f"slab composite: K = min(max_contribs={settings.max_contribs}, "
-            f"{n} Gaussians a slab) = {k}, but the top-K kernel keeps at most "
-            f"{dense_trace.MAX_K} a ray on the card")
-    return k
-
-
 def _slab_topk(block: GaussianScene, origins, dirs, axis,
                settings: RenderSettings, table):
     """Each ray's K nearest contributors of the slab by the signed
     projection key: (idx (R, K) int64, t, alpha (R, K), fwd (R,))."""
-    _slab_k(settings, block.num_gaussians, origins.device)
     proj = block.means @ axis
     fwd = torch.sum(dirs * axis[None], dim=-1) >= 0.0
     rays = Rays(origins, dirs)

@@ -150,6 +150,37 @@ def test_function_grads_match_pallas(multi_chunk, transmittance_min):
                      err_msg=name)
 
 
+@pytest.mark.parametrize("tile_size", [8, 12, 32])
+def test_function_grads_match_pallas_tile_sizes(tile_size):
+    """Gradients through tile_composite vs the Pallas backward in interpret
+    mode at tile sizes other than 16 (P = 64, 144 and 1024 pixels a tile),
+    with no transmittance cutoff, on multi_chunk's near pose (far thin
+    splats' gradients cancel in float32: dirs_term_mass in
+    chip_smoke.py)."""
+    packets, dirs, tpk, tdirs = pose_packets(
+        600, 1.0, 128, eye=(0.0, 0.0, 1.5), scale_range=(-2.0, -1.0),
+        tile_size=tile_size)
+    packets = {k: packets[k] for k in ("geom", "featsT", "count")}
+    jset = JRenderSettings(transmittance_min=0.0)
+    tset = RenderSettings(transmittance_min=0.0)
+    alpha_acc = jtc._tile_composite_xla(packets, dirs, jset)[1]
+    cot = _cotangent(*tdirs.shape[:2], tpk["featsT"].shape[1], alpha_acc,
+                     seed=tile_size)
+    _, vjp = jax.vjp(lambda pk, dd: jtc.tile_composite(pk, dd, jset, True),
+                     packets, dirs)
+    want_pk, want_dirs = vjp(tuple(jnp.asarray(c) for c in cot))
+    ins = [tpk["geom"].clone().requires_grad_(),
+           tpk["featsT"].clone().requires_grad_(),
+           tdirs.clone().requires_grad_()]
+    outs = tc.tile_composite(dict(geom=ins[0], featsT=ins[1],
+                                  count=tpk["count"]), ins[2], tset)
+    got = torch.autograd.grad(outs, ins, tuple(torch.from_numpy(c)
+                                               for c in cot))
+    want = (want_pk["geom"], want_pk["featsT"], want_dirs)
+    for g, w, name in zip(got, want, GRAD_NAMES):
+        assert_close(g, w, BWD_RTOL, BWD_ATOL, err_msg=name)
+
+
 def test_pipeline_scene_grads_match_jax():
     """Scene gradients of mean(color^2) through prepare_tiles +
     render_prepared in both packages (the reference's Pallas kernels in

@@ -199,6 +199,38 @@ def test_visibility_grid_matches(world, case):
     assert float(tv.min()) < 0.5   # some segments are shadowed
 
 
+@pytest.mark.parametrize("max_per_cell", [144, 256])
+def test_march_matches_above_128_a_cell(world, max_per_cell):
+    """Cells wider than 128 slots (the kernels' wide instantiation on the
+    card): on a 4x4x4 grid of the scene, where cells hold more than 128
+    Gaussians, the plain march's trace and shadow visibility against the
+    JAX package's, frozen counts equal."""
+    dims = (4, 4, 4)
+    wide = dict(world, ja=jgt.build_grid_accel(world["js"], dims=dims,
+                                              max_per_cell=max_per_cell),
+                ta=tgt.build_grid_accel(world["ts"], dims=dims,
+                                        max_per_cell=max_per_cell))
+    over = tgt.build_grid_accel(world["ts"], dims=dims, max_per_cell=128)
+    assert over.stats_dict["overflow_cell_frac"] > 0.0
+    o, d = random_rays(5, 512)
+    jout, tout = _trace_both(wide, o, d, max_steps=64, compact_min=256)
+    assert int(tout["frozen_alive"]) == int(jout["frozen_alive"])
+    for k in ("alpha_acc", "trans", "albedo", "radiance_emitted"):
+        assert_sums_close(tout[k], jout[k], f"Kc={max_per_cell} {k}")
+    t_end = np.random.default_rng(11).uniform(0.5, 6.0, len(o)).astype(
+        np.float32)
+    jv, jf = jgt.visibility_grid(
+        wide["js"], wide["ja"], jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(t_end), wide["jset"], return_frozen=True, max_steps=64)
+    tv, tf = tgt.visibility_grid(
+        wide["ts"], wide["ta"], torch.from_numpy(o), torch.from_numpy(d),
+        torch.from_numpy(t_end), wide["tset"], return_frozen=True,
+        max_steps=64)
+    assert int(tf) == int(jf)
+    assert_sums_close(tv, jv, f"Kc={max_per_cell} visibility")
+    assert float(tv.min()) < 0.5
+
+
 def test_compaction_capacity_freezes_like_reference():
     """Above compact_min a later round resumes only the first `cap` rays by
     sort key; the others stay frozen, counted. 17000 rays cross the whole
@@ -314,6 +346,50 @@ def test_grid_kernels_match_plain_on_card(max_per_cell):
         got = tgt.march(accel, o, d, settings, 64, schedule=FULL_COV, **kw)
         torch.cuda.synchronize()
         assert (grid_march.TRACE_LAUNCHES, grid_march.VIS_LAUNCHES) != before
+        want = tgt.march_plain(accel, o, d, settings, 64, schedule=FULL_COV,
+                               **kw)
+        assert torch.equal(got[2], want[2])
+        for g, w in zip(got[:2], want[:2]):
+            if w is not None:
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_per_cell", [144, 256])
+def test_grid_wide_kernels_match_plain_on_card(max_per_cell):
+    """The kernels' wide instantiation (Kc above 128: a trace's cells in
+    shared memory, a segment's in passes of its lanes) follows the plain
+    march ray for ray as the register one does, on an 8x8x8 grid of
+    surface_scene(5000), where cells hold more than 128 Gaussians."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import grid_march
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        surface_scene,
+    )
+
+    dev = torch.device("cuda", 0)
+    scene = surface_scene(5000, seed=13, device=dev)
+    over = tgt.build_grid_accel(scene, dims=(8, 8, 8), max_per_cell=128)
+    assert over.stats_dict["overflow_cell_frac"] > 0.0
+    accel = tgt.build_grid_accel(scene, dims=(8, 8, 8),
+                                 max_per_cell=max_per_cell)
+    o, d = random_rays(4, 4096, sigma=0.8)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    t_end = torch.full((4096,), 2.0, device=dev)
+    settings = RenderSettings()
+    for kw in (dict(with_features=True), dict(t_end=t_end,
+                                              with_features=False)):
+        before = (grid_march.TRACE_WIDE_LAUNCHES,
+                  grid_march.VIS_WIDE_LAUNCHES, grid_march.TRACE_LAUNCHES,
+                  grid_march.VIS_LAUNCHES)
+        got = tgt.march(accel, o, d, settings, 64, schedule=FULL_COV, **kw)
+        torch.cuda.synchronize()
+        after = (grid_march.TRACE_WIDE_LAUNCHES,
+                 grid_march.VIS_WIDE_LAUNCHES, grid_march.TRACE_LAUNCHES,
+                 grid_march.VIS_LAUNCHES)
+        assert sum(after[:2]) == sum(before[:2]) + 1
+        assert after[2:] == before[2:]
         want = tgt.march_plain(accel, o, d, settings, 64, schedule=FULL_COV,
                                **kw)
         assert torch.equal(got[2], want[2])

@@ -134,14 +134,17 @@ def _sort_depths(scene, ties: bool):
 
 
 @pytest.mark.parametrize("order", ["peak_t", "sort_depths", "tied_depths",
-                                   "k_above_n"])
+                                   "k_above_n", "k_above_128"])
 def test_dense_topk_matches(scene_rays, order):
+    """The top-K against the JAX package: K = 64 by peak t and by sort
+    depths (with ties), K above N, and 128 < K < N (the card's list
+    kernel), where some rays keep more than K."""
     js, ts = scene_rays["jscene"], scene_rays["tscene"]
-    max_contribs = 400 if order == "k_above_n" else 64
+    max_contribs = dict(k_above_n=400, k_above_128=160).get(order, 64)
     jset = JRenderSettings(max_contribs=max_contribs)
     tset = RenderSettings(max_contribs=max_contribs)
-    sd = None if order in ("peak_t", "k_above_n") else _sort_depths(
-        js, order == "tied_depths")
+    sd = None if order in ("peak_t", "k_above_n", "k_above_128") \
+        else _sort_depths(js, order == "tied_depths")
     want = jref.dense_topk(js, scene_rays["jrays"], jset,
                            None if sd is None else jnp.asarray(sd))
     got = tref.dense_topk(ts, scene_rays["trays"], tset,
@@ -338,6 +341,61 @@ def test_dense_topk_kernel_matches_plain_on_card(case):
                                active=active)
     assert int((want[2] > 0).sum()) > 0
     for g, w in zip(got, want):   # the same operations, rounded alike
+        assert torch.equal(g, w)
+
+
+def _cloud_inputs(n_rays=4096):
+    """Rays through a dense cloud on the card (random_cloud(5000), 177
+    contributions a camera ray on average, up to 542): half from the
+    camera, half from inside the cloud in random directions; with an
+    active mask."""
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        random_cloud,
+    )
+
+    dev = torch.device("cuda", 0)
+    scene = random_cloud(5000, seed=13, spread=1.5, device=dev)
+    rng = np.random.default_rng(15)
+    o = np.tile(np.array([[0.0, 0.5, 4.0]]), (n_rays, 1))
+    d = np.array([0.0, 0.0, 0.0]) - o + rng.uniform(-1.5, 1.5, o.shape)
+    o[1::2] = rng.uniform(-1.0, 1.0, (n_rays // 2, 3))
+    d[1::2] = rng.normal(size=(n_rays // 2, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    f = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa
+    return scene, dt.gaussian_table(scene, RenderSettings()), f(o), f(d), \
+        torch.from_numpy(rng.uniform(0, 1, n_rays) < 0.8).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k160", "k256_tied", "k512", "k2048",
+                                  "k_n", "k160_thin_far"])
+def test_dense_topk_list_kernel_matches_plain_on_card(case):
+    """The warp-a-ray list kernel (K above 128) against the plain version,
+    every output bit-equal: lists in shared memory at K = 160, 256 (ordered
+    by sort depths with ties) and 512, in global memory at K = 2048 and at
+    K = N, on rays with up to ~540 contributions; and at K = 160 for thin
+    surfels seen from far (the group test's skips)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
+    if case == "k160_thin_far":
+        scene, table, o, d, _, active = _card_inputs(thin_far=True)
+    else:
+        scene, table, o, d, active = _cloud_inputs()
+    n = scene.num_gaussians
+    k = dict(k256_tied=256, k512=512, k2048=2048, k_n=n).get(case, 160)
+    sd = None
+    if case == "k256_tied":   # quarter-unit steps: many equal keys
+        sd = torch.round(scene.means[:, 2] * 4.0) / 4.0
+    s = RenderSettings()
+    before = (dt.TOPK_LAUNCHES, dt.TOPK_LIST_LAUNCHES)
+    got = dt.dense_topk(o, d, table, k, s, sort_depths=sd, active=active)
+    torch.cuda.synchronize()
+    assert (dt.TOPK_LAUNCHES, dt.TOPK_LIST_LAUNCHES) == (before[0],
+                                                         before[1] + 1)
+    want = dt.dense_topk_plain(o, d, table, k, s, sort_depths=sd,
+                               active=active)
+    assert int((want[2] > 0).sum()) > 0
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 

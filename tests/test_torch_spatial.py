@@ -287,11 +287,21 @@ def test_partition_and_slab_tables_match():
 
 
 def test_slab_k_cap_on_the_card():
-    """The top-K kernel keeps at most 128 contributions a ray: on the card
-    a slab composite asking for more raises, on the CPU the plain version
-    serves any K."""
+    """A slab composite keeps K = min(max_contribs, Nb) a ray, on the card
+    as on the CPU: the top-K kernel takes every K up to N (above 128 its
+    list kernel), so nothing caps K below the JAX package's."""
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        random_cloud,
+    )
+
     settings = RenderSettings(max_contribs=160)
-    assert spatial._slab_k(settings, 200, CPU) == 160
-    assert spatial._slab_k(settings, 100, torch.device("cuda")) == 100
-    with pytest.raises(ValueError, match="at most 128"):
-        spatial._slab_k(settings, 200, torch.device("cuda"))
+    rng = np.random.default_rng(3)
+    o = torch.from_numpy(rng.uniform(-1, 1, (8, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(8, 3)).astype(np.float32)), dim=-1)
+    axis = torch.tensor([0.0, 0.0, 1.0])
+    for nb, k in ((200, 160), (100, 100)):
+        block = random_cloud(nb, seed=nb, device=CPU)
+        idx, t, alpha, _ = spatial._slab_topk(
+            block, o, d, axis, settings, spatial._slab_table(block, settings))
+        assert idx.shape == t.shape == alpha.shape == (8, k)

@@ -64,6 +64,22 @@ def test_plain_matches_pallas_interpret():
         assert_close(g, w, 1e-3, 3e-4, err_msg=name)
 
 
+@pytest.mark.parametrize("tile_size", [8, 12, 32])
+def test_plain_matches_pallas_tile_sizes(tile_size):
+    """tile_composite_plain vs the Pallas kernel in interpret mode at tile
+    sizes other than 16: P = 64, 144 (not a multiple of 32) and 1024
+    pixels a tile (the card's any-P kernel above 256)."""
+    packets, dirs, tpk, tdirs = pose_packets(600, 1.0, 128,
+                                             tile_size=tile_size)
+    assert tdirs.shape[1] == tile_size * tile_size
+    settings = JRenderSettings()
+    want = jtc.tile_composite(packets, dirs, settings, interpret=True)
+    got = tc.tile_composite_plain(tpk, tdirs, RenderSettings())
+    assert float(np_of(got[1]).max()) > 0.5
+    for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
+        assert_close(g, w, 1e-3, 3e-4, err_msg=name)
+
+
 # The per-tile oracle forms q = c - b^2/a from M = diag(1/s) R^T, the packet
 # path from Q = M^T M; with the camera far from small splats c reaches ~2e3,
 # and the cancellation costs each form ~3e-4 in q (against a float64
@@ -283,3 +299,49 @@ def test_kernel_chunk_shapes_on_card(k, p):
     torch.cuda.synchronize()
     for g, w, name in zip(got[:2], want[:2], ("d_geom", "d_featsT")):
         assert_close(g, w, 2e-3, 2e-4, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_size", [8, 12, 32])
+def test_kernel_tile_sizes_on_card(tile_size):
+    """Tile sizes other than 16 on the card: P = 64 on the one-block
+    kernels, 144 and 1024 on the any-P kernels. The forward within the
+    plain version's tolerance at the default cutoff; without it (so that
+    no chunk skip depends on how the pixels are grouped) bit-equal to the
+    one-block kernel on the same pixels cut into 16x16-sized tiles; the
+    backward within its tolerance, with and without d_dirs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
+    _, _, tpk, tdirs = pose_packets(1500, 0.8, 256, tile_size=tile_size)
+    dev = torch.device("cuda", 0)
+    packets = {key: v.to(dev) for key, v in tpk.items()}
+    dirs = tdirs.to(dev)
+    p = tile_size * tile_size
+    settings = RenderSettings()
+    before = (tc.LAUNCHES, tc.ANY_LAUNCHES)
+    got = tc.tile_composite(packets, dirs, settings)
+    torch.cuda.synchronize()
+    any_p = p % 32 != 0 or p > 256
+    assert (tc.LAUNCHES, tc.ANY_LAUNCHES) == (before[0] + (not any_p),
+                                              before[1] + any_p)
+    want = tc.tile_composite_plain(packets, dirs, settings)
+    for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
+        assert_close(g, w, 1e-3, 3e-4, err_msg=name)
+    full = RenderSettings(transmittance_min=0.0)
+    got = tc.tile_composite(packets, dirs, full)
+    bpk, bdirs, _ = tc.as_block_tiles(packets, dirs)
+    ref = tc.tile_composite(bpk, bdirs, full)
+    for g, r in zip(got, ref):
+        r = r.reshape(g.shape[0], -1, *r.shape[2:])[:, :p]
+        assert torch.equal(g, r)
+    rng = np.random.default_rng(tile_size)
+    cot = tuple(torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)
+                                 ).to(dev) * (want[1] > 1e-3 if i == 2 else 1)
+                for i, x in enumerate(want))
+    want = tc.tile_composite_bwd_plain(packets, dirs, cot, full)
+    for want_dirs in (False, True):
+        got = tc.tile_composite_bwd(packets, dirs, cot, full, want_dirs)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got[:2], want[:2], ("d_geom", "d_featsT")):
+            assert_close(g, w, 2e-3, 2e-4, err_msg=name)
+    assert torch.isfinite(got[2]).all()

@@ -101,13 +101,13 @@ def to_torch_packets(packets) -> dict:
 
 
 def pose_packets(n, spread, k, seed=21, eye=(0.0, 0.5, 4.0),
-                 scale_range=(-2.5, -1.0)):
+                 scale_range=(-2.5, -1.0), tile_size=16):
     """JAX packets and jittered tile dirs of one small 64x48 pose, and their
     torch copies: (packets, dirs, torch packets, torch dirs)."""
     scene = j_random_cloud(n, seed=seed, spread=spread,
                            scale_range=scale_range)
     jcam, _ = cameras(eye=eye)
-    cfg = jb.BinningConfig(max_per_tile=k)
+    cfg = jb.BinningConfig(max_per_tile=k, tile_size=tile_size)
     settings = JRenderSettings(background=(0.1, 0.2, 0.3))
     packets = jtiled.prepare_tiles(scene, jcam, settings, cfg)
     jit = np.random.default_rng(seed).uniform(0, 1, (48, 64, 2))
