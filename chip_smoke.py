@@ -44,8 +44,10 @@ first use. Then:
            (thin-far), and of shadow segments to emissive surfels and to
            the light, and the top-K kernel on four chunks of primary rays
            in one launch (bit-equal); each kernel timed on each chunk
-           beside the pairs its cull keeps, the pairs with alpha > 0, its
-           bound by code path and the function's bound; the shadow
+           beside its culls' counts (the top-K kernel's super-group and
+           group tests, the shadow kernel's group tests), the pairs its
+           cull keeps, the pairs with alpha > 0, its bound by code path
+           and the function's bound; the top-K kernel's launches; the shadow
            kernel's listing modes (visibility_dense's gradient) on each
            shadow chunk: vis bit-equal to the plain launch, exactly the
            pairs with alpha > 0 listed, timed; (c) the flat
@@ -164,8 +166,8 @@ first use. Then:
            PT12_EXTRA_REL and PT12_CHANGED_DIFF); (c) one depth-12 sample
            at the bench's 1080p timed and profiled (the march kernels'
            share once most paths have ended); (d) the bench's dense
-           baseline (K = 256, the root bench's min(K, 256): the top-K's
-           list kernel): one call's wall time, the table's build, the
+           baseline (K = 256, the root bench's min(K, 256)): one call's
+           wall time, the table's build, the
            top-K kernel against its plain version and timed beside the
            plain version, its cull's counts and its bound; (e) the
            bench's headline sample timed as sample_ms is, with Python's
@@ -192,8 +194,8 @@ first use. Then:
            headline cloud's first 50k Gaussians and 65536 rays, K=64, and
            fit_scene(mesh=) against fit_scene, 8 steps with deterministic
            kernels, equal losses; (e) (a)'s slab composite at K = 160
-           (the top-K's list kernel, two launches) against the plain top-K
-           on 256 rays. The group is destroyed at the end.
+           (two launches of the top-K kernel) against the plain top-K on
+           256 rays. The group is destroyed at the end.
   phase 12 the downstream loop (pathtracer_gaussiansplatting_tpu_torch/
            tools/downstream_loop.py): (a) run_downstream at
            DOWNSTREAM.json's config (surface_scene(50k), 12 poses x 32 spp
@@ -221,13 +223,14 @@ first use. Then:
            beside the plain version and the bound. The profiles of the
            path-traced samples (5c, 6d, 6e, 10c, 11b, 12a) show K5 by
            name as "threefry", with its launches.
-  phase 14 the sizes past the thread and one-block kernels' caps, each on
-           a hand kernel: (a) the top-K's list kernel (K above 128, a warp
-           a ray) bit for bit against its plain version at K = 160, 256,
-           512 and 2048 on 5a's chunks (primary, bounce and thin-far rays,
-           primary rays by tied sort depths, bounce rays half active), and
-           at K = N on surface_scene(3000), timed at every K beside the
-           plain version and the bound by code path; (b) the march
+  phase 14 the sizes past the old caps, each on a hand kernel: (a) the
+           top-K kernel (a warp a ray, every K) bit for bit against its
+           plain version at K = 1, 32, 64, 128, 160, 256, 512 and 2048 on
+           5a's chunks (primary, bounce and thin-far rays, primary rays by
+           tied sort depths, bounce rays half active), and at K = N on the
+           same three chunks of surface_scene(3000), timed at every K on
+           the primary and bounce chunks beside the plain version and both
+           bounds, its launches printed; (b) the march
            kernels' wide instantiation (Kc above 128) at Kc = 144 and 256
            on surface_scene(500k)'s grid with 6b's gates on its bounce and
            shadow chunks, timed beside the bound; (c) the tile kernels at
@@ -243,9 +246,11 @@ first use. Then:
            on the first 65536 rays of its first trace and shadow march and
            its frozen count; (f) cli render --backend dense --max-contribs
            256 on 5b's scene as a 3DGS checkpoint, the card against the CPU
-           with 5b's depth-1 gates. With phase 10a's dense baseline and
-           11e, these runs are the new paths' main path: each new
-           kernel's launches there must be above 0.
+           with 5b's depth-1 gates at phase 5's ambient, and with the
+           gates of tests/torch_ambient_divergence.py (the JAX package
+           against the port on the CPU) at ambient 0.6. With phase 10a's
+           dense baseline and 11e, these runs are the new paths' main
+           path: each new kernel's launches there must be above 0.
 
 Everything the script prints goes to chiprun_out/chip_smoke/log.txt as
 well as to stdout.
@@ -338,9 +343,10 @@ INT32_OPS_PER_S = FP32_FLOPS_PER_S / 2
 # (dense_common.cuh: cull_keep) per pair tested: x 3, x.d 5, |x|^2 5, the
 # Lagrange form 3, the radius 4, the compare 1.
 DENSE_PAIR_FLOPS, DENSE_CULL_FLOPS = 60, 21
-# The group test (dense_common.cuh: group_keep) per (ray, group of 32 rows):
-# x 3, x.d 5, |x|^2 5, the slackened Lagrange form, its division and root
-# 8, |x| 1, the lower bound 5, the upper 2, the reach 5, the compares 3.
+# The group test (dense_common.cuh: group_keep) per (ray, group of 32 rows),
+# and per (ray, super-group of 32 groups) in the top-K kernel: x 3, x.d 5,
+# |x|^2 5, the slackened Lagrange form, its division and root 8, |x| 1,
+# the lower bound 5, the upper 2, the reach 5, the compares 3.
 DENSE_GROUP_FLOPS = 37
 # The grid march (csrc/grid_march.cu, grid_common.cuh), by code path: per
 # ray (setup_ray); per probe (the loop test and cell_of); per probe of an
@@ -395,6 +401,13 @@ VIS_RTOL, VIS_ATOL = 1e-5, 1e-6
 # against the port on the CPU 95.7%). At every depth the mean absolute
 # difference stays under PT_MEAN_FRAC of the image mean.
 PT_MIN_SHARE, PT_DEEP_MIN_SHARE, PT_MEAN_FRAC = 0.99, 0.93, 0.01
+# 14f at a bright ambient: the closed room shades the sun, so the image is
+# mostly the ambient term, which carries every float32 difference in a thin
+# surfel's alpha into the pixel. There the JAX package and the port part
+# on 8.3-11.8% of the pixels on the CPU (0.23-0.26% of the image mean;
+# tests/torch_ambient_divergence.py, whose gates these are; ROADMAP
+# section 3), the card and the CPU on 4.5%.
+AMBIENT_BRIGHT, AMBIENT_MIN_SHARE, AMBIENT_MEAN_FRAC = 0.6, 0.85, 0.01
 # Phase 10b, the bench's depth-12 workload (opaque_depth 4; glass-first
 # paths bounce on) on the panel-lit scene and the grid backend, at depth
 # 12 and cut at depth 4, each of PT12_KEYS: the gates of
@@ -1005,23 +1018,31 @@ def contributing_pairs(dt, o, d, rows, settings, active=None, t_end=None,
 
 
 def dense_bound(dt, counts: dict, n_rays: int, n: int, k: int = 0) -> dict:
-    """The bound by code path: the group test on every (live ray, group),
-    the per-pair cull on every pair of a group reached, the exact path's
-    float operations on the pairs kept; bytes: the rays, the DenseTable
-    (sorted rows, order, group spheres) and the outputs once. Beside it two
-    figures that do not depend on the kernel's design: the function's bound
-    (the rays, the (N, 16) table and the outputs once, the exact path on
-    the pairs with alpha > 0 alone) and the all-pairs figure (every live
-    pair charged the exact path, as an unculled kernel does)."""
-    groups = -(-n // dt.GROUP_ROWS) * dt.GROUP_COLS
+    """The bound by code path. The top-K kernel (k > 0; counts from
+    cull_counts(supers=True)): the super-group test on every (live ray,
+    super-group), the group test on the groups of the super-groups each ray
+    reaches, the per-pair cull on the rows of the groups it reaches, the
+    exact path's float operations on the pairs kept. The shadow kernel: the
+    group test on every (live segment, group), the cull and the exact path
+    likewise. Bytes: the rays, the DenseTable (sorted rows, order, group
+    spheres, the top-K kernel's super-group spheres) and the outputs once.
+    Beside it two figures that do not depend on the kernel's design: the
+    function's bound (the rays, the (N, 16) table and the outputs once,
+    the exact path on the pairs with alpha > 0 alone) and the all-pairs
+    figure (every live pair charged the exact path, as an unculled kernel
+    does)."""
+    n_groups = -(-n // dt.GROUP_ROWS)
+    groups = n_groups * dt.GROUP_COLS
     if k:   # rays in, the index-order rows' recount, (R, K) outputs
         ray_bytes = 4.0 * n_rays * (6 + k * 3)
-        n_bytes = ray_bytes + 4.0 * (n * (2 * dt.TABLE_COLS + 1) + groups)
+        supers = -(-n_groups // dt.SUPER_GROUPS) * dt.GROUP_COLS
+        n_bytes = ray_bytes + 4.0 * (n * (2 * dt.TABLE_COLS + 1) + groups
+                                     + supers)
     else:   # rays, t_end and the vis out, the active bytes
         ray_bytes = 4.0 * n_rays * 8 + n_rays
         n_bytes = ray_bytes + 4.0 * (n * dt.TABLE_COLS + groups)
-    flops = counts["group_tests"] * DENSE_GROUP_FLOPS \
-        + counts["tested"] * DENSE_CULL_FLOPS \
+    flops = (counts.get("super_tests", 0) + counts["group_tests"]) \
+        * DENSE_GROUP_FLOPS + counts["tested"] * DENSE_CULL_FLOPS \
         + counts["kept"] * DENSE_PAIR_FLOPS
     res = bound(n_bytes, flops)
     fn_bytes = ray_bytes + 4.0 * n * dt.TABLE_COLS
@@ -1029,9 +1050,51 @@ def dense_bound(dt, counts: dict, n_rays: int, n: int, k: int = 0) -> dict:
                             counts["contributing"] * DENSE_PAIR_FLOPS)
     res["function_bound_ms"] = res["function"]["bound_ms"]
     res["all_pairs_bound_ms"] = bound(
-        n_bytes, counts["group_tests"] * dt.GROUP_ROWS
+        n_bytes, counts["live_groups"] * dt.GROUP_ROWS
         * DENSE_PAIR_FLOPS)["bound_ms"]
     return res
+
+
+def topk_counts_line(r: dict) -> str:
+    """The top-K kernel's culls on a chunk, as 5a, 10d and 14a print them
+    (``r``: cull_counts(supers=True) with "contributing")."""
+    return (f"{r['super_tests']} super-group tests leave {r['group_tests']} "
+            f"group tests ({r['group_tests'] / max(r['live_groups'], 1):.2%} "
+            f"of one a (ray, group)); the cull tests {r['tested']} pairs and "
+            f"keeps {r['kept']} ({r['kept'] / max(r['tested'], 1):.4%}), "
+            f"{r['contributing']} have alpha > 0; the exact path's turns "
+            f"{r['exact_turns']} ({r['exact_turns'] / max(r['live'], 1):.2f} "
+            f"a ray, {r['kept'] / max(32 * r['exact_turns'], 1):.1%} of "
+            f"their lanes busy)")
+
+
+def topk_launch_bound(dt, args, phase: str, card: str, ms: float,
+                      rays_per_pass: int = 512) -> dict:
+    """The culls' counts and both bounds of one dense_topk launch on args
+    (origins, dirs, DenseTable, K, settings[, sort_depths, active]),
+    counted in torch on the card and printed beside its time ``ms``:
+    bound_ms and function_bound_ms."""
+    from pathtracer_gaussiansplatting_tpu_torch.tools import (
+        dense_table_order as dto,
+    )
+
+    o, d, table, k, st, *rest = args
+    active = rest[1] if len(rest) > 1 else None
+    cnt = dto.cull_counts(dt, o, d, table, st, active,
+                          rays_per_pass=rays_per_pass, supers=True)
+    cnt["contributing"] = contributing_pairs(
+        dt, o, d, table.rows, st, active, rays_per_pass=rays_per_pass)
+    bnd = dense_bound(dt, cnt, o.shape[0], table.rows.shape[0], k)
+    log(f"phase {phase}: dense_topk (R={o.shape[0]}, "
+        f"N={table.rows.shape[0]}, K={k}, {cnt['live']} rays live) "
+        f"{ms:.3f} ms; " + topk_counts_line(cnt) + f"; bound by code path "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
+        f"({bnd['bound_flops']:.4e} flops, {bnd['bound_bytes']:.4e} bytes) "
+        f"= {bnd['bound_ms'] / ms:.1%} of its rate; the function's bound "
+        f"{bnd['function_bound_ms']:.4f} ms = "
+        f"{bnd['function_bound_ms'] / ms:.1%} ({card})")
+    return dict(bound_ms=bnd["bound_ms"],
+                function_bound_ms=bnd["function_bound_ms"])
 
 
 def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
@@ -1044,6 +1107,7 @@ def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
     )
 
     cull_counts = dto.cull_counts
+    dt.TOPK_LAUNCHES = 0
     ch = dto.dense_chunks(dt, scene, light, cam, settings, PT_CHUNK)
     table, k, bo = ch["table"], ch["k"], ch["origins"]
     topk_chunks, vis_chunks = ch["topk"], ch["vis"]
@@ -1060,10 +1124,12 @@ def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
     wide = (*ch["wide"], table, k, settings)
     err_a = max(err_a, topk_check(
         dt, wide, f"the first {4 * PT_CHUNK} primary rays in one launch"))
+    log(f"phase 5a: dense_topk launched {dt.TOPK_LAUNCHES} times (the pose's "
+        f"primary trace in dense_chunks, then one a chunk checked)")
 
     res = {}
     for name, co, cd in topk_chunks:
-        cnt = cull_counts(dt, co, cd, table, settings)
+        cnt = cull_counts(dt, co, cd, table, settings, supers=True)
         cnt["contributing"] = contributing_pairs(dt, co, cd, table.rows,
                                                  settings)
         res[name] = dict(ms=cuda_ms(lambda: dt.dense_topk(
@@ -1077,14 +1143,21 @@ def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
             bo, cd, te, table, settings, act), 5), **cnt,
             **dense_bound(dt, cnt, PT_CHUNK, n))
     for name, r in res.items():
-        kernel = "dense_visibility" if "shadow" in name else "dense_topk"
-        log(f"phase 5a {name}: {kernel} {r['ms']:.3f} ms (CUDA events, 5 "
-            f"launches); warps skip {1 - r['warp_group_share']:.4%} of "
-            f"(warp, group) pairs; the cull tests {r['tested']} pairs and "
-            f"keeps {r['kept']} ({r['kept'] / max(r['tested'], 1):.4%}), "
-            f"{r['contributing']} have alpha > 0; some lane keeps "
-            f"{r['warp'] / r['warps']:.4%} of (warp, row) pairs, the warp's "
-            f"exact-path turns are {r['turns'] / r['warps']:.4%} of them; "
+        if "shadow" in name:
+            counts = (
+                f"dense_visibility {r['ms']:.3f} ms (CUDA events, 5 "
+                f"launches); warps skip {1 - r['warp_group_share']:.4%} of "
+                f"(warp, group) pairs; the cull tests {r['tested']} pairs "
+                f"and keeps {r['kept']} "
+                f"({r['kept'] / max(r['tested'], 1):.4%}), "
+                f"{r['contributing']} have alpha > 0; some lane keeps "
+                f"{r['warp'] / r['warps']:.4%} of (warp, row) pairs, the "
+                f"warp's exact-path turns are {r['turns'] / r['warps']:.4%} "
+                f"of them")
+        else:
+            counts = (f"dense_topk {r['ms']:.3f} ms (CUDA events, 5 "
+                      f"launches); " + topk_counts_line(r))
+        log(f"phase 5a {name}: {counts}; "
             f"bound by code path {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"({r['bound_flops']:.4e} flops, {r['bound_bytes']:.4e} bytes), "
             f"{r['bound_ms'] / r['ms']:.1%} of its rate; the function's "
@@ -1112,7 +1185,14 @@ def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
         f"{topk_plain_ms:.3f} ms; dense_visibility kernel {vis['ms']:.3f} "
         f"ms, plain {vis_plain_ms:.3f} ms (R={PT_CHUNK}, N={n}; CUDA events; "
         f"{card})")
+    shapes = [dict(name=f"5a {name}, K={k}", ms=res[name]["ms"],
+                   bound_ms=res[name]["bound_ms"],
+                   function_bound_ms=res[name]["function_bound_ms"])
+              for name, _, _ in topk_chunks[1:]]
+    shapes.append(dict(name=f"5a the first {4 * PT_CHUNK} primary rays, "
+                            f"K={k}", ms=wide_ms))
     return dict(topk=dict(topk, max_abs_err=err_a, plain_ms=topk_plain_ms),
+                topk_shapes=shapes,
                 vis=dict(vis, max_abs_err=err_v, plain_ms=vis_plain_ms),
                 pairs=dict(pairs["emissive shadow segments"],
                            plain_ms=pairs_plain_ms))
@@ -1627,8 +1707,10 @@ def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
     log(f"phase 5d: on those launches (R={args[0].shape[0]}) dense_topk "
         f"{topk_ms:.3f} ms, dense_visibility {vis_ms:.3f} ms (CUDA events, 3 "
         f"launches; {card})")
+    first = dict(name=f"5d the first bounce trace, K={args[3]}", ms=topk_ms,
+                 **topk_launch_bound(dt, args, "5d", card, topk_ms))
     return dict(launches=launches, rng=rng_launches, median_ms=med,
-                max_abs_err=(err_a, err_v))
+                max_abs_err=(err_a, err_v), topk_first=first)
 
 
 # ---- phase 6: the grid backend ------------------------------------------
@@ -2863,7 +2945,7 @@ def reset_counts(tc, gm, dt) -> None:
     tc.LAUNCHES = tc.BWD_LAUNCHES = tc.ANY_LAUNCHES = tc.BWD_ANY_LAUNCHES = 0
     gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
     gm.TRACE_WIDE_LAUNCHES = gm.VIS_WIDE_LAUNCHES = 0
-    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = dt.TOPK_LIST_LAUNCHES = 0
+    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
     k5.LAUNCHES = 0
 
 
@@ -2873,8 +2955,7 @@ def read_counts(tc, gm, dt) -> dict:
     return dict(fwd=tc.LAUNCHES, trace=gm.TRACE_LAUNCHES, vis=gm.VIS_LAUNCHES,
                 topk=dt.TOPK_LAUNCHES, dense_vis=dt.VIS_LAUNCHES,
                 rng=k5.LAUNCHES, fwd_any=tc.ANY_LAUNCHES,
-                bwd_any=tc.BWD_ANY_LAUNCHES, topk_list=dt.TOPK_LIST_LAUNCHES,
-                trace_wide=gm.TRACE_WIDE_LAUNCHES,
+                bwd_any=tc.BWD_ANY_LAUNCHES, trace_wide=gm.TRACE_WIDE_LAUNCHES,
                 vis_wide=gm.VIS_WIDE_LAUNCHES)
 
 
@@ -3381,18 +3462,12 @@ def bench_launches(c) -> dict:
     poses' samples, the dense baseline's calls; K5 once a bounce of each
     path-traced sample."""
     from pathtracer_gaussiansplatting_tpu_torch import bench
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import (
-        dense_trace as dt,
-    )
 
     w = bench.WARMUPS
     pt4 = c.pt_iters + w + (bench.POSE_ITERS + w) * c.pose_spp
     pt12 = bench.PT12_ITERS + w
-    # The dense baseline's K = min(k, 256) takes the list kernel above 128.
-    dense = "topk_list" if min(c.k, bench.DENSE_MAX_K) > dt.THREAD_MAX_K \
-        else "topk"
     return {"fwd": (c.iters + w) + (c.few + w) + pt4 + pt12,
-            "bwd": c.few + w, dense: c.few + w,
+            "bwd": c.few + w, "topk": c.few + w,
             "trace": pt4 * (c.pt_depth - 1) + pt12 * (bench.PT12_DEPTH - 1),
             "vis": pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH,
             "rng": pt4 * c.pt_depth + pt12 * bench.PT12_DEPTH}
@@ -3671,10 +3746,10 @@ def headline_split(tc, card, repeats: int = 5) -> dict:
 def dense_baseline_split(dt, card) -> dict:
     """10d: the bench's dense baseline, render_radiance_dense on the first
     50k Gaussians of the headline cloud, 64x32 rays, the list capped at
-    bench.DENSE_MAX_K (the root bench's 256: the list kernel): one call's
-    wall time and the table's build; the top-K kernel on those rays held
-    to its plain version (bit-equal) and timed beside the plain version,
-    the cull's counts and its bound by code path."""
+    bench.DENSE_MAX_K (the root bench's 256): one call's wall time and the
+    table's build; the top-K kernel on those rays held to its plain
+    version (bit-equal) and timed beside the plain version, the culls'
+    counts and its bound by code path."""
     from pathtracer_gaussiansplatting_tpu_torch import bench
     from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
         Camera, generate_rays, look_at,
@@ -3711,17 +3786,15 @@ def dense_baseline_split(dt, card) -> dict:
     ms = cuda_ms(lambda: dt.dense_topk(o, d, table, k, st), 3)
     plain_ms = cuda_ms(lambda: dt.dense_topk_plain(o, d, table.rows, k, st),
                        1)
-    cnt = dto.cull_counts(dt, o, d, table, st)
+    cnt = dto.cull_counts(dt, o, d, table, st, supers=True)
     cnt["contributing"] = contributing_pairs(dt, o, d, table.rows, st)
     bnd = dense_bound(dt, cnt, o.shape[0], n, k)
     log(f"phase 10d: dense baseline (N={n}, R={o.shape[0]}, K={k}): one "
         f"render_radiance_dense {call_ms:.1f} ms of wall time, the table's "
         f"build {table_ms:.2f} ms, dense_topk {ms:.3f} ms (CUDA events, 3 "
-        f"launches; the {'list' if k > dt.THREAD_MAX_K else 'thread'} "
-        f"kernel), plain {plain_ms:.1f} ms; the cull tests {cnt['tested']} "
-        f"pairs and keeps {cnt['kept']}, {cnt['contributing']} have alpha "
-        f"> 0 ({cnt['contributing'] / o.shape[0]:.0f} a ray); bound by code "
-        f"path {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, "
+        f"launches), plain {plain_ms:.1f} ms; " + topk_counts_line(cnt)
+        + f" ({cnt['contributing'] / o.shape[0]:.0f} with alpha > 0 a ray); "
+        f"bound by code path {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, "
         f"{bnd['bound_ms'] / ms:.1%} of its rate; the function's bound "
         f"{bnd['function_bound_ms']:.4f} ms ({card})")
     return dict(bnd, name="the bench's dense baseline", k=k, ms=ms,
@@ -3735,7 +3808,7 @@ def dense_baseline_split(dt, card) -> dict:
 SPATIAL_N, SPATIAL_TILE, SPATIAL_K = 2_000_000, 64, 64
 SPATIAL_FRAME = (3840, 2160)
 SPATIAL_SUBSET = 256  # rays held to the plain version
-SPATIAL_K_LIST = 160  # 11e's K, above the thread kernel's 128
+SPATIAL_K_LIST = 160  # 11e's K: lists above 128
 # 11b: phase 5's scene and pose; 11c: phase 6's scene and 6b's chunks;
 # 11d: the headline cloud's first SHARD_N Gaussians and SHARD_RAYS rays of
 # its camera.
@@ -3848,7 +3921,7 @@ def spatial_2m(dt, mesh, dev, card) -> dict:
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     dt.TOPK_LAUNCHES = 0
-    with torch.no_grad(), HostTimer(dt, "dense_topk") as k1:
+    with torch.no_grad(), HostTimer(dt, "dense_topk", keep=True) as k1:
         out, fwd_ms = host_ms(lambda: spatial.render_spatial(
             block, rays, settings, mesh))
     fwd_launches = dt.TOPK_LAUNCHES
@@ -3893,28 +3966,39 @@ def spatial_2m(dt, mesh, dev, card) -> dict:
         f"{int((g != 0).sum())} Gaussians with a gradient ({card})")
     log(f"phase 11a: card vs plain top-K on {SPATIAL_SUBSET} rays: max abs "
         f"err {err:.3e} (rtol {RING_RTOL}, atol {RING_ATOL})")
+    # The reverse-key launch alone: bit-equal to the plain top-K on all its
+    # rays, timed, and its culls counted.
+    rargs, rkw = k1.calls[1]
+    check(not rkw, "11a: dense_topk was called with keywords")
+    with torch.no_grad():
+        rev_err = topk_check(dt, tuple(rargs), "the reverse-key launch",
+                             "11a")
+        rev_ms = cuda_ms(lambda: dt.dense_topk(*rargs), 3)
+        rev = dict(name=f"11a the reverse-key launch, K={rargs[3]}",
+                   ms=rev_ms, max_abs_err=rev_err,
+                   **topk_launch_bound(dt, tuple(rargs), "11a", card,
+                                       rev_ms, rays_per_pass=16))
     # 11e: the slab composite at K = SPATIAL_K_LIST (the JAX package's
-    # tests/test_spatial.py:324's max_contribs), through the top-K's list
-    # kernel, against the plain top-K on the same rays.
+    # tests/test_spatial.py:324's max_contribs) against the plain top-K on
+    # the same rays.
     settings_l = RenderSettings(max_contribs=SPATIAL_K_LIST)
-    dt.TOPK_LAUNCHES = dt.TOPK_LIST_LAUNCHES = 0
+    dt.TOPK_LAUNCHES = 0
     with torch.no_grad():
         got, ms_l = host_ms(lambda: spatial.render_spatial(
             block, sub, settings_l, mesh))
-        list_launches = dt.TOPK_LIST_LAUNCHES
+        launches_l = dt.TOPK_LAUNCHES
         with PlainTopK(dt):
             want = spatial.render_spatial(block, sub, settings_l, mesh)
-    check(list_launches == 2 and dt.TOPK_LAUNCHES == 0,
-          f"11e: the list kernel launched {list_launches} times, the thread "
-          f"kernel {dt.TOPK_LAUNCHES}, not 2 and 0")
+    check(launches_l == 2,
+          f"11e: dense_topk launched {launches_l} times, not 2")
     err_l = compare(got, want, f"11e render_spatial at K={SPATIAL_K_LIST} "
                     "vs plain top-K", rtol=RING_RTOL, atol=RING_ATOL)
     log(f"phase 11e: render_spatial at K={SPATIAL_K_LIST} on "
         f"{SPATIAL_SUBSET} rays of the same slab: {ms_l:.1f} ms (host clock, "
-        f"synchronized), the list kernel's launches {list_launches}; card "
+        f"synchronized), dense_topk's launches {launches_l}; card "
         f"vs plain top-K max abs err {err_l:.3e} (rtol {RING_RTOL}, atol "
         f"{RING_ATOL}) ({card})")
-    return dict(launches=launches, list_launches=list_launches,
+    return dict(launches=launches, launches_l=launches_l, rev=rev,
                 fwd_ms=fwd_ms, grad_ms=grad_ms, peak_gib=peak)
 
 
@@ -4251,10 +4335,11 @@ def phase11(tc, dt, gm, gt, pt_settings, dense_ms, dev, card) -> dict:
         dist.destroy_process_group()
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
     return dict(fwd=b["launches"][0],
-                topk=a["launches"] + b["launches"][1] + d["launches"],
-                topk_list=a["list_launches"],
+                topk=a["launches"] + a["launches_l"] + b["launches"][1]
+                + d["launches"],
                 dense_vis=b["launches"][2], trace=c["launches"][0],
-                vis=c["launches"][1], rng=b["launches"][3])
+                vis=c["launches"][1], rng=b["launches"][3],
+                topk_rev=a["rev"])
 
 
 # ---- phase 12: the downstream loop -----------------------------------------
@@ -4617,10 +4702,10 @@ def threefry_checks(rng, k5, key, card) -> list:
 
 # ---- phase 14: every K, Kc and tile size on a hand kernel ------------------
 
-# 14a: the top-K's list kernel at these K on 5a's chunks, and at K = N on
-# surface_scene(TOPK_N_SMALL); timed at every K on the primary and bounce
-# chunks.
-TOPK_LIST_KS = (160, 256, 512, 2048)
+# 14a: the top-K kernel at these K on 5a's chunks, and at K = N on the same
+# chunks of surface_scene(TOPK_N_SMALL); timed at every K on the primary and
+# bounce chunks.
+TOPK_KS = (1, 32, 64, 128, 160, 256, 512, 2048)
 TOPK_N_SMALL = 3000
 # 14b: the march kernels' wide instantiation at these Kc on 6b's chunks,
 # with a memory budget for the tables (Kc = 256 builds ~11 GiB at 500k);
@@ -4653,15 +4738,16 @@ def topk_equal(got, want, name: str) -> None:
           f"version ({bad[0]} idx, {bad[1]} t, {bad[2]} alpha slots differ)")
 
 
-def topk_lists(dt, dev, card) -> dict:
-    """14a: the top-K's list kernel (K above 128) against dense_topk_plain,
-    every output bit for bit, at each K of TOPK_LIST_KS on 5a's chunks:
-    primary, bounce and thin-far rays, the primary rays ordered by tied
-    sort depths, the bounce rays under a 50% active mask. Each K is held to
-    the first K columns of the plain version at the largest (a stable
-    sort's first K are its K smallest). Timed at each K on the primary and
-    bounce chunks beside the plain version and the bound by code path;
-    then K = N on surface_scene(TOPK_N_SMALL)'s primary chunk."""
+def topk_ks(dt, dev, card) -> dict:
+    """14a: the top-K kernel against dense_topk_plain, every output bit for
+    bit, at each K of TOPK_KS on 5a's chunks: primary, bounce and thin-far
+    rays, the primary rays ordered by tied sort depths, the bounce rays
+    under a 50% active mask. Each K is held to the first K columns of the
+    plain version at the largest (a stable sort's first K are its K
+    smallest). Timed at each K on the primary and bounce chunks beside the
+    plain version and both bounds; then K = N on the primary, bounce and
+    thin-far chunks of surface_scene(TOPK_N_SMALL). The kernel's launches
+    are printed for each chunk."""
     from pathtracer_gaussiansplatting_tpu_torch.core.types import (
         RenderSettings,
     )
@@ -4681,66 +4767,68 @@ def topk_lists(dt, dev, card) -> dict:
         ("primary rays, tied sort depths", po, pd, tied, None),
         ("bounce rays, half active", bo, bd, None, half)]
     timed = ("primary rays", "bounce rays")
-    k_max = max(TOPK_LIST_KS)
+    k_max = max(TOPK_KS)
     res = {}
     for name, o, d, sd, act in chunks:
         t0 = time.perf_counter()
         want = dt.dense_topk_plain(o, d, table.rows, k_max, st, sd, act)
-        for k in TOPK_LIST_KS:
+        dt.TOPK_LAUNCHES = 0
+        for k in TOPK_KS:
             got = dt.dense_topk(o, d, table, k, st, sd, act)
             torch.cuda.synchronize()
             topk_equal(got, tuple(x[:, :k] for x in want),
                        f"14a {name}, K={k}")
         kept = (want[2] > 0).sum(-1)
-        log(f"phase 14a {name}: dense_topk's list kernel at K = "
-            f"{', '.join(map(str, TOPK_LIST_KS))} bit-equal to the plain "
-            f"version (R={o.shape[0]}, N={n}); contributions a ray: mean "
-            f"{float(kept.float().mean()):.1f}, max {int(kept.max())}, "
-            f"{int((kept > TOPK_LIST_KS[0]).sum())} rays above "
-            f"K={TOPK_LIST_KS[0]}; {time.perf_counter() - t0:.1f} s")
+        log(f"phase 14a {name}: dense_topk at K = "
+            f"{', '.join(map(str, TOPK_KS))} bit-equal to the plain version "
+            f"(R={o.shape[0]}, N={n}; {dt.TOPK_LAUNCHES} launches: one a "
+            f"K, and K=2048's lists in global memory, a chunk of rays a "
+            f"launch); contributions a ray: mean "
+            f"{float(kept.float().mean()):.1f}"
+            f", max {int(kept.max())}, {int((kept > 64).sum())} rays above "
+            f"K=64; {time.perf_counter() - t0:.1f} s")
         if name not in timed:
             continue
         t0 = time.perf_counter()
-        cnt = dto.cull_counts(dt, o, d, table, st)
+        cnt = dto.cull_counts(dt, o, d, table, st, supers=True)
         cnt["contributing"] = contributing_pairs(dt, o, d, table.rows, st)
-        log(f"phase 14a {name}: the cull's counts in "
+        log(f"phase 14a {name}: " + topk_counts_line(cnt) + f"; counted in "
             f"{time.perf_counter() - t0:.1f} s")
         # The plain version's time hardly depends on K (its sort over N
         # does not): taken once, at K = 256.
         _, plain_ms = host_ms(
             lambda: dt.dense_topk_plain(o, d, table.rows, 256, st))
-        for k in TOPK_LIST_KS:
+        for k in TOPK_KS:
             ms = cuda_ms(lambda: dt.dense_topk(o, d, table, k, st), 3)
             bnd = dense_bound(dt, cnt, o.shape[0], n, k)
             res[(name, k)] = dict(bnd, ms=ms, plain_ms=plain_ms,
                                   max_abs_err=0.0)
-            log(f"phase 14a {name}, K={k}: list kernel {ms:.3f} ms (CUDA "
+            log(f"phase 14a {name}, K={k}: dense_topk {ms:.3f} ms (CUDA "
                 f"events, 3 launches), plain {plain_ms:.1f} ms (host clock, "
                 f"at K=256); bound by "
                 f"code path {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} "
                 f"({bnd['bound_flops']:.4e} flops, {bnd['bound_bytes']:.4e} "
                 f"bytes) = {bnd['bound_ms'] / ms:.1%} of its rate; the "
-                f"function's bound {bnd['function_bound_ms']:.4f} ms ({card})")
+                f"function's bound {bnd['function_bound_ms']:.4f} ms = "
+                f"{bnd['function_bound_ms'] / ms:.1%} ({card})")
     del ch, table, scene, chunks, want
     # K = N: the lists in global memory, every contribution of a ray kept.
     small, light, cam = pt_world(TOPK_N_SMALL, 800, 800, dev)
     ch = dto.dense_chunks(dt, small, light, cam, st, PT_CHUNK)
-    (_, o, d), (_, bo, bd), _ = ch["topk"]
-    for name, ro, rd in (("primary rays", o, d), ("bounce rays", bo, bd)):
-        before = dt.TOPK_LIST_LAUNCHES
+    for name, ro, rd in ch["topk"]:
+        before = dt.TOPK_LAUNCHES
         got = dt.dense_topk(ro, rd, ch["table"], TOPK_N_SMALL, st)
-        launches = dt.TOPK_LIST_LAUNCHES - before
+        launches = dt.TOPK_LAUNCHES - before
         want = dt.dense_topk_plain(ro, rd, ch["table"].rows, TOPK_N_SMALL, st)
         torch.cuda.synchronize()
         topk_equal(got, want, f"14a {name}, K=N={TOPK_N_SMALL}")
         ms = cuda_ms(lambda: dt.dense_topk(ro, rd, ch["table"], TOPK_N_SMALL,
                                            st), 3)
-        log(f"phase 14a {name} of surface_scene({TOPK_N_SMALL}), K=N: the "
-            f"list kernel bit-equal to the plain version; {ms:.3f} ms (CUDA "
+        log(f"phase 14a {name} of surface_scene({TOPK_N_SMALL}), K=N: "
+            f"dense_topk bit-equal to the plain version; {ms:.3f} ms (CUDA "
             f"events, 3 calls, {launches} launches a call: the lists in "
             f"global memory, a chunk of rays a launch); most contributions a "
-            f"ray "
-            f"{int((want[2] > 0).sum(-1).max())} ({card})")
+            f"ray {int((want[2] > 0).sum(-1).max())} ({card})")
     return res
 
 
@@ -4996,10 +5084,12 @@ def stepwise_train_check(scene, cam_kw, cfg, settings, dev,
 
 def cli_dense_k256(cli, dt, dev, card) -> int:
     """14f: ``cli render --backend dense --max-contribs 256`` on 5b's scene
-    (surface_scene(2000, seed 13) as a 3DGS checkpoint, phase 5's ambient
-    and a sun, phase 8's torus; 96x64, 2 spp, depth 1) with --device cuda
-    and --device cpu: the float images handed to save_png held to 5b's
-    depth-1 gates. Returns the list kernel's launches on the card's run."""
+    (surface_scene(2000, seed 13) as a 3DGS checkpoint, a sun, phase 8's
+    torus; 96x64, 2 spp, depth 1) with --device cuda and --device cpu: the
+    float images handed to save_png held to 5b's depth-1 gates at phase
+    5's ambient, and to AMBIENT_MIN_SHARE / AMBIENT_MEAN_FRAC at
+    AMBIENT_BRIGHT. Returns the top-K kernel's launches on the card's
+    runs."""
     from pathtracer_gaussiansplatting_tpu_torch.core.types import (
         RenderSettings,
     )
@@ -5008,49 +5098,59 @@ def cli_dense_k256(cli, dt, dev, card) -> int:
         surface_scene,
     )
 
+    card_launches = 0
     with tempfile.TemporaryDirectory(dir=ROOT,
                                      prefix=".chip_smoke_k256_") as root:
         save_3dgs_ply(os.path.join(root, "room.ply"),
                       surface_scene(2000, seed=13, device="cpu"))
-        cfg = os.path.join(root, "scene.json")
-        with open(cfg, "w") as fh:
-            # The checkpoint drops the panel's emission, and the room's
-            # walls shade the sun: 5b's gates hold the port here, not
-            # under a bright ambient, where thin surfels' alpha cutoffs
-            # round apart on the card and the CPU (at ambient 0.6, 95.5%
-            # of pixels within the tolerance, the same with K=64's thread
-            # kernel as with the list kernel).
-            json.dump({"settings": {
-                "ambient_light": [0.05, 0.05, 0.06, 1.0],
-                "torus_settings": dict(CAPTURE_TORUS, num_rays=4096),
-                "sun": {"color": [1.0, 0.95, 0.9],
-                        "direction": [0.3, -1.0, 0.2], "intensity": 1.5},
-                "width": 96, "height": 64, "fov": 60, "max_depth": 1},
-                "objects": [{"model": "room.ply"}]}, fh)
-        imgs, launches = [], {}
-        for device in (dev, torch.device("cpu")):
-            dt.TOPK_LAUNCHES = dt.TOPK_LIST_LAUNCHES = 0
-            with HostTimer(cli, "save_png", keep=True) as png:
-                run_cli(cli, ["render", "--scene", cfg, "--output",
-                              os.path.join(root, f"{device.type}.png"),
-                              "--backend", "dense", "--max-contribs", "256",
-                              "--spp", "2", "--device", device.type])
-            launches[device.type] = (dt.TOPK_LIST_LAUNCHES, dt.TOPK_LAUNCHES)
-            imgs.append(torch.from_numpy(np.asarray(png.calls[0][0][1],
-                                                    np.float32)))
-    check(launches["cuda"][0] > 0 and launches["cuda"][1] == 0
-          and launches["cpu"] == (0, 0),
-          f"14f: top-K launches (list, thread) by device {launches}")
-    pt_gates("14f", "cli render --backend dense --max-contribs 256", imgs[0],
-             imgs[1], PT_MIN_SHARE, RenderSettings(max_depth=1),
-             "5b's scene as a 3DGS checkpoint with a sun, 96x64, 2 spp")
-    return launches["cuda"][0]
+        # The checkpoint drops the panel's emission, and the room's walls
+        # shade the sun: 5b's gates hold the port at phase 5's ambient;
+        # under a bright one the thin surfels' alpha rounding reaches the
+        # pixels through the ambient term, in the JAX package as in the
+        # port, and the gates measured there hold it.
+        for ambient, min_share, mean_frac in (
+                ((0.05, 0.05, 0.06, 1.0), PT_MIN_SHARE, PT_MEAN_FRAC),
+                ((AMBIENT_BRIGHT,) * 3 + (1.0,), AMBIENT_MIN_SHARE,
+                 AMBIENT_MEAN_FRAC)):
+            cfg = os.path.join(root, f"scene_{ambient[0]}.json")
+            with open(cfg, "w") as fh:
+                json.dump({"settings": {
+                    "ambient_light": list(ambient),
+                    "torus_settings": dict(CAPTURE_TORUS, num_rays=4096),
+                    "sun": {"color": [1.0, 0.95, 0.9],
+                            "direction": [0.3, -1.0, 0.2],
+                            "intensity": 1.5},
+                    "width": 96, "height": 64, "fov": 60, "max_depth": 1},
+                    "objects": [{"model": "room.ply"}]}, fh)
+            imgs, launches = [], {}
+            for device in (dev, torch.device("cpu")):
+                dt.TOPK_LAUNCHES = 0
+                with HostTimer(cli, "save_png", keep=True) as png:
+                    run_cli(cli, ["render", "--scene", cfg, "--output",
+                                  os.path.join(root, f"{device.type}.png"),
+                                  "--backend", "dense", "--max-contribs",
+                                  "256", "--spp", "2", "--device",
+                                  device.type])
+                launches[device.type] = dt.TOPK_LAUNCHES
+                imgs.append(torch.from_numpy(np.asarray(png.calls[0][0][1],
+                                                        np.float32)))
+            check(launches["cuda"] > 0 and launches["cpu"] == 0,
+                  f"14f: dense_topk launches by device {launches}")
+            log(f"phase 14f at ambient {ambient[0]}: dense_topk launched "
+                f"{launches['cuda']} times on the card's render")
+            card_launches += launches["cuda"]
+            pt_gates("14f", f"cli render --backend dense --max-contribs 256 "
+                     f"at ambient {ambient[0]}", imgs[0], imgs[1], min_share,
+                     RenderSettings(max_depth=1),
+                     "5b's scene as a 3DGS checkpoint with a sun, 96x64, 2 "
+                     "spp", mean_frac)
+    return card_launches
 
 
 def phase14(cli, tc, gm, gt, dt, capture, small, small_cam, key, dev,
             card) -> dict:
-    """Phase 14: the sizes above the one-block and thread kernels' caps;
-    returns the figures for the kernel table."""
+    """Phase 14: the sizes above the old caps; returns the figures for the
+    kernel table."""
     from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
         Camera, look_at,
     )
@@ -5065,7 +5165,7 @@ def phase14(cli, tc, gm, gt, dt, capture, small, small_cam, key, dev,
         torch.cuda.synchronize()
         marks.append((name, time.perf_counter()))
 
-    topk = topk_lists(dt, dev, card)
+    topk = topk_ks(dt, dev, card)
     mark("14a")
     grid = grid_wide_checks(gm, gt, capture, dev, card)
     mark("14b, 14e")
@@ -5540,7 +5640,6 @@ def main() -> int:
                     bound_by=bnd["bound_by"], library_ms=None, **fn_key,
                     **extra)
 
-    topk_list = p14["topk"][("primary rays", 256)]
     marches = p14["grid"]["marches"]
     trace_w, vis_w = marches[(True, 256)], marches[(False, 256)]
     tile32 = p14["tiles"][32]
@@ -5558,7 +5657,16 @@ def main() -> int:
                 if not tc.one_block(ts * ts)]
 
     topk = dict(dense["topk"], max_abs_err=max(
-        dense["topk"]["max_abs_err"], tiled["max_abs_err"][0]))
+        dense["topk"]["max_abs_err"], tiled["max_abs_err"][0],
+        p11["topk_rev"]["max_abs_err"]))
+
+    def topk_shapes():
+        keys = ("name", "ms", "plain_ms", "bound_ms", "function_bound_ms")
+        return [{k: r[k] for k in keys if k in r} for r in (
+            dense["topk_shapes"] + [tiled["topk_first"], p11["topk_rev"]]
+            + [dict(r, name=f"14a {name}, K={k}")
+               for (name, k), r in p14["topk"].items()]
+            + [dict(base10, name=f"10d {base10['name']}, K={base10['k']}")])]
     vis = dict(dense["vis"], max_abs_err=max(
         dense["vis"]["max_abs_err"], tiled["max_abs_err"][1]))
     log(json.dumps({"kernels": [
@@ -5574,9 +5682,12 @@ def main() -> int:
               dict(max_abs_err=max(bwd["max_abs_err"],
                                    bwd_pt["max_abs_err"], p12["bwd_err"]),
                    ms=bwd["ms"], plain_ms=bwd["plain_ms"]), bwd["bound"]),
+        # Times and bounds at 5a's primary chunk at K = 64; the other
+        # shapes beside them.
         entry("dense_topk", TOPK_SOURCE, TOPK_REPLACES,
               flat["launches"][0] + tiled["launches"][1] + p9["topk"]
-              + p10["topk"] + p11["topk"], topk, topk),
+              + p10["topk"] + p11["topk"] + p14["cli_launches"], topk, topk,
+              shapes=topk_shapes()),
         entry("dense_visibility", VIS_SOURCE, VIS_REPLACES,
               flat["launches"][1] + tiled["launches"][2] + p9["dense_vis"]
               + p11["dense_vis"], vis, vis),
@@ -5612,18 +5723,8 @@ def main() -> int:
                            plain_ms=r["plain_ms"],
                            bound_ms=r["bound"]["bound_ms"])
                       for r in k5_res]),
-        # Phase 14's new paths: times at 5a's primary chunk at K = 256, at
-        # 6b's chunks at Kc = 256, at the headline at tile size 32; the
-        # other shapes beside them.
-        entry("dense_topk_list", TOPK_SOURCE, TOPK_REPLACES,
-              p10["topk_list"] + p11["topk_list"] + p14["cli_launches"],
-              topk_list, topk_list, shapes=[
-                  dict(name=f"{name}, K={k}", ms=r["ms"],
-                       plain_ms=r["plain_ms"], bound_ms=r["bound_ms"])
-                  for (name, k), r in p14["topk"].items()] + [
-                  dict(name=f"{base10['name']}, K={base10['k']}",
-                       ms=base10["ms"], plain_ms=base10["plain_ms"],
-                       bound_ms=base10["bound_ms"])]),
+        # Phase 14's new paths: times at 6b's chunks at Kc = 256, at the
+        # headline at tile size 32; the other shapes beside them.
         entry("grid_trace_wide", GRID_SOURCE, GRID_TRACE_REPLACES,
               p14["grid"]["pose"]["launches"][0], trace_w, trace_w,
               shapes=wide_shapes(True)),

@@ -159,7 +159,9 @@ __device__ __forceinline__ bool cull_keep(const Ray& r, float dd, float tt,
 
 // The group test: false where no row of a group of 32 staged rows can be
 // kept by this ray, from the group's sphere (center, radius) and its
-// largest radii r0 and r1 (kernels/dense_trace.py: dense_table). The
+// largest radii r0 and r1 (kernels/dense_trace.py: dense_table); the same
+// for a super-group of 32 groups, whose sphere holds its groups' spheres
+// and whose radii are their largest. The
 // line's distance to any mean of the group is at least its distance to the
 // center less the radius, and each |x| at most |x_c| plus the radius; the
 // slack terms cover the float32 rounding of this test (the Lagrange
@@ -224,13 +226,11 @@ __device__ __forceinline__ void stage_rows_async(const float* table, int base,
 }
 
 // The cull over rows [j0, j0 + 32) of a staged buffer (rows past cnt
-// masked off): bit jj set where the ray keeps row j0 + jj. Each row is
-// read as its first and last 16 bytes, (mean, M00) and (opacity, R0 of the
-// trace, R1, R0 of a shadow segment); every lane of a warp reads the same
-// row (a broadcast, no bank conflict). The 32 tests are independent, so
-// the unrolled loop keeps many in flight. kR0 picks the trace's R0 (1) or
-// the shadow segment's (3) in the row's last 16 bytes.
-template <int kR0>
+// masked off), with the shadow segment's R0: bit jj set where the segment
+// keeps row j0 + jj. Each row is read as its first and last 16 bytes,
+// (mean, M00) and (opacity, R0 of the trace, R1, R0 of a shadow segment);
+// every lane of a warp reads the same row (a broadcast, no bank conflict).
+// The 32 tests are independent, so the unrolled loop keeps many in flight.
 __device__ __forceinline__ unsigned cull_mask(const Ray& r, float dd, float tt,
                                               const float* sg, int j0,
                                               int cnt) {
@@ -240,8 +240,7 @@ __device__ __forceinline__ unsigned cull_mask(const Ray& r, float dd, float tt,
     const float4* row =
         reinterpret_cast<const float4*>(sg + (j0 + jj) * kCols);
     const float4 h = row[0], tl = row[3];
-    const float r0 = kR0 == 1 ? tl.y : tl.w;
-    keep |= static_cast<unsigned>(cull_keep(r, dd, tt, h.x, h.y, h.z, r0,
+    keep |= static_cast<unsigned>(cull_keep(r, dd, tt, h.x, h.y, h.z, tl.w,
                                             tl.z))
             << jj;
   }

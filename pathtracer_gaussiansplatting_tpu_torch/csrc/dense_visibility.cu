@@ -11,9 +11,10 @@
 //
 // What bounded it: the issue of the per-pair work, as for dense_topk.cu
 // (the exact pair ~110 instructions, a division and an exp, for ~0.1-0.5%
-// of pairs that have alpha > 0). So it evaluates fewer pairs
-// in dense_topk.cu's three conservative steps, with the shadow segment's
-// radii (no sigma_cut; tau = |t_end| where the segment ends before t_min):
+// of pairs that have alpha > 0). So it evaluates fewer pairs in three
+// conservative steps (dense_common.cuh derives them), with the shadow
+// segment's radii (no sigma_cut; tau = |t_end| where the segment ends
+// before t_min):
 // a warp skips each group of 32 Morton-ordered rows that none of its
 // segments can reach, each segment tests the remaining rows with the
 // per-pair cull, and each lane multiplies in its own kept rows while the
@@ -29,8 +30,8 @@
 // 700.00 W; 65536 segments, 50k Gaussians): 1.92 ms on segments to
 // emissive surfels and 0.85 ms on segments to the point light, 6.3% and
 // 10.9% of the bound by code path (13.8 ms when every pair ran the exact
-// path). As for dense_topk.cu, a chunk is one wave of ~16 warps an SM and
-// a group costs its busiest lane's kept rows; past that, not measured.
+// path). A chunk is one wave of ~16 warps an SM and a group costs its
+// busiest lane's kept rows; past that, not measured.
 //
 // Where autograd wants the geometry (render/reference.py:
 // visibility_dense), the same kernel runs in two more modes, instantiated
@@ -119,7 +120,7 @@ __global__ void __launch_bounds__(kRays) dense_visibility_kernel(
         }
         if (!__any_sync(kFullWarp, reach)) continue;
         unsigned pend =
-            reach ? ptgs_dense::cull_mask<3>(r, dd, tt, g0, j0, cnt) : 0u;
+            reach ? ptgs_dense::cull_mask(r, dd, tt, g0, j0, cnt) : 0u;
         // Each lane multiplies in its own kept rows in staged order; the
         // warp loops while any lane has one left (a vote).
         while (__any_sync(kFullWarp, pend != 0u)) {

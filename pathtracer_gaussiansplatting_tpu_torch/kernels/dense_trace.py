@@ -9,9 +9,8 @@ the active mask of ``render/pipeline.py:_dense_vis``). Both evaluate the
 Gaussians from one (N, 16) table, :func:`gaussian_table`.
 
 For CUDA tensors they launch the CUDA kernels ``csrc/dense_topk.cu``
-(counted in ``TOPK_LAUNCHES`` for K <= 128, a thread a ray; in
-``TOPK_LIST_LAUNCHES`` above, a warp a ray with its list in shared or
-global memory) and ``csrc/dense_visibility.cu`` (counted in
+(counted in ``TOPK_LAUNCHES``: a warp a ray, its list in shared or global
+memory, for every K) and ``csrc/dense_visibility.cu`` (counted in
 ``VIS_LAUNCHES``); for CPU tensors they run ``dense_topk_plain`` and
 ``dense_visibility_plain``, the unculled math. ``dense_visibility_pairs``
 (the shadow product with the list of its pairs with alpha > 0, for its
@@ -23,10 +22,12 @@ raises.
 The kernels skip a pair whose mean lies farther from the ray's line than
 the Gaussian can reach (:func:`dense_cull_keep` is the same predicate in
 torch, for the tests; ``csrc/dense_common.cuh`` derives its radii), and a
-warp skips a whole group of 32 rows that none of its rays can reach
-(:func:`dense_group_keep`): the kernels read the rows in Morton order of
-the means, with each group's bounding sphere (:class:`DenseTable`). A
-culled pair has alpha = 0 in the exact math as well, so the top-K kernel
+whole group of 32 rows that the ray (the top-K kernel) or none of the
+warp's segments (the shadow kernel) can reach (:func:`dense_group_keep`):
+the kernels read the rows in Morton order of the means, with each group's
+bounding sphere (:class:`DenseTable`). The top-K kernel first skips each
+super-group of 32 groups the ray cannot reach (:func:`dense_super_keep`).
+A culled pair has alpha = 0 in the exact math as well, so the top-K kernel
 stays bit-equal to ``dense_topk_plain`` (equal keys go by index, as the
 plain version's stable sort has them) and a culled shadow factor is
 exactly 1.
@@ -52,20 +53,19 @@ from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as gops
 # R0 of the trace, R1, R0 of a shadow segment. 64 bytes a row.
 TABLE_COLS = 16
 COL_R0_TRACE, COL_R1, COL_R0_SHADOW = 13, 14, 15
-# The top-K kernel keeps up to THREAD_MAX_K a ray in each thread's
-# registers and local memory; above, a warp a ray keeps the list sorted in
-# shared memory up to LIST_SHARED_MAX_K, and past that in a global scratch
-# of at most LIST_SCRATCH_BYTES a launch (the rays go in chunks).
-THREAD_MAX_K, LIST_SHARED_MAX_K = 128, 1024
+# The top-K kernel (a warp a ray) keeps a ray's list sorted in shared
+# memory up to LIST_SHARED_MAX_K, and past that in a global scratch of at
+# most LIST_SCRATCH_BYTES a launch (the rays go in chunks).
+LIST_SHARED_MAX_K = 1024
 LIST_SCRATCH_BYTES = 1 << 30
 
 # Rows a group sphere bounds (a warp's cull step, csrc/dense_common.cuh),
 # and its columns: center (3), radius, the group's largest R0 of the trace,
-# R1 and R0 of a shadow segment, 0.
-GROUP_ROWS, GROUP_COLS = 32, 8
+# R1 and R0 of a shadow segment, 0. A super-group sphere bounds
+# SUPER_GROUPS consecutive groups' spheres, in the same columns.
+GROUP_ROWS, GROUP_COLS, SUPER_GROUPS = 32, 8, 32
 
 TOPK_LAUNCHES = 0  # dense_topk kernel launches; read by chip_smoke.py
-TOPK_LIST_LAUNCHES = 0  # its K > 128 kernel's launches; read likewise
 VIS_LAUNCHES = 0   # dense_visibility kernel launches; read by chip_smoke.py
 # dense_visibility_pairs' launches of the same kernel (two a call: the
 # counts, then the pairs); read by chip_smoke.py
@@ -128,13 +128,20 @@ class DenseTable:
     Morton order of the means, which the kernels stage; order (N,) int32:
     each sorted row's index; groups (ceil(N / 32), 8): each 32 rows of
     sorted_rows as a sphere around all their means (center, radius) and
-    their largest R0 of the trace, R1 and R0 of a shadow segment.
+    their largest R0 of the trace, R1 and R0 of a shadow segment; supers
+    (ceil(groups / 32), 8): each 32 groups as a sphere around all their
+    spheres and their largest radii, in the same columns (the top-K
+    kernel tests these first); cull (5, N): the top-K kernel's per-pair
+    cull operands of sorted_rows, a column each (mean x, y, z, R0 of the
+    trace, R1), so that a warp's 32 rows are five 128-byte reads.
     """
 
     rows: torch.Tensor
     sorted_rows: torch.Tensor
     order: torch.Tensor
     groups: torch.Tensor
+    supers: torch.Tensor
+    cull: torch.Tensor
 
 
 def _spread_bits(v: torch.Tensor) -> torch.Tensor:
@@ -167,26 +174,53 @@ def dense_table(table: torch.Tensor) -> DenseTable:
     return table_in_order(table, morton_order(table[:, :3]))
 
 
+def _in_blocks(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(ceil(n / size), size, ...) float64: x's rows in consecutive blocks,
+    the last padded with its last row."""
+    n = x.shape[0]
+    blocks = -(-n // size)
+    return torch.cat([x, x[-1:].expand(blocks * size - n, *x.shape[1:])]
+                     ).reshape(blocks, size, *x.shape[1:]).double()
+
+
+def _center(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(B, 3) float64: the center of each box [lo, hi], rounded to
+    float32."""
+    return ((lo + hi) / 2).float().double()
+
+
+def _spheres(center: torch.Tensor, reach: torch.Tensor,
+             radii: torch.Tensor) -> torch.Tensor:
+    """(B, 8) float32 spheres of B blocks of S members: the center (B, 3);
+    the radius, the members' largest reach (B, S) beyond it (float64,
+    rounded outward); the members' largest radii (B, S, 3); 0."""
+    radius = reach.amax(1) * (1.0 + 1e-6)
+    return torch.cat([center, radius[:, None], radii.amax(1),
+                      torch.zeros_like(radius[:, None])], dim=-1).float()
+
+
 def table_in_order(table: torch.Tensor, order: torch.Tensor) -> DenseTable:
     """The :class:`DenseTable` of a (N, 16) :func:`gaussian_table` with its
-    rows staged in ``order`` (a permutation of N), and each 32-row group's
-    sphere, computed in float64 and rounded outward."""
+    rows staged in ``order`` (a permutation of N), each 32-row group's
+    sphere around its means and each 32-group super-group's sphere around
+    its groups' spheres, computed in float64 and rounded outward."""
     with torch.no_grad():
-        n = table.shape[0]
         sorted_rows = table.detach()[order].contiguous()
-        n_groups = -(-n // GROUP_ROWS)
-        padded = torch.cat([sorted_rows, sorted_rows[-1:].expand(
-            n_groups * GROUP_ROWS - n, -1)]).reshape(
-                n_groups, GROUP_ROWS, TABLE_COLS).double()
-        m = padded[..., :3]
-        center = ((m.amin(1) + m.amax(1)) / 2).float().double()
-        radius = (m - center[:, None]).norm(dim=-1).amax(1) * (1.0 + 1e-6)
-        groups = torch.cat([center, radius[:, None],
-                            padded[..., COL_R0_TRACE:].amax(1),
-                            torch.zeros_like(radius[:, None])], dim=-1)
+        rows = _in_blocks(sorted_rows, GROUP_ROWS)
+        m = rows[..., :3]
+        center = _center(m.amin(1), m.amax(1))
+        groups = _spheres(center, (m - center[:, None]).norm(dim=-1),
+                          rows[..., COL_R0_TRACE:]).contiguous()
+        sph = _in_blocks(groups, SUPER_GROUPS)
+        c, r = sph[..., :3], sph[..., 3]
+        center = _center((c - r[..., None]).amin(1),
+                         (c + r[..., None]).amax(1))
+        supers = _spheres(center, (c - center[:, None]).norm(dim=-1) + r,
+                          sph[..., 4:7]).contiguous()
+        cull = sorted_rows[:, [0, 1, 2, COL_R0_TRACE, COL_R1]].t()
         return DenseTable(rows=table, sorted_rows=sorted_rows,
-                          order=order.to(torch.int32),
-                          groups=groups.float().contiguous())
+                          order=order.to(torch.int32), groups=groups,
+                          supers=supers, cull=cull.contiguous())
 
 
 def _unpack(table: torch.Tensor):
@@ -325,24 +359,44 @@ def dense_cull_keep(origins: torch.Tensor, dirs: torch.Tensor,
     return ~(xx * dd - xd * xd > dd * (r0 + r1 * (xx + tt)))
 
 
-def dense_group_keep(origins: torch.Tensor, dirs: torch.Tensor,
-                     table: DenseTable, settings: RenderSettings,
-                     t_end: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(R, groups) bool: the 32-row groups of ``table.sorted_rows`` that
-    each ray may reach (``csrc/dense_common.cuh:group_keep`` in torch);
-    for the trace or, given ``t_end``, for shadow segments."""
+def _sphere_keep(origins: torch.Tensor, dirs: torch.Tensor,
+                 spheres: torch.Tensor, settings: RenderSettings,
+                 t_end: Optional[torch.Tensor]) -> torch.Tensor:
+    """(R, B) bool: ``csrc/dense_common.cuh:group_keep`` in torch on B
+    (B, 8) spheres (a DenseTable's groups or supers)."""
     dd, tt = _ray_terms(dirs, settings, t_end)
-    st = table.groups
-    xd, xx = _line_terms(origins, dirs, st[:, 0:3])
-    rad = st[None, :, 3]
-    r0 = st[None, :, 4 if t_end is None else 6]
+    xd, xx = _line_terms(origins, dirs, spheres[:, 0:3])
+    rad = spheres[None, :, 3]
+    r0 = spheres[None, :, 4 if t_end is None else 6]
     dist = torch.sqrt(torch.clamp_min(xx * dd - xd * xd - 1e-5 * xx * dd, 0.0)
                       / dd)
     length = torch.sqrt(xx)
     lo = dist * (1.0 - 1e-6) - rad * (1.0 + 1e-6) - 1e-6 * length
     far = length * (1.0 + 1e-5) + rad
     return ~((lo > 0.0)
-             & (lo * lo > (r0 + st[None, :, 5] * (far * far + tt)) * 1.001))
+             & (lo * lo > (r0 + spheres[None, :, 5] * (far * far + tt))
+                * 1.001))
+
+
+def dense_group_keep(origins: torch.Tensor, dirs: torch.Tensor,
+                     table: DenseTable, settings: RenderSettings,
+                     t_end: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(R, groups) bool: the 32-row groups of ``table.sorted_rows`` that
+    each ray may reach (``csrc/dense_common.cuh:group_keep`` in torch);
+    for the trace or, given ``t_end``, for shadow segments."""
+    return _sphere_keep(origins, dirs, table.groups, settings, t_end)
+
+
+def dense_super_keep(origins: torch.Tensor, dirs: torch.Tensor,
+                     table: DenseTable, settings: RenderSettings
+                     ) -> torch.Tensor:
+    """(R, supers) bool: the super-groups of 32 groups that each ray may
+    reach, the top-K kernel's first test (the same predicate on
+    ``table.supers``). A super-group's sphere holds its groups' spheres,
+    so every mean of its rows, and its radii are their largest: a
+    super-group this test drops holds no pair the per-pair cull would keep
+    in exact arithmetic, as for a group."""
+    return _sphere_keep(origins, dirs, table.supers, settings, None)
 
 
 def _check(name: str, tensors: dict, expect: dict) -> None:
@@ -378,17 +432,18 @@ def _check_table(name: str, dtab: DenseTable, tensors: dict,
                  expect: dict) -> None:
     """Checks the kernel's inputs and the DenseTable's tensors."""
     n = dtab.rows.shape[0]
+    n_groups = -(-n // GROUP_ROWS)
     tensors = dict(tensors, rows=dtab.rows, sorted_rows=dtab.sorted_rows,
-                   order=dtab.order, groups=dtab.groups)
+                   order=dtab.order, groups=dtab.groups, supers=dtab.supers,
+                   cull=dtab.cull)
     _check(name, tensors, dict(
         expect, rows=(n, TABLE_COLS), sorted_rows=(n, TABLE_COLS),
-        order=(n,), groups=(-(-n // GROUP_ROWS), GROUP_COLS)))
+        order=(n,), groups=(n_groups, GROUP_COLS),
+        supers=(-(-n_groups // SUPER_GROUPS), GROUP_COLS), cull=(5, n)))
 
 
-_TOPK_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 3
+_TOPK_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
                   + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-_TOPK_LIST_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 3
-                       + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 _VIS_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
                  + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 _VIS_COUNT_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
@@ -405,17 +460,16 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: Table,
                active: Optional[torch.Tensor] = None):
     """The K nearest contributing Gaussians of every ray (see
     :func:`dense_topk_plain` for the outputs). CPU tensors run the plain
-    version; CUDA tensors launch ``csrc/dense_topk.cu``, bit-equal to it:
-    for K <= ``THREAD_MAX_K`` its thread-a-ray kernel, above it the
-    warp-a-ray list kernel (one launch, or one a chunk of rays where the
-    lists go to global memory).
+    version; CUDA tensors launch ``csrc/dense_topk.cu``, bit-equal to it
+    at every K: one launch, or one a chunk of rays where the lists go to
+    global memory (K above ``LIST_SHARED_MAX_K``).
 
     Args: origins, dirs (R, 3); table: the (N, 16) :func:`gaussian_table`
     for this scene and ``settings``, or its :func:`dense_table` (built once
     for the card); 1 <= k <= N; sort_depths (N,) to order by in place of
     t; active (R,) bool.
     """
-    global TOPK_LAUNCHES, TOPK_LIST_LAUNCHES
+    global TOPK_LAUNCHES
     tensors = dict(origins=origins, dirs=dirs)
     if sort_depths is not None:
         tensors["sort_depths"] = sort_depths
@@ -436,38 +490,31 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: Table,
     alpha = torch.empty((r, k), dtype=torch.float32, device=dev)
     if r == 0:
         return idx, t, alpha
-    # The kernels read the sort depths in the staged (sorted) order.
+    # The kernel reads the sort depths in the staged (sorted) order.
     sd = None if sort_depths is None \
         else sort_depths.index_select(0, dtab.order)
     table_args = (rows.data_ptr(), dtab.sorted_rows.data_ptr(),
-                  dtab.order.data_ptr(), dtab.groups.data_ptr(), _ptr(sd))
+                  dtab.order.data_ptr(), dtab.groups.data_ptr(),
+                  dtab.supers.data_ptr(), dtab.cull.data_ptr(), _ptr(sd))
     params = (settings.t_min, settings.t_max, settings.alpha_min,
               settings.alpha_max, _gval_cut(settings))
+    # Lists past LIST_SHARED_MAX_K live in a (rays, 2K) int64 scratch, a
+    # chunk of rays a launch.
+    step, lists = r, None
+    if k > LIST_SHARED_MAX_K:
+        step = max(1, min(r, LIST_SCRATCH_BYTES // (16 * k)))
+        lists = torch.empty((step, 2 * k), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if k <= THREAD_MAX_K:
-            err = _kernel_fn("ptgs_dense_topk", _TOPK_ARGTYPES)(
-                origins.data_ptr(), dirs.data_ptr(), *table_args,
-                _ptr(active), idx.data_ptr(), t.data_ptr(), alpha.data_ptr(),
-                r, n, k, *params, stream)
-            _raise_on("dense_topk", err)
-            TOPK_LAUNCHES += 1
-            return idx, t, alpha
-        # Lists past LIST_SHARED_MAX_K live in a (rays, 2K) int64 scratch,
-        # a chunk of rays a launch.
-        step, lists = r, None
-        if k > LIST_SHARED_MAX_K:
-            step = max(1, min(r, LIST_SCRATCH_BYTES // (16 * k)))
-            lists = torch.empty((step, 2 * k), dtype=torch.int64, device=dev)
         for s in range(0, r, step):
             e = min(s + step, r)
-            err = _kernel_fn("ptgs_dense_topk_list", _TOPK_LIST_ARGTYPES)(
+            err = _kernel_fn("ptgs_dense_topk", _TOPK_ARGTYPES)(
                 origins[s:e].data_ptr(), dirs[s:e].data_ptr(), *table_args,
                 _ptr(None if active is None else active[s:e]), _ptr(lists),
                 idx[s:e].data_ptr(), t[s:e].data_ptr(), alpha[s:e].data_ptr(),
                 e - s, n, k, *params, stream)
             _raise_on("dense_topk", err)
-            TOPK_LIST_LAUNCHES += 1
+            TOPK_LAUNCHES += 1
     return idx, t, alpha
 
 

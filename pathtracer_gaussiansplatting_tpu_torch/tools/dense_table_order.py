@@ -3,20 +3,23 @@ shipped table against two other tables of the same Gaussians.
 
 ``csrc/dense_topk.cu`` and ``csrc/dense_visibility.cu`` read a
 ``kernels/dense_trace.DenseTable``: the rows in Morton order of the means,
-and for each 32 rows a sphere that a warp tests before it tests the rows.
-This script builds, from the same ``gaussian_table``, the tables
+for each 32 rows a sphere that a warp tests before it tests the rows, and
+(the top-K kernel's first test) for each 32 groups a sphere around
+theirs. This script builds, from the same ``gaussian_table``, the tables
 
-  shipped        ``dense_table``: Morton order, the group spheres;
+  shipped        ``dense_table``: Morton order, the group and super-group
+                 spheres;
   no group test  the same rows, every sphere of infinite radius (a warp
-                 reaches every group: the group test never skips);
+                 reaches every group: the group tests never skip);
   index order    the rows in index order, spheres of infinite radius;
 
 and times each kernel on each of :func:`dense_chunks`' five 65536-ray
 chunks (``surface_scene(50k, seed 13)`` and its point light at 800x800,
 ``chip_smoke.py``'s phase 5a) in turns, shipped, no group test, index
 order, index order, no group test, shipped, 5 launches a turn (CUDA
-events), beside the exact path's turns per warp that each table leaves
-(:func:`cull_counts`). Every table must give the shipped one's outputs
+events), beside the exact path's turns that each table leaves
+(:func:`cull_counts`: a ray's for the top-K kernel, a warp's for the
+shadow kernel). Every table must give the shipped one's outputs
 bit for bit, but for a shadow product in index order, which the kernel
 multiplies in another order: within rtol 1e-5 / atol 1e-6.
 
@@ -117,32 +120,47 @@ def dense_chunks(dt, scene, light, cam, settings, n: int = CHUNK) -> dict:
 
 
 def cull_counts(dt, o, d, table, settings, active=None, t_end=None,
-                rays_per_pass: int = 512) -> dict:
+                rays_per_pass: int = 512, supers: bool = False) -> dict:
     """What the kernel's culls leave on these rays, counted in torch over
-    ray chunks with the kernel's predicates (dense_group_keep and
-    dense_cull_keep) on the DenseTable's rows in its order: group tests
-    (live rays x groups of 32 rows), the share of (warp, group) pairs the
-    warp reaches, pairs tested by the per-pair cull (live rays x rows of
-    the groups they reach), pairs kept (the exact path's), (warp, row)
-    pairs some lane of a 32-ray warp keeps, and the exact path's turns per
+    ray chunks with the kernel's predicates (dense_super_keep,
+    dense_group_keep and dense_cull_keep) on the DenseTable's rows in its
+    order: group tests, the share of (warp, group) pairs a 32-ray warp
+    reaches, pairs tested by the per-pair cull (live rays x rows of the
+    groups they reach), pairs kept (the exact path's), (warp, row) pairs
+    some lane of a 32-ray warp keeps, and the exact path's turns per
     warp (over each group, its busiest lane's kept rows), against warps x
-    N."""
+    N: the shadow kernel's code path, a thread a segment. With ``supers``
+    (the top-K kernel's path, a warp a ray): super-group tests (live rays
+    x super-groups), group tests only in the super-groups a ray reaches,
+    the rows of the groups it reaches in those, and the exact path's turns
+    (its kept rows, 32 a turn) over the live rays. live_groups is live
+    rays x groups either way."""
     n_rays, n = o.shape[0], table.rows.shape[0]
     g = dt.GROUP_ROWS
+    n_groups = -(-n // g)
     live = torch.ones(n_rays, dtype=torch.bool, device=o.device) \
         if active is None else active
-    tested = kept = warp = turns = warp_groups = 0
+    tested = kept = warp = turns = warp_groups = group_tests = 0
+    exact_turns = 0
     for s in range(0, n_rays, rays_per_pass):
         e = min(s + rays_per_pass, n_rays)
         te = None if t_end is None else t_end[s:e]
         reach = live[s:e, None] & dt.dense_group_keep(o[s:e], d[s:e], table,
                                                       settings, te)
+        if supers:
+            sup = live[s:e, None] & dt.dense_super_keep(o[s:e], d[s:e],
+                                                        table, settings)
+            in_sup = sup.repeat_interleave(dt.SUPER_GROUPS, dim=1)[
+                :, :n_groups]
+            group_tests += int(in_sup.sum())
+            reach &= in_sup
         keep = dt.dense_cull_keep(o[s:e], d[s:e], table.sorted_rows,
                                   settings, te)
         keep = torch.nn.functional.pad(keep, (0, -n % g)).reshape(
             e - s, -1, g) & reach[..., None]
         tested += int(reach.sum()) * g
         kept += int(keep.sum())
+        exact_turns += int(((keep.sum((1, 2)) + 31) // 32).sum())
         pad = -(e - s) % 32
         lanes = torch.nn.functional.pad(keep, (0, 0, 0, 0, 0, pad)).reshape(
             -1, 32, reach.shape[1], g)
@@ -151,20 +169,25 @@ def cull_counts(dt, o, d, table, settings, active=None, t_end=None,
         warp += int(lanes.any(1).sum())
         turns += int(lanes.sum(-1).amax(1).sum())
     warps = -(-n_rays // 32)
-    n_groups = -(-n // g)
-    return dict(group_tests=int(live.sum()) * n_groups,
-                warp_group_share=warp_groups / (warps * n_groups),
-                tested=tested, kept=kept, warp=warp, turns=turns,
-                warps=warps * n)
+    n_live = int(live.sum())
+    res = dict(group_tests=n_live * n_groups, live_groups=n_live * n_groups,
+               warp_group_share=warp_groups / (warps * n_groups),
+               tested=tested, kept=kept, warp=warp, turns=turns,
+               warps=warps * n)
+    if supers:
+        res.update(super_tests=n_live * -(-n_groups // dt.SUPER_GROUPS),
+                   group_tests=group_tests, exact_turns=exact_turns,
+                   live=n_live)
+    return res
 
 
 def table_variants(dt, table) -> dict:
     """The shipped DenseTable and the two it is timed against (see the
     module's docstring), in that order."""
     def unbounded(tab):
-        groups = tab.groups.clone()
-        groups[:, 3] = math.inf   # the sphere's radius
-        return dataclasses.replace(tab, groups=groups)
+        groups, supers = tab.groups.clone(), tab.supers.clone()
+        groups[:, 3] = supers[:, 3] = math.inf   # the spheres' radii
+        return dataclasses.replace(tab, groups=groups, supers=supers)
 
     index = torch.arange(table.rows.shape[0], device=table.rows.device)
     return {"shipped": table, "no group test": unbounded(table),
@@ -212,12 +235,16 @@ def compare_tables(dt, chunks: dict, settings) -> list:
         for label in list(tables) + list(tables)[::-1]:
             ms[label].append(_cuda_ms(lambda: fn(tables[label]),
                                       TURN_LAUNCHES))
-        turns = {label: cull_counts(dt, rays["o"], rays["d"], tab, settings,
-                                    rays.get("active"), rays.get("t_end"))
-                 for label, tab in tables.items()}
+        counts = {label: cull_counts(dt, rays["o"], rays["d"], tab,
+                                     settings, rays.get("active"),
+                                     rays.get("t_end"), supers=not product)
+                  for label, tab in tables.items()}
+        # The top-K kernel's exact-path turns a ray (32 kept rows a turn);
+        # the shadow kernel's a (warp, row) pair.
         results.append(dict(name=name, rays=rays["o"].shape[0], ms=ms,
-                            turns={label: c["turns"] / c["warps"]
-                                   for label, c in turns.items()}))
+                            turns={label: c["exact_turns"] / c["live"]
+                                   if not product else c["turns"] / c["warps"]
+                                   for label, c in counts.items()}))
     return results
 
 
@@ -254,10 +281,12 @@ def main(argv=None) -> int:
     settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
     chunks = dense_chunks(dense_trace, scene, light, cam, settings)
     for res in compare_tables(dense_trace, chunks, settings):
-        kernel = "dense_topk" if "rays" in res["name"] else "dense_visibility"
+        topk = "rays" in res["name"]
+        kernel = "dense_topk" if topk else "dense_visibility"
         print(f"{kernel}, {res['name']}, R={res['rays']}: " + "; ".join(
             f"{label} {', '.join(f'{t:.3f}' for t in ms)} ms, exact-path "
-            f"turns {res['turns'][label]:.4%} of (warp, row) pairs"
+            + (f"turns {res['turns'][label]:.2f} a ray" if topk else
+               f"turns {res['turns'][label]:.4%} of (warp, row) pairs")
             for label, ms in res["ms"].items())
             + f" (in turns, {TURN_LAUNCHES} launches a turn, CUDA events; "
             f"outputs equal; {card})", flush=True)

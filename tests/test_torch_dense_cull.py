@@ -10,6 +10,11 @@ in a cuda-marked test).
   dense backend's, built once) gives the results of a table built per call.
 - The dense backend's table cache counts the calls it cannot serve; the
   tables of tools/dense_table_order hold the shipped table's rows.
+- The top-K kernel's two-level group test: each super-group's sphere holds
+  its groups' spheres, every (ray, group) the group test keeps lies in a
+  super-group the super-group test keeps (primary, bounce and thin-far
+  rays; N not a multiple of 1024), its cull columns are the rows', and
+  cull_counts counts its path.
 - Gradients of render_radiance_dense, of trace_dense's depth and of
   visibility_dense reach the geometry and opacity and match jax.grad of
   the JAX package's functions; the recomputed t and alpha are bit-equal to
@@ -377,6 +382,7 @@ def test_table_order_tool_variants():
               for label, tab in tabs.items()}
     for label in ("no group test", "index order"):
         assert bool(dt.dense_group_keep(o, d, tabs[label], s).all())
+        assert bool(dt.dense_super_keep(o, d, tabs[label], s).all())
         assert counts[label]["tested"] == 128 * 94 * 32 > \
             counts["shipped"]["tested"]
         assert counts[label]["kept"] >= counts["shipped"]["kept"] > 0
@@ -447,6 +453,152 @@ def test_dense_table_groups():
             rows = reach.repeat_interleave(32, dim=1)[:, :n]
             assert not bool(((a > 0) & ~rows).any())
             assert float(reach.float().mean()) < 0.5
+
+
+def _super_world(name: str):
+    """A scene whose N is not a multiple of 1024 rows (a short last
+    super-group) and its DenseTable: surface_scene(12000) (375 groups,
+    the last super-group 23 of them) or random_cloud(5000) (157 groups,
+    the last 29)."""
+    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
+        random_cloud, surface_scene,
+    )
+
+    scene = surface_scene(12_000, seed=13, device=CPU) if name == "surface" \
+        else random_cloud(5000, seed=13, spread=1.5, device=CPU)
+    return scene, dt.dense_table(dt.gaussian_table(scene, RenderSettings()))
+
+
+def _super_rays(scene, kind: str, n_rays: int = 512):
+    """Seeded rays of phase 5's camera ("primary", 32x16 of its view),
+    rays leaving the scene's means in random directions ("bounce"), or the
+    camera 20x as far through a 20x narrower view ("thin_far")."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
+        Camera, generate_rays, look_at,
+    )
+
+    if kind == "bounce":
+        rng = np.random.default_rng(31)
+        o = scene.means[rng.integers(0, scene.num_gaussians, n_rays)] + 0.01
+        return o, torch.from_numpy(_unit(rng, n_rays).astype(np.float32))
+    eye = PHASE5_EYE if kind == "primary" else tuple(
+        t + 20.0 * (e - t) for e, t in zip(PHASE5_EYE, PHASE5_TARGET))
+    fov = 60.0 if kind == "primary" else 3.0
+    rays = generate_rays(Camera(c2w=look_at(eye, PHASE5_TARGET, device=CPU),
+                                fov_y_deg=fov, width=32, height=16))
+    return rays.origins, rays.directions
+
+
+@pytest.mark.parametrize("world", ["surface", "cloud"])
+def test_super_groups_bound_their_groups(world):
+    """Each super-group's sphere holds its (up to) 32 groups' spheres, in
+    float64 from the float32 table, and its radii are their largest; the
+    last super-group of a scene whose N is not a multiple of 1024 holds
+    only the groups there are. In index order too."""
+    scene, dtab = _super_world(world)
+    n_groups = dtab.groups.shape[0]
+    assert n_groups % dt.SUPER_GROUPS != 0
+    for tab in (dtab, dt.table_in_order(dtab.rows,
+                                        torch.arange(scene.num_gaussians))):
+        assert tab.supers.shape == (-(-n_groups // dt.SUPER_GROUPS),
+                                    dt.GROUP_COLS)
+        assert tab.supers.dtype == torch.float32
+        grp, sup = tab.groups.double(), tab.supers.double()
+        owner = torch.arange(n_groups) // dt.SUPER_GROUPS
+        reach = (grp[:, :3] - sup[owner, :3]).norm(dim=-1) + grp[:, 3]
+        assert bool((reach <= sup[owner, 3]).all())
+        for i in range(sup.shape[0]):
+            members = tab.groups[owner == i]
+            assert torch.equal(tab.supers[i, 4:7], members[:, 4:7].amax(0))
+        assert not bool(tab.supers[:, 7].any())
+    # Morton order keeps a super-group's groups together: its sphere is
+    # far smaller than the scene's.
+    extent = (dtab.rows[:, :3].amax(0) - dtab.rows[:, :3].amin(0)).norm()
+    assert float(dtab.supers[:, 3].median()) < 0.5 * float(extent)
+
+
+@pytest.mark.parametrize("world", ["surface", "cloud"])
+def test_dense_table_cull_columns(world):
+    """The top-K kernel's cull columns: sorted_rows' mean, R0 of the trace
+    and R1, a (5, N) array, bit for bit; dense_cull_keep on them gives the
+    kernel's predicate."""
+    scene, dtab = _super_world(world)
+    n = scene.num_gaussians
+    assert dtab.cull.shape == (5, n) and dtab.cull.is_contiguous()
+    assert torch.equal(dtab.cull, dtab.sorted_rows[
+        :, [0, 1, 2, dt.COL_R0_TRACE, dt.COL_R1]].t())
+    o, d = _super_rays(scene, "primary")
+    s = RenderSettings()
+    cols = torch.zeros((n, dt.TABLE_COLS))
+    cols[:, [0, 1, 2, dt.COL_R0_TRACE, dt.COL_R1]] = dtab.cull.t()
+    assert torch.equal(dt.dense_cull_keep(o, d, cols, s),
+                       dt.dense_cull_keep(o, d, dtab.sorted_rows, s))
+
+
+@pytest.mark.parametrize("kind", ["primary", "bounce", "thin_far"])
+@pytest.mark.parametrize("world", ["surface", "cloud"])
+def test_super_keep_covers_group_keep(world, kind):
+    """The top-K kernel's two-level test: every (ray, group) that
+    dense_group_keep keeps lies in a super-group dense_super_keep keeps,
+    so the rows reaching the exact path and the lists do not change; and
+    every pair with alpha > 0 lies in a kept super-group. In the room
+    the super-group test skips some (in the cloud, 5 super-groups across
+    the whole volume, most rays reach them all)."""
+    scene, dtab = _super_world(world)
+    o, d = _super_rays(scene, kind)
+    s = RenderSettings()
+    sup = dt.dense_super_keep(o, d, dtab, s)
+    grp = dt.dense_group_keep(o, d, dtab, s)
+    assert sup.shape == (o.shape[0], dtab.supers.shape[0])
+    owner = torch.arange(grp.shape[1]) // dt.SUPER_GROUPS
+    assert not bool((grp & ~sup[:, owner]).any())
+    mean, m, opac = dt._unpack(dtab.sorted_rows)
+    _, gval = tgauss.peak_response(o[:, None], d[:, None], mean, m, s.t_min,
+                                   s.t_max)
+    alpha = tgauss.alpha_from_response(opac, gval, s.alpha_min, s.alpha_max,
+                                       s.sigma_cut)
+    rows = sup.repeat_interleave(dt.SUPER_GROUPS * dt.GROUP_ROWS, dim=1)[
+        :, :scene.num_gaussians]
+    assert int((alpha > 0).sum()) > 0
+    assert not bool(((alpha > 0) & ~rows).any())
+    if world == "surface":
+        assert float(sup.float().mean()) < 1.0
+
+
+def test_two_level_cull_counts():
+    """tools/dense_table_order.cull_counts on the top-K kernel's path
+    (supers=True): a super-group test for each (live ray, super-group),
+    group tests only in the super-groups reached (32 each, fewer in the
+    short last one), the same rows tested and kept as the one-level count
+    (the groups kept lie in the super-groups kept), and the exact path's
+    turns, 32 kept rows a turn."""
+    from pathtracer_gaussiansplatting_tpu_torch.tools import (
+        dense_table_order as dto,
+    )
+
+    scene, dtab = _super_world("surface")
+    o, d = _super_rays(scene, "primary")
+    s = RenderSettings()
+    active = torch.from_numpy(np.random.default_rng(32).uniform(
+        size=o.shape[0]) < 0.75)
+    one = dto.cull_counts(dt, o, d, dtab, s, active, rays_per_pass=96)
+    two = dto.cull_counts(dt, o, d, dtab, s, active, rays_per_pass=96,
+                          supers=True)
+    n_live, n_groups = int(active.sum()), dtab.groups.shape[0]
+    assert two["live"] == n_live
+    assert two["super_tests"] == n_live * dtab.supers.shape[0]
+    assert one["group_tests"] == two["live_groups"] == n_live * n_groups
+    sup = dt.dense_super_keep(o, d, dtab, s)[active]
+    size = torch.full((dtab.supers.shape[0],), dt.SUPER_GROUPS)
+    size[-1] = n_groups - dt.SUPER_GROUPS * (dtab.supers.shape[0] - 1)
+    assert two["group_tests"] == int((sup * size).sum()) < one["group_tests"]
+    assert (two["tested"], two["kept"]) == (one["tested"], one["kept"])
+    keep = dt.dense_cull_keep(o, d, dtab.sorted_rows, s)[active]
+    grp = dt.dense_group_keep(o, d, dtab, s)[active]
+    kept = (keep & grp.repeat_interleave(dt.GROUP_ROWS, dim=1)[
+        :, :scene.num_gaussians]).sum(1)
+    assert two["kept"] == int(kept.sum()) > 0
+    assert two["exact_turns"] == int(((kept + 31) // 32).sum())
 
 
 def _leaves(ts, requires_grad=True):
@@ -693,7 +845,7 @@ def test_dense_gradients_on_card_match_cpu(cloud):
         loss = (w.to(dev) * tref.render_radiance_dense(ts, tr, s)).sum()
         grads.append([g.cpu() for g in torch.autograd.grad(
             loss, [getattr(ts, k) for k in names])])
-        if dev == "cuda":
+        if dev == "cuda":   # one launch of the top-K kernel
             assert dt.TOPK_LAUNCHES == before + 1
     for k, g, c in zip(names, *grads):
         scale = float(c.abs().max())

@@ -319,16 +319,18 @@ def _card_inputs(n_rays=4096, thin_far=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["k32", "k64", "k128", "tied_depths",
-                                  "thin_far"])
+@pytest.mark.parametrize("case", ["k1", "k32", "k64", "k128", "tied_depths",
+                                  "thin_far", "k_n"])
 def test_dense_topk_kernel_matches_plain_on_card(case):
     """The culled kernel against the unculled plain version: every output
-    bit-equal, at K = 32, 64 and 128, ordered by sort depths with ties, and
-    for thin surfels seen from far."""
+    bit-equal, at K = 1, 32, 64, 128 and N, ordered by sort depths with
+    ties, and for thin surfels seen from far; one launch of the one
+    kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
     scene, table, o, d, _, active = _card_inputs(thin_far=case == "thin_far")
-    k = dict(k32=32, k128=128).get(case, 64)
+    k = dict(k1=1, k32=32, k128=128,
+             k_n=scene.num_gaussians).get(case, 64)
     sd = None
     if case == "tied_depths":   # quarter-unit steps: many equal keys
         sd = torch.round(scene.means[:, 2] * 4.0) / 4.0
@@ -370,11 +372,11 @@ def _cloud_inputs(n_rays=4096):
 @pytest.mark.parametrize("case", ["k160", "k256_tied", "k512", "k2048",
                                   "k_n", "k160_thin_far"])
 def test_dense_topk_list_kernel_matches_plain_on_card(case):
-    """The warp-a-ray list kernel (K above 128) against the plain version,
-    every output bit-equal: lists in shared memory at K = 160, 256 (ordered
-    by sort depths with ties) and 512, in global memory at K = 2048 and at
-    K = N, on rays with up to ~540 contributions; and at K = 160 for thin
-    surfels seen from far (the group test's skips)."""
+    """The kernel's lists above K = 128 against the plain version, every
+    output bit-equal: in shared memory at K = 160, 256 (ordered by sort
+    depths with ties) and 512, in global memory at K = 2048 and at K = N,
+    on rays with up to ~540 contributions; and at K = 160 for thin surfels
+    seen from far (the group tests' skips); one launch each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
     if case == "k160_thin_far":
@@ -387,11 +389,10 @@ def test_dense_topk_list_kernel_matches_plain_on_card(case):
     if case == "k256_tied":   # quarter-unit steps: many equal keys
         sd = torch.round(scene.means[:, 2] * 4.0) / 4.0
     s = RenderSettings()
-    before = (dt.TOPK_LAUNCHES, dt.TOPK_LIST_LAUNCHES)
+    before = dt.TOPK_LAUNCHES
     got = dt.dense_topk(o, d, table, k, s, sort_depths=sd, active=active)
     torch.cuda.synchronize()
-    assert (dt.TOPK_LAUNCHES, dt.TOPK_LIST_LAUNCHES) == (before[0],
-                                                         before[1] + 1)
+    assert dt.TOPK_LAUNCHES == before + 1
     want = dt.dense_topk_plain(o, d, table, k, s, sort_depths=sd,
                                active=active)
     assert int((want[2] > 0).sum()) > 0
