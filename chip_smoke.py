@@ -231,9 +231,12 @@ first use. Then:
            same three chunks of surface_scene(3000), timed at every K on
            the primary and bounce chunks beside the plain version and both
            bounds, its launches printed; (b) the march
-           kernels' wide instantiation (Kc above 128) at Kc = 144 and 256
-           on surface_scene(500k)'s grid with 6b's gates on its bounce and
-           shadow chunks, timed beside the bound; (c) the tile kernels at
+           kernels' wide instantiation (Kc above 128, each cell's work
+           bounded by its fill) at Kc = 144 and 256 on
+           surface_scene(500k)'s grid, each grid's fill printed, with 6b's
+           gates on its bounce and shadow chunks, the Kc=256 outputs
+           bit-equal to Kc=144's (no cell overflows 144), timed beside the
+           bound; (c) the tile kernels at
            tile sizes 8, 12 and 32 on the headline's packets: the forward
            against its plain version with phase 1's gates and, without the
            transmittance cutoff, bit for bit against the one-block kernel
@@ -4156,12 +4159,12 @@ def grid_slab_checks(gm, gt, mesh, settings, dev, card) -> dict:
     one = gt.GridAccel(btab=tables["btab"][0], geom=tables["geom"][0],
                        packet=tables["packet"][0], lo=tables["lo"][0],
                        hi=tables["hi"][0], dims=meta.dims,
-                       jump_unit=meta.jump_unit)
+                       fill=tables["fill"][0], jump_unit=meta.jump_unit)
     ref_accel = gt.build_grid_accel(
         slabbed, dims=meta.dims, max_per_cell=32,
         bounds=(tables["lo"][0].cpu().numpy(), tables["hi"][0].cpu().numpy()))
     check(all(torch.equal(getattr(ref_accel, k), getattr(one, k))
-              for k in ("btab", "geom", "packet", "lo", "hi")),
+              for k in ("btab", "geom", "packet", "fill", "lo", "hi")),
           "11c: the slab's tables differ from build_grid_accel's on the same "
           "dims and bounds")
     cam = Camera(c2w=look_at(PT_EYE, PT_TARGET, device=dev), fov_y_deg=60.0,
@@ -4714,6 +4717,9 @@ TOPK_N_SMALL = 3000
 # chunk at Kc = 256.
 WIDE_KCS = (144, 256)
 WIDE_BUDGET = 16e9
+# A trace's cells of at most 32 and 64 slots take its one- and two-slot
+# register walks (csrc/grid_march.cu, kWideWalk).
+WIDE_REG_FILLS = (32, 64)
 WIDE_EXACT_RAYS = 16384
 # 14c: tile sizes beside 16: P = 64, 144 and 1024 pixels a tile.
 TILE_SIZES = (8, 12, 32)
@@ -4834,10 +4840,13 @@ def topk_ks(dt, dev, card) -> dict:
 
 def grid_wide_checks(gm, gt, capture, dev, card) -> dict:
     """14b: the march kernels' wide instantiation at each Kc of WIDE_KCS on
-    surface_scene(500k)'s grid: 6b's gates on its bounce and shadow chunks
-    (the default schedule, and ray for ray on its rounds without exit
-    fractions), timed beside the bound; then 14e, the capture pose at the
-    largest Kc (WIDE_POSE_SPP samples, the main path of the wide
+    surface_scene(500k)'s grid, each grid's fill (the slots its cells
+    hold, which bound their work) printed: 6b's gates on its bounce and
+    shadow chunks (the default schedule, and ray for ray on its rounds
+    without exit fractions), timed beside the bound, and the outputs at
+    each Kc bit-equal to the first Kc's, whose grid overflows no cell (the
+    wider grids add only zero slots); then 14e, the capture pose
+    at the largest Kc (WIDE_POSE_SPP samples, the main path of the wide
     instantiations) with 6e's gates on its first trace and shadow march
     and its frozen count."""
     from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
@@ -4861,18 +4870,39 @@ def grid_wide_checks(gm, gt, capture, dev, card) -> dict:
                  width=1920, height=1080)
     st = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
     chunks = march_chunks(scene, cam, st, BinningConfig())[:2]
-    res = {}
+    res, first = {}, {}
     for kc in WIDE_KCS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         accel = gt.build_grid_accel(scene, max_per_cell=kc,
                                     memory_budget_bytes=WIDE_BUDGET)
         torch.cuda.synchronize()
+        fill = accel.fill
         log(f"phase 14b: build_grid_accel(surface_scene(500k), Kc={kc}) "
             f"{time.perf_counter() - t0:.2f} s, tables "
             f"{grid_bytes(accel) / 2 ** 30:.3f} GiB, stats "
-            f"{json.dumps(accel.stats_dict)} ({card})")
+            f"{json.dumps(accel.stats_dict)}; fill mean "
+            f"{float(fill.float().mean()):.3f}, max {accel.max_fill}; of "
+            f"the {fill.shape[0]} cells "
+            + ", ".join(f"{float((fill <= n).float().mean()):.1%} at most "
+                        f"{n}" for n in WIDE_REG_FILLS)
+            + f" (a trace's register walks) ({card})")
+        if kc == WIDE_KCS[0]:
+            check(accel.stats_dict["overflow_cell_frac"] == 0.0,
+                  f"14b: Kc={kc} overflows cells of surface_scene(500k)")
         for name, o, d, kw in chunks:
+            feat = "t_end" not in kw
+            out = gt.march(accel, o, d, st, GRID_MAX_STEPS,
+                           with_features=feat, **kw)
+            if kc == WIDE_KCS[0]:
+                first[name] = out
+            else:
+                check(all(torch.equal(a, b) for a, b in
+                          zip(out, first[name]) if a is not None),
+                      f"14b {name}: Kc={kc} outputs differ from "
+                      f"Kc={WIDE_KCS[0]}'s")
+                log(f"phase 14b {name}: Kc={kc} trans, sums and frozen "
+                    f"bit-equal to Kc={WIDE_KCS[0]}'s")
             t0 = time.perf_counter()
             r = grid_kernel_check(gt, accel, st, f"{name}, Kc={kc}", o, d,
                                   kw, card, phase="14b")

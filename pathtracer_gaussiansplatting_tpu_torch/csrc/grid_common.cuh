@@ -23,6 +23,7 @@ struct Params {
   float t_min, t_max, alpha_min, alpha_max, gval_cut, transmittance_min;
   float jump_unit;
   int gx, gy, gz, kc, cols, n_rounds;
+  int wide_slots;  // slots of a ray's shared region: the largest fill
   int m[kMaxRounds], a_max[kMaxRounds];
 };
 

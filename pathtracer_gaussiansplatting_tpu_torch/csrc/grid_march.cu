@@ -64,6 +64,17 @@
 //   in slot order, takes the cell in passes of L slots with no array at
 //   all. Both walk the live slots in the order above, with the same
 //   operands, so they give the register path's bits.
+// - The wide instantiation bounds a cell's work by the slots it holds, not
+//   by Kc. The binning fills a cell's slots as a prefix, [0, fill) with
+//   fill = min(count, Kc), and zeroes the rest; a zero slot responds with
+//   alpha 0, a factor 1 and a weight 0, so leaving it out changes no bit.
+//   Each recorded cell's fill is one broadcast load beside its row. A
+//   segment takes ceil(fill / L) passes. A trace takes a cell of at most
+//   kWideWalk * L slots on the register walk (composite_cell with NS =
+//   ceil(fill / L), at stride Kc: no shared-memory round trip), and a
+//   fuller one on the shared-memory walk with every loop bounded by fill;
+//   a ray's region holds the table's largest fill (Params::wide_slots),
+//   not Kc.
 //
 // Plain C entry points (bound with ctypes); each returns cudaGetLastError().
 
@@ -83,8 +94,12 @@ using ptgs_grid::Ray;
 constexpr int kThreads = 128;
 constexpr int kWarp = 32;
 // Kc up to this keeps a lane's NS = ceil(Kc / L) slots in registers;
-// above, the NS = 0 instantiation (composite_cell_wide).
+// above, the NS = 0 instantiation (composite_cell_fill).
 constexpr int kRegSlots = 128;
+// Above kRegSlots, a trace's cell of at most kWideWalk * L slots takes the
+// register walk with ceil(fill / L) slots a lane; a fuller one shared
+// memory. Two: most cells of a surface hold at most 64 Gaussians.
+constexpr int kWideWalk = 2;
 // Lanes a ray: a warp for a feature trace, half a warp for a shadow
 // segment, which is mostly probes (about 20 a segment against 1.6 cells
 // composited), so fewer lanes repeat them.
@@ -155,12 +170,13 @@ __device__ __forceinline__ void add_features(const Ray& r, const float* row,
 
 // Composites one recorded cell (packet or geometry row `row`) entered with
 // transmittance t_enter, across the ray's L lanes (lane l takes slots l,
-// l + L, ...): returns the cell transmittance prod (1 - alpha) in slot
-// order (the same value in every lane) and, with FEAT, adds this lane's
-// slots' weighted features to its partial sums acc.
+// l + L, ... below n <= NS * L; the slots from n on are zero): returns the
+// cell transmittance prod (1 - alpha) in slot order (the same value in
+// every lane) and, with FEAT, adds this lane's slots' weighted features to
+// its partial sums acc.
 template <bool FEAT, int NS, int L>
 __device__ __forceinline__ float composite_cell(
-    const Ray& r, const float* row, float t0, float t1, bool segment,
+    const Ray& r, const float* row, int n, float t0, float t1, bool segment,
     float t_cap, float t_enter, float* acc, const Params& prm,
     const RayLanes<L>& rl) {
   const int kc = prm.kc;
@@ -172,7 +188,7 @@ __device__ __forceinline__ float composite_cell(
     alpha[s] = 0.0f;
     tpk[s] = 0.0f;
     excl[s] = 1.0f;
-    if (j < kc) {
+    if (j < n) {
       const ptgs_grid::Response e =
           ptgs_grid::respond(r, row, kc, j, t0, t1, segment, t_cap, prm);
       // A slot without a positive alpha is a factor 1 and a weight 0.
@@ -221,25 +237,27 @@ __device__ __forceinline__ float composite_cell(
   return ct;
 }
 
-// composite_cell for any Kc (the NS = 0 instantiation): the same walk
-// over the cell's live slots in slot order, with the same operands, so the
-// same bits. A shadow segment multiplies its cell's transmittance in
-// passes of L slots, each slot's alpha broadcast from its lane. A feature
-// trace first writes every slot's alpha and peak t (0 where not live) to
-// the ray's region of shared memory, wide = [alpha (Kc), t_peak (Kc),
-// excl (Kc), ballot words (Kc / L)], its lanes taking slots l, l + L, ...
+// composite_cell for any Kc (the NS = 0 instantiation) over the cell's
+// fill slots (the rest are zero): the same walk over the cell's live slots
+// in slot order, with the same operands, so the same bits. A shadow
+// segment multiplies its cell's transmittance in ceil(fill / L) passes of
+// L slots, each slot's alpha broadcast from its lane. A feature trace
+// first writes each slot's alpha and peak t (0 where not live) to the
+// ray's region of shared memory, wide = [alpha (S), t_peak (S), excl (S),
+// ballot words (S / 16)] for S = Params::wide_slots >= fill, its lanes
+// taking slots l, l + L, ...
 template <bool FEAT, int L>
 __device__ __forceinline__ float composite_cell_wide(
-    const Ray& r, const float* row, float t0, float t1, bool segment,
-    float t_cap, float t_enter, float* acc, const Params& prm,
+    const Ray& r, const float* row, int fill, float t0, float t1,
+    bool segment, float t_cap, float t_enter, float* acc, const Params& prm,
     const RayLanes<L>& rl, float* wide) {
   const int kc = prm.kc;
   float ct = 1.0f;
   if (!FEAT) {
-    for (int s0 = 0; s0 < kc; s0 += L) {
+    for (int s0 = 0; s0 < fill; s0 += L) {
       const int j = s0 + rl.lane;
       float alpha = 0.0f;
-      if (j < kc) {
+      if (j < fill) {
         const ptgs_grid::Response e =
             ptgs_grid::respond(r, row, kc, j, t0, t1, segment, t_cap, prm);
         if (e.alpha > 0.0f) alpha = e.alpha;
@@ -253,14 +271,15 @@ __device__ __forceinline__ float composite_cell_wide(
     }
     return ct;
   }
+  const int slots = prm.wide_slots;
   float* sa = wide;
-  float* st = wide + kc;
-  float* se = wide + 2 * kc;
-  unsigned* sl = reinterpret_cast<unsigned*>(wide + 3 * kc);
-  for (int s0 = 0; s0 < kc; s0 += L) {
+  float* st = wide + slots;
+  float* se = wide + 2 * slots;
+  unsigned* sl = reinterpret_cast<unsigned*>(wide + 3 * slots);
+  for (int s0 = 0; s0 < fill; s0 += L) {
     const int j = s0 + rl.lane;
     float alpha = 0.0f, tpk = 0.0f;
-    if (j < kc) {
+    if (j < fill) {
       const ptgs_grid::Response e =
           ptgs_grid::respond(r, row, kc, j, t0, t1, segment, t_cap, prm);
       if (e.alpha > 0.0f) {
@@ -278,7 +297,7 @@ __device__ __forceinline__ float composite_cell_wide(
   // The live slots in slot order: the cell transmittance in every lane, and
   // each of this lane's live slots' exclusive product over the Gaussians
   // before it in (t, slot) order.
-  for (int w = 0; w * L < kc; ++w) {
+  for (int w = 0; w * L < fill; ++w) {
     unsigned m = sl[w];
     while (m != 0u) {
       const int j = w * L + __ffs(m) - 1;
@@ -286,7 +305,7 @@ __device__ __forceinline__ float composite_cell_wide(
       const float om = fsub(1.0f, sa[j]);
       ct = fmul(ct, om);
       const float tj = st[j];
-      for (int i = rl.lane; i < kc; i += L) {
+      for (int i = rl.lane; i < fill; i += L) {
         const float ti = st[i];
         if (sa[i] > 0.0f && (tj < ti || (tj == ti && j < i)))
           se[i] = fmul(se[i], om);
@@ -294,7 +313,7 @@ __device__ __forceinline__ float composite_cell_wide(
     }
   }
   const bool deg1 = prm.cols >= ptgs_grid::kPktDeg1;
-  for (int i = rl.lane; i < kc; i += L) {
+  for (int i = rl.lane; i < fill; i += L) {
     const float alpha = sa[i];
     if (!(alpha > 0.0f)) continue;
     const float w = fmul(fmul(t_enter, se[i]), alpha);
@@ -304,10 +323,30 @@ __device__ __forceinline__ float composite_cell_wide(
   return ct;           // write it
 }
 
-// Floats of a ray's region for composite_cell_wide (ballot words for
-// L = 16 or 32 lanes).
-__host__ __device__ constexpr int wide_floats(int kc) {
-  return 3 * kc + (kc + 15) / 16;
+// A cell of the NS = 0 instantiation, by its fill: a trace's cell of at
+// most kWideWalk * L slots on the register walk with the fewest slots a
+// lane that hold it, any other cell on composite_cell_wide.
+template <bool FEAT, int L, int NS = 1>
+__device__ __forceinline__ float composite_cell_fill(
+    const Ray& r, const float* row, int fill, float t0, float t1,
+    bool segment, float t_cap, float t_enter, float* acc, const Params& prm,
+    const RayLanes<L>& rl, float* wide) {
+  if constexpr (FEAT && NS <= kWideWalk) {
+    if (fill <= NS * L)
+      return composite_cell<FEAT, NS, L>(r, row, fill, t0, t1, segment,
+                                         t_cap, t_enter, acc, prm, rl);
+    return composite_cell_fill<FEAT, L, NS + 1>(
+        r, row, fill, t0, t1, segment, t_cap, t_enter, acc, prm, rl, wide);
+  } else {
+    return composite_cell_wide<FEAT, L>(r, row, fill, t0, t1, segment,
+                                        t_cap, t_enter, acc, prm, rl, wide);
+  }
+}
+
+// Floats of a ray's region of `slots` slots for composite_cell_wide
+// (ballot words for L = 16 or 32 lanes).
+__host__ __device__ constexpr int wide_floats(int slots) {
+  return 3 * slots + (slots + 15) / 16;
 }
 
 // The transmittance bookkeeping of one round's slot groups.
@@ -334,9 +373,10 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ t_end, const unsigned char* __restrict__ active,
     const int4* __restrict__ btab, const float* __restrict__ table,
-    const float* __restrict__ lo, const float* __restrict__ hi,
-    float* __restrict__ trans_out, float* __restrict__ acc_out,
-    unsigned char* __restrict__ frozen_out, int n_rays, Params prm) {
+    const int* __restrict__ fills, const float* __restrict__ lo,
+    const float* __restrict__ hi, float* __restrict__ trans_out,
+    float* __restrict__ acc_out, unsigned char* __restrict__ frozen_out,
+    int n_rays, Params prm) {
   constexpr int L = lanes<FEAT>();
   const RayLanes<L> rl;
   const int ray = blockIdx.x * (kThreads / L) + threadIdx.x / L;
@@ -455,14 +495,17 @@ __global__ void __launch_bounds__(kThreads) grid_march_kernel(
           const float* cell_row = table + static_cast<size_t>(slot) * row_len;
           float ct;
           if constexpr (NS == 0) {
-            // The ray's region of the block's dynamic shared memory.
+            // The ray's region of the block's dynamic shared memory, and
+            // the cell's filled slots (the rest of its row is zero).
             extern __shared__ float wide_smem[];
-            ct = composite_cell_wide<FEAT, L>(
-                r, cell_row, tk, tex, segment, t_cap, t_enter, acc, prm, rl,
-                wide_smem + (threadIdx.x / L) * wide_floats(prm.kc));
+            ct = composite_cell_fill<FEAT, L>(
+                r, cell_row, fills[slot], tk, tex, segment, t_cap, t_enter,
+                acc, prm, rl,
+                wide_smem + (threadIdx.x / L) * wide_floats(prm.wide_slots));
           } else {
-            ct = composite_cell<FEAT, NS, L>(r, cell_row, tk, tex, segment,
-                                             t_cap, t_enter, acc, prm, rl);
+            ct = composite_cell<FEAT, NS, L>(r, cell_row, prm.kc, tk, tex,
+                                             segment, t_cap, t_enter, acc,
+                                             prm, rl);
           }
           grp.e_last = grp.e_prod;
           grp.ct_last = ct;
@@ -523,23 +566,27 @@ void launch_ns(int ns, int blocks, cudaStream_t stream, Args... args) {
 template <bool FEAT>
 cudaError_t launch(const float* origins, const float* dirs,
                    const float* t_end, const unsigned char* active,
-                   const int* btab, const float* table, const float* lo,
-                   const float* hi, float* trans, float* acc,
-                   unsigned char* frozen, int n_rays, const Params& prm,
-                   cudaStream_t stream) {
+                   const int* btab, const float* table, const int* fill,
+                   const float* lo, const float* hi, float* trans,
+                   float* acc, unsigned char* frozen, int n_rays,
+                   const Params& prm, cudaStream_t stream) {
   constexpr int L = lanes<FEAT>();
   const int rays_per_block = kThreads / L;
   const int blocks = (n_rays + rays_per_block - 1) / rays_per_block;
   const int4* bt = reinterpret_cast<const int4*>(btab);
   if (prm.kc <= kRegSlots) {
     launch_ns<FEAT>((prm.kc + L - 1) / L, blocks, stream, origins, dirs,
-                    t_end, active, bt, table, lo, hi, trans, acc, frozen,
-                    n_rays, prm);
+                    t_end, active, bt, table, fill, lo, hi, trans, acc,
+                    frozen, n_rays, prm);
     return cudaGetLastError();
   }
-  // Wider cells: the NS = 0 instantiation, with a feature trace's regions.
+  // Wider cells: the NS = 0 instantiation, with a feature trace's regions
+  // of the largest fill's slots (none where every cell takes the
+  // register walk).
   const size_t smem =
-      FEAT ? sizeof(float) * rays_per_block * wide_floats(prm.kc) : 0;
+      FEAT && prm.wide_slots > kWideWalk * L
+          ? sizeof(float) * rays_per_block * wide_floats(prm.wide_slots)
+          : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         grid_march_kernel<FEAT, 0>,
@@ -547,21 +594,21 @@ cudaError_t launch(const float* origins, const float* dirs,
     if (e != cudaSuccess) return e;
   }
   grid_march_kernel<FEAT, 0><<<blocks, kThreads, smem, stream>>>(
-      origins, dirs, t_end, active, bt, table, lo, hi, trans, acc, frozen,
-      n_rays, prm);
+      origins, dirs, t_end, active, bt, table, fill, lo, hi, trans, acc,
+      frozen, n_rays, prm);
   return cudaGetLastError();
 }
 
 bool make_params(const int* sched, int n_rounds, int gx, int gy, int gz,
-                 int kc, int cols, float t_min, float t_max, float alpha_min,
-                 float alpha_max, float gval_cut, float transmittance_min,
-                 float jump_unit, Params* prm) {
+                 int kc, int cols, int wide_slots, float t_min, float t_max,
+                 float alpha_min, float alpha_max, float gval_cut,
+                 float transmittance_min, float jump_unit, Params* prm) {
   if (n_rounds < 0 || n_rounds > ptgs_grid::kMaxRounds || kc <= 0 ||
-      gx <= 0 || gy <= 0 || gz <= 0)
+      gx <= 0 || gy <= 0 || gz <= 0 || wide_slots < 0 || wide_slots > kc)
     return false;
   *prm = Params{t_min, t_max, alpha_min, alpha_max, gval_cut,
                 transmittance_min, jump_unit, gx, gy, gz, kc, cols,
-                n_rounds, {}, {}};
+                n_rounds, wide_slots, {}, {}};
   for (int i = 0; i < n_rounds; ++i) {
     prm->m[i] = sched[2 * i];
     prm->a_max[i] = sched[2 * i + 1];
@@ -574,43 +621,45 @@ bool make_params(const int* sched, int n_rounds, int gx, int gy, int gz,
 // origins, dirs (R, 3); t_end (R,) or NULL; active (R,) bool bytes or NULL;
 // btab (B, 4) int32 (16-byte aligned rows); table (S, cols * kc) float32
 // column-major per row (the packet table for a trace, the geometry table
-// for visibility); lo, hi (3,) device floats; sched: host int pairs
-// (M, a_max) per round. Out: trans (R,), acc (R, 15) (trace only), frozen
-// (R,) bytes. Returns a cudaError_t.
+// for visibility); fill (S,) int32, each row's filled slots (read above
+// Kc = 128); lo, hi (3,) device floats; sched: host int pairs (M, a_max)
+// per round; wide_slots: the largest fill (above Kc = 128; it sizes a
+// trace's shared memory). Out: trans (R,), acc (R, 15) (trace only),
+// frozen (R,) bytes. Returns a cudaError_t.
 extern "C" int ptgs_grid_trace(
     const float* origins, const float* dirs, const float* t_end,
     const unsigned char* active, const int* btab, const float* table,
-    const float* lo, const float* hi, const int* sched, float* trans,
-    float* acc, unsigned char* frozen, int n_rays, int n_rounds, int gx,
-    int gy, int gz, int kc, int cols, float t_min, float t_max,
-    float alpha_min, float alpha_max, float gval_cut,
-    float transmittance_min, float jump_unit, void* stream) {
+    const int* fill, const float* lo, const float* hi, const int* sched,
+    float* trans, float* acc, unsigned char* frozen, int n_rays,
+    int n_rounds, int gx, int gy, int gz, int kc, int cols, int wide_slots,
+    float t_min, float t_max, float alpha_min, float alpha_max,
+    float gval_cut, float transmittance_min, float jump_unit, void* stream) {
   Params prm;
-  if (n_rays <= 0 || acc == nullptr ||
-      !make_params(sched, n_rounds, gx, gy, gz, kc, cols, t_min, t_max,
-                   alpha_min, alpha_max, gval_cut, transmittance_min,
+  if (n_rays <= 0 || acc == nullptr || fill == nullptr ||
+      !make_params(sched, n_rounds, gx, gy, gz, kc, cols, wide_slots, t_min,
+                   t_max, alpha_min, alpha_max, gval_cut, transmittance_min,
                    jump_unit, &prm))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch<true>(
-      origins, dirs, t_end, active, btab, table, lo, hi, trans, acc, frozen,
-      n_rays, prm, static_cast<cudaStream_t>(stream)));
+      origins, dirs, t_end, active, btab, table, fill, lo, hi, trans, acc,
+      frozen, n_rays, prm, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int ptgs_grid_visibility(
     const float* origins, const float* dirs, const float* t_end,
     const unsigned char* active, const int* btab, const float* table,
-    const float* lo, const float* hi, const int* sched, float* trans,
-    float* acc, unsigned char* frozen, int n_rays, int n_rounds, int gx,
-    int gy, int gz, int kc, int cols, float t_min, float t_max,
-    float alpha_min, float alpha_max, float gval_cut,
-    float transmittance_min, float jump_unit, void* stream) {
+    const int* fill, const float* lo, const float* hi, const int* sched,
+    float* trans, float* acc, unsigned char* frozen, int n_rays,
+    int n_rounds, int gx, int gy, int gz, int kc, int cols, int wide_slots,
+    float t_min, float t_max, float alpha_min, float alpha_max,
+    float gval_cut, float transmittance_min, float jump_unit, void* stream) {
   Params prm;
-  if (n_rays <= 0 || t_end == nullptr ||
-      !make_params(sched, n_rounds, gx, gy, gz, kc, cols, t_min, t_max,
-                   alpha_min, alpha_max, gval_cut, transmittance_min,
+  if (n_rays <= 0 || t_end == nullptr || fill == nullptr ||
+      !make_params(sched, n_rounds, gx, gy, gz, kc, cols, wide_slots, t_min,
+                   t_max, alpha_min, alpha_max, gval_cut, transmittance_min,
                    jump_unit, &prm))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch<false>(
-      origins, dirs, t_end, active, btab, table, lo, hi, trans, acc, frozen,
-      n_rays, prm, static_cast<cudaStream_t>(stream)));
+      origins, dirs, t_end, active, btab, table, fill, lo, hi, trans, acc,
+      frozen, n_rays, prm, static_cast<cudaStream_t>(stream)));
 }

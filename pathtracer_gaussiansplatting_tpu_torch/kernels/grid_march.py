@@ -7,11 +7,13 @@ Counterpart of the march of
 sums of ``render.grid_trace.ACC_KEYS``, counted in ``TRACE_LAUNCHES``) or
 ``ptgs_grid_visibility`` (geometry only, shadow segments, counted in
 ``VIS_LAUNCHES``); above ``REG_KC`` slots a cell the kernel's wide
-instantiation runs instead (a feature trace's cells in shared memory, a
-segment's in passes of its lanes), counted in ``TRACE_WIDE_LAUNCHES`` and
-``VIS_WIDE_LAUNCHES``. The dispatch, and the plain march that CPU
-tensors run, are ``render.grid_trace.march`` and ``march_plain``; this
-module imports nothing of ``render``.
+instantiation runs instead, counted in ``TRACE_WIDE_LAUNCHES`` and
+``VIS_WIDE_LAUNCHES``. It bounds each cell's work by the slots the cell
+holds (``GridAccel.fill``): a feature trace's cell of at most 64 slots on
+the register walk, a fuller one in shared memory sized by the table's
+largest fill, a segment's cell in passes of its lanes. The dispatch, and
+the plain march that CPU tensors run, are ``render.grid_trace.march``
+and ``march_plain``; this module imports nothing of ``render``.
 
 The kernel runs L lanes per ray (a warp for a trace, half a warp for a
 shadow segment) through the same per-round state machine as the plain
@@ -49,15 +51,16 @@ REG_KC = 128        # max_per_cell up to which a lane's slots are registers
 TRACE_WIDE_LAUNCHES = 0  # the wide instantiations' launches; read by
 VIS_WIDE_LAUNCHES = 0    # chip_smoke.py
 
-_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
              + [ctypes.c_float] * 7 + [ctypes.c_void_p])
 
 
 def _check(tensors: dict, r: int) -> None:
-    shapes = dict(origins=(r, 3), dirs=(r, 3), t_end=(r,), active=(r,))
+    shapes = dict(origins=(r, 3), dirs=(r, 3), t_end=(r,), active=(r,),
+                  fill=tensors["geom"].shape[:1])
     for key, x in tensors.items():
-        dtype = dict(active=torch.bool, btab=torch.int32).get(
-            key, torch.float32)
+        dtype = dict(active=torch.bool, btab=torch.int32,
+                     fill=torch.int32).get(key, torch.float32)
         shape = shapes.get(key, tuple(x.shape))
         if x.dtype != dtype or not x.is_contiguous() \
                 or tuple(x.shape) != shape:
@@ -84,8 +87,8 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
     global TRACE_LAUNCHES, VIS_LAUNCHES, TRACE_WIDE_LAUNCHES
     global VIS_WIDE_LAUNCHES
     tensors = dict(origins=origins, dirs=dirs, btab=accel.btab,
-                   geom=accel.geom, packet=accel.packet, lo=accel.lo,
-                   hi=accel.hi)
+                   geom=accel.geom, packet=accel.packet, fill=accel.fill,
+                   lo=accel.lo, hi=accel.hi)
     if t_end is not None:
         tensors["t_end"] = t_end
     if active is not None:
@@ -102,6 +105,8 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
     r = origins.shape[0]
     _check(tensors, r)
     kc = accel.max_per_cell
+    # The wide instantiation's shared region: slots of the fullest cell.
+    wide_slots = accel.max_fill if kc > REG_KC else 0
     if len(rounds) > MAX_ROUNDS:
         raise ValueError(f"grid_march: {len(rounds)} rounds, at most "
                          f"{MAX_ROUNDS}")
@@ -122,10 +127,11 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn(name, _ARGTYPES)(
             origins.data_ptr(), dirs.data_ptr(), _ptr(t_end), _ptr(active),
-            accel.btab.data_ptr(), table.data_ptr(), accel.lo.data_ptr(),
-            accel.hi.data_ptr(), ctypes.addressof(sched), trans.data_ptr(),
-            _ptr(acc), frozen.data_ptr(), r, len(rounds), gx, gy, gz, kc,
-            cols, settings.t_min, settings.t_max,
+            accel.btab.data_ptr(), table.data_ptr(), accel.fill.data_ptr(),
+            accel.lo.data_ptr(), accel.hi.data_ptr(),
+            ctypes.addressof(sched), trans.data_ptr(), _ptr(acc),
+            frozen.data_ptr(), r, len(rounds), gx, gy, gz, kc, cols,
+            wide_slots, settings.t_min, settings.t_max,
             settings.alpha_min, settings.alpha_max,
             math.exp(-0.5 * settings.sigma_cut * settings.sigma_cut),
             settings.transmittance_min, accel.jump_unit, stream)

@@ -168,8 +168,9 @@ def build_slab_accels(scene_slabbed: GaussianScene, n_slabs: int,
     splats' bounds and one dims), stacked along a leading slab axis.
 
     Returns (tables, meta): tables {btab (S, B, 4) int32, geom (S, Smax,
-    12 Kc), packet (S, Smax, cols Kc), lo, hi (S, 3)} on the scene's
-    device, rows past a slab's own zero; meta a :class:`SlabAccelMeta`.
+    12 Kc), packet (S, Smax, cols Kc), fill (S, Smax) int32, lo, hi (S,
+    3)} on the scene's device, rows past a slab's own zero (their fill
+    0); meta a :class:`SlabAccelMeta`.
     ``mesh.shard_scene(tables, mesh)`` gives rank g slab g's tables.
     """
     n = scene_slabbed.num_gaussians
@@ -194,9 +195,10 @@ def build_slab_accels(scene_slabbed: GaussianScene, n_slabs: int,
     s_max = max(a.geom.shape[0] for a in accels)
 
     def stack_rows(key):
-        return torch.stack([torch.nn.functional.pad(
-            getattr(a, key), (0, 0, 0, s_max - getattr(a, key).shape[0]))
-            for a in accels])
+        def pad(x):   # the rows (the leading axis) to s_max, with zeros
+            return torch.nn.functional.pad(
+                x, (0, 0) * (x.dim() - 1) + (0, s_max - x.shape[0]))
+        return torch.stack([pad(getattr(a, key)) for a in accels])
 
     stats = dict(
         dropped_frac=float(np.mean([a.stats_dict["dropped_frac"]
@@ -206,6 +208,7 @@ def build_slab_accels(scene_slabbed: GaussianScene, n_slabs: int,
         max_per_cell=max_per_cell)
     tables = dict(btab=torch.stack([a.btab for a in accels]),
                   geom=stack_rows("geom"), packet=stack_rows("packet"),
+                  fill=stack_rows("fill"),
                   lo=torch.stack([a.lo for a in accels]),
                   hi=torch.stack([a.hi for a in accels]))
     meta = SlabAccelMeta(dims=tuple(int(d) for d in dims),
@@ -335,7 +338,7 @@ def _slab_grid(tables: dict, meta: SlabAccelMeta,
     return gt.GridAccel(btab=tables["btab"][0], geom=tables["geom"][0],
                         packet=tables["packet"][0], lo=tables["lo"][0],
                         hi=tables["hi"][0], dims=meta.dims,
-                        jump_unit=meta.jump_unit)
+                        fill=tables["fill"][0], jump_unit=meta.jump_unit)
 
 
 def _march_kw(origins) -> dict:

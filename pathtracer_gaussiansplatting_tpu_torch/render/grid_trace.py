@@ -15,7 +15,7 @@ each block's 64-bit occupancy mask, the slot of its first occupied cell
 and the tight box of its set cells, or, for an empty block, a safe
 euclidean jump; a flat (S, cols * Kc) float32 table per occupied cell
 carries the Kc Gaussians of the cell, column-major (column c at
-[c * Kc, (c + 1) * Kc)).
+[c * Kc, (c + 1) * Kc)), its first ``fill`` slots filled and the rest zero.
 
 ``march_plain`` is the reference's march in plain torch, round by round:
 phase A walks the block table and records each ray's next <= M occupied
@@ -39,6 +39,7 @@ is differentiable, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Tuple
 
@@ -115,7 +116,11 @@ class GridAccel:
     six 2-bit fields [xmin, xmax, ymin, ymax, zmin, zmax]); info < 0 encodes
     an empty block's safe euclidean jump as -(1 + round(jump / jump_unit)).
     ``geom`` (S, 12 Kc) and ``packet`` (S, cols Kc) float32, column c at
-    [c Kc, (c + 1) Kc). ``stats`` records binning truncation.
+    [c Kc, (c + 1) Kc). ``fill`` (S,) int32: each row's filled slots,
+    min(count, Kc); the binning fills a cell's slots as a prefix, so every
+    slot at or past ``fill`` is zero in both tables (the march kernels
+    bound a cell's work by it; the plain march does not read it).
+    ``stats`` records binning truncation.
     """
 
     btab: torch.Tensor
@@ -124,12 +129,18 @@ class GridAccel:
     lo: torch.Tensor
     hi: torch.Tensor
     dims: Tuple[int, int, int]
+    fill: torch.Tensor
     jump_unit: float = 1.0
     stats: tuple = ()
 
     @property
     def max_per_cell(self) -> int:
         return self.geom.shape[1] // GEOM_COLS
+
+    @functools.cached_property
+    def max_fill(self) -> int:
+        """The largest fill of the table (read from the device once)."""
+        return int(self.fill.max())
 
     @property
     def pkt_cols(self) -> int:
@@ -372,7 +383,8 @@ def build_grid_accel(scene: GaussianScene, dims=None, max_per_cell: int = 32,
         geom=geom, packet=packet,
         lo=torch.from_numpy(np.asarray(lo, np.float32)).to(dev),
         hi=torch.from_numpy(np.asarray(hi, np.float32)).to(dev),
-        dims=tuple(int(d) for d in dims), jump_unit=jump_unit,
+        dims=tuple(int(d) for d in dims),
+        fill=valid.sum(1, dtype=torch.int32), jump_unit=jump_unit,
         stats=tuple(sorted(stats.items())))
 
 

@@ -24,7 +24,9 @@ from pathtracer_gaussiansplatting_tpu_torch.csrc import grid_bin
 from pathtracer_gaussiansplatting_tpu_torch.render import grid_trace as tgt
 from pathtracer_gaussiansplatting_tpu_torch.render import pipeline as tpipe
 
-from torch_parity import CPU, TORCH_THREADS, np_of, to_torch_scene
+from torch_parity import (
+    CPU, TORCH_THREADS, assert_fill_counts_rows, np_of, to_torch_scene,
+)
 from utils import random_scene
 
 torch.set_num_threads(TORCH_THREADS)
@@ -112,6 +114,54 @@ def test_build_grid_accel_matches(world, dims):
         assert g.shape == w.shape
         np.testing.assert_allclose(g, w, rtol=1e-6,
                                    atol=1e-6 * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("max_per_cell", [32, 144])
+def test_fill_counts_each_rows_slots(world, max_per_cell):
+    """GridAccel.fill, which bounds a cell's work in the wide march
+    kernels: each row's filled slots, min(count, Kc), equal to the JAX
+    package's count of the same row's Gaussians, every slot at or past it
+    zero in geom and packet. The world's 16^3 grid overflows Kc=32 and
+    fits Kc=144."""
+    dims = (16, 16, 16)
+    ja = jgt.build_grid_accel(world["js"], dims=dims,
+                              max_per_cell=max_per_cell)
+    ta = tgt.build_grid_accel(world["ts"], dims=dims,
+                              max_per_cell=max_per_cell)
+    overflow = ta.stats_dict["overflow_cell_frac"]
+    assert (overflow > 0.0) == (max_per_cell == 32)
+    assert_fill_counts_rows(ta.geom, ta.packet, ta.fill, max_per_cell,
+                            tgt.G_OPAC)
+    jgeom = np.asarray(ja.geom).reshape(ja.geom.shape[0], -1, max_per_cell)
+    np.testing.assert_array_equal(np_of(ta.fill),
+                                  (jgeom[:, tgt.G_OPAC] > 0).sum(1))
+    assert ta.max_fill == int(ta.fill.max())
+    assert (ta.max_fill == max_per_cell) == (overflow > 0.0)
+
+
+def test_march_plain_is_blind_to_zero_slots(world):
+    """Where no cell overflows Kc=144, the Kc=256 grid only adds zero
+    slots past each row's fill, and march_plain gives the same trans, sums
+    and frozen rays bit for bit, trace and shadow segments: the invariant
+    that lets the wide kernels stop a cell at its fill."""
+    dims = (16, 16, 16)
+    a144, a256 = (tgt.build_grid_accel(world["ts"], dims=dims,
+                                       max_per_cell=kc) for kc in (144, 256))
+    assert a144.stats_dict["overflow_cell_frac"] == 0.0
+    assert torch.equal(a144.fill, a256.fill)
+    o, d = (torch.from_numpy(x) for x in random_rays(5, 512))
+    t_end = torch.from_numpy(np.random.default_rng(11).uniform(
+        0.5, 6.0, 512).astype(np.float32))
+    settings = RenderSettings()
+    for kw in (dict(with_features=True),
+               dict(t_end=t_end, with_features=False)):
+        got, want = (tgt.march_plain(a, o, d, settings, 64, **kw)
+                     for a in (a256, a144))
+        assert float(got[0].min()) < 0.5       # the rays cross Gaussians
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert torch.equal(g, w)
 
 
 def _trace_both(world, o, d, active=None, **kw):
@@ -357,10 +407,13 @@ def test_grid_kernels_match_plain_on_card(max_per_cell):
 @pytest.mark.cuda
 @pytest.mark.parametrize("max_per_cell", [144, 256])
 def test_grid_wide_kernels_match_plain_on_card(max_per_cell):
-    """The kernels' wide instantiation (Kc above 128: a trace's cells in
-    shared memory, a segment's in passes of its lanes) follows the plain
-    march ray for ray as the register one does, on an 8x8x8 grid of
-    surface_scene(5000), where cells hold more than 128 Gaussians."""
+    """The kernels' wide instantiation (Kc above 128: a trace's cells of
+    at most 64 slots on the register walk, fuller ones in shared memory, a
+    segment's in passes of its lanes, each cell's work bounded by its
+    fill) follows the plain march ray for ray as the register one does, on
+    an 8x8x8 grid of surface_scene(5000), where cells hold more than 128
+    Gaussians; and no cell overflows Kc=144 there, so the Kc=144 and
+    Kc=256 kernels give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
     from pathtracer_gaussiansplatting_tpu_torch.kernels import grid_march
@@ -374,6 +427,10 @@ def test_grid_wide_kernels_match_plain_on_card(max_per_cell):
     assert over.stats_dict["overflow_cell_frac"] > 0.0
     accel = tgt.build_grid_accel(scene, dims=(8, 8, 8),
                                  max_per_cell=max_per_cell)
+    other_kc = {144: 256, 256: 144}[max_per_cell]
+    other = tgt.build_grid_accel(scene, dims=(8, 8, 8), max_per_cell=other_kc)
+    assert accel.max_fill == other.max_fill > 128
+    assert torch.equal(accel.fill, other.fill)
     o, d = random_rays(4, 4096, sigma=0.8)
     o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
     t_end = torch.full((4096,), 2.0, device=dev)
@@ -396,6 +453,11 @@ def test_grid_wide_kernels_match_plain_on_card(max_per_cell):
         for g, w in zip(got[:2], want[:2]):
             if w is not None:
                 torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+        same = tgt.march(other, o, d, settings, 64, schedule=FULL_COV, **kw)
+        for g, s in zip(got, same):
+            assert (g is None) == (s is None)
+            if g is not None:
+                assert torch.equal(g, s)
 
 
 def test_lanes_swap_applies_once():

@@ -23,7 +23,8 @@ from pathtracer_gaussiansplatting_tpu_torch.render import grid_trace as tgt
 
 import torch_mesh_ranks as ranks
 from torch_parity import (
-    CPU, TORCH_THREADS, assert_image_close, np_of, to_torch_scene,
+    CPU, TORCH_THREADS, assert_fill_counts_rows, assert_image_close, np_of,
+    to_torch_scene,
 )
 from utils import random_scene
 
@@ -284,6 +285,33 @@ def test_partition_and_slab_tables_match():
     for key in ("geom", "packet", "lo", "hi"):
         np.testing.assert_allclose(np_of(ttab[key]), np.asarray(jtab[key]),
                                    rtol=1e-6, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("max_per_cell", [32, 144])
+def test_slab_fills_count_each_rows_slots(max_per_cell):
+    """build_slab_accels' fill (S, Smax): each slab row's filled slots,
+    equal to the JAX package's count of the same row's Gaussians, every
+    slot at or past it zero, the padding rows' fill 0; a rank's GridAccel
+    carries its slab's. The slabs overflow Kc=32 and fit Kc=144."""
+    js = random_scene(300, np.random.default_rng(13), spread=1.0)
+    jtab, _ = jspatial.build_slab_accels(
+        jspatial.partition_slabs(js, 4)[0], 4, max_per_cell=max_per_cell)
+    ttab, tmeta = spatial.build_slab_accels(
+        spatial.partition_slabs(to_torch_scene(js), 4)[0], 4,
+        max_per_cell=max_per_cell)
+    dropped = dict(tmeta.stats)["dropped_frac"]
+    assert (dropped > 0.0) == (max_per_cell == 32)
+    jgeom = np.asarray(jtab["geom"]).reshape(4, ttab["fill"].shape[1], -1,
+                                             max_per_cell)
+    np.testing.assert_array_equal(np_of(ttab["fill"]),
+                                  (jgeom[:, :, tgt.G_OPAC] > 0).sum(-1))
+    assert int((ttab["fill"] == 0).sum()) > 0     # padding rows
+    for g in range(4):
+        one = spatial._slab_grid({k: v[g:g + 1] for k, v in ttab.items()},
+                                 tmeta, None)
+        assert torch.equal(one.fill, ttab["fill"][g])
+        assert_fill_counts_rows(one.geom, one.packet, one.fill,
+                                max_per_cell, tgt.G_OPAC)
 
 
 def test_slab_k_cap_on_the_card():

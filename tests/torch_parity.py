@@ -147,3 +147,18 @@ def gspt_log(caplog, level=logging.WARNING):
             yield
         finally:
             logger.removeHandler(caplog.handler)
+
+
+def assert_fill_counts_rows(geom, packet, fill, kc: int,
+                            opac_col: int) -> None:
+    """A grid table's ``fill`` (S,) int32 is each row's filled slots: the
+    slots below it hold a Gaussian (opacity > 0), every slot at or past it
+    is zero in both the geometry and the packet table (rows flat, column
+    c at [c Kc, (c + 1) Kc))."""
+    assert fill.dtype == torch.int32 and fill.shape == geom.shape[:1]
+    past = torch.arange(kc)[None, :] >= fill[:, None].long()   # (S, Kc)
+    for table in (geom, packet):
+        cols = table.reshape(table.shape[0], -1, kc)
+        assert not bool(((cols != 0).any(1) & past).any())
+    opac = geom.reshape(geom.shape[0], -1, kc)[:, opac_col]
+    assert bool(((opac > 0) | past).all())
