@@ -2946,6 +2946,7 @@ def reset_counts(tc, gm, dt) -> None:
     from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
 
     tc.LAUNCHES = tc.BWD_LAUNCHES = tc.ANY_LAUNCHES = tc.BWD_ANY_LAUNCHES = 0
+    tc.ANY_GROUP_LAUNCHES = tc.BWD_ANY_GROUP_LAUNCHES = 0
     gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
     gm.TRACE_WIDE_LAUNCHES = gm.VIS_WIDE_LAUNCHES = 0
     dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
@@ -2959,7 +2960,9 @@ def read_counts(tc, gm, dt) -> dict:
                 topk=dt.TOPK_LAUNCHES, dense_vis=dt.VIS_LAUNCHES,
                 rng=k5.LAUNCHES, fwd_any=tc.ANY_LAUNCHES,
                 bwd_any=tc.BWD_ANY_LAUNCHES, trace_wide=gm.TRACE_WIDE_LAUNCHES,
-                vis_wide=gm.VIS_WIDE_LAUNCHES)
+                vis_wide=gm.VIS_WIDE_LAUNCHES,
+                fwd_group=tc.ANY_GROUP_LAUNCHES,
+                bwd_group=tc.BWD_ANY_GROUP_LAUNCHES)
 
 
 def run_cli(cli, argv) -> list:
@@ -4721,8 +4724,10 @@ WIDE_BUDGET = 16e9
 # register walks (csrc/grid_march.cu, kWideWalk).
 WIDE_REG_FILLS = (32, 64)
 WIDE_EXACT_RAYS = 16384
-# 14c: tile sizes beside 16: P = 64, 144 and 1024 pixels a tile.
-TILE_SIZES = (8, 12, 32)
+# 14c: tile sizes beside 16: P = 64 (the one-block kernels), 144, 576 and
+# 1024 (the cluster kernels, G = 1, 3, 4) and 2304 pixels a tile (the
+# group-loop kernels).
+TILE_SIZES = (8, 12, 24, 32, 48)
 # 14e: the capture pose at the widest Kc, its first trace and shadow march
 # held to the plain march on their first WIDE_POSE_RAYS rays.
 WIDE_POSE_SPP, WIDE_POSE_RAYS = 2, 16384
@@ -4923,14 +4928,17 @@ def grid_wide_checks(gm, gt, capture, dev, card) -> dict:
     return dict(marches=res, pose=pose)
 
 
-def tile_size_checks(tc, scene, cam, key, card) -> dict:
+def tile_size_checks(tc, gm, dt, scene, cam, key, card) -> dict:
     """14c: the tile kernels at each tile size of TILE_SIZES on the
     headline's packets (800x800, K=256, jittered): the forward against its
     plain version with phase 1's gates, and at transmittance_min=0 (no
     chunk skip that depends on how the pixels are grouped) bit-equal to
     the one-block kernel on the same pixels cut into its tiles
     (as_block_tiles); the backward with 4a's gates (bwd_check); both timed
-    beside their bounds."""
+    beside their bounds. Prints each size's kernel path (any_p_plan), a
+    cluster's CTAs and cudaOccupancyMaxActiveClusters, and the launches by
+    path, each of which must be the planned one's; at a group-loop size,
+    also whether clusters of 16 CTAs (non-portable) would schedule."""
     from pathtracer_gaussiansplatting_tpu_torch.core import rng
     from pathtracer_gaussiansplatting_tpu_torch.core.types import (
         RenderSettings,
@@ -4944,6 +4952,7 @@ def tile_size_checks(tc, scene, cam, key, card) -> dict:
 
     settings = RenderSettings(background=(0.1, 0.2, 0.3))
     full = dataclasses.replace(settings, transmittance_min=0.0)
+    dev = scene.means.device
     res = {}
     for ts in TILE_SIZES:
         t0 = time.perf_counter()
@@ -4951,7 +4960,28 @@ def tile_size_checks(tc, scene, cam, key, card) -> dict:
         prepared = prepare_tiles(scene, cam, settings, cfg)
         packets = {k: prepared[k] for k in ("geom", "featsT", "count")}
         dirs, _ = _tile_dirs(cam, cfg, rng.subpixel_jitter(
-            key, cam.height, cam.width, 0, device=scene.means.device))
+            key, cam.height, cam.width, 0, device=dev))
+        p = dirs.shape[1]
+        path, n_ctas, threads = tc.any_p_plan(p)
+        plan = f"{path} kernels"
+        if path == "cluster":
+            occ = {kern: tc.cluster_occupancy(kern, p, 256, dev)
+                   for kern in ("fwd", "bwd", "bwd_dirs")}
+            plan += (f", clusters of G={n_ctas} CTAs of {threads} threads; "
+                     f"cudaOccupancyMaxActiveClusters (CTA dynamic shared "
+                     f"memory B): " + ", ".join(
+                         f"{kern} {n} ({smem})"
+                         for kern, (n, smem) in occ.items()))
+        elif path == "group_loop":
+            occ = {kern: tc.cluster_occupancy(kern, 2048, 256, dev, g=16)
+                   for kern in ("fwd", "bwd", "bwd_dirs")}
+            plan += (", one block of 256 threads a tile; clusters of 16 "
+                     "CTAs (non-portable, the limit that would take 4096 "
+                     "pixels) would schedule as: " + ", ".join(
+                         f"{kern} {n} ({smem} B)"
+                         for kern, (n, smem) in occ.items()))
+        log(f"phase 14c tile size {ts} (T={dirs.shape[0]}, P={p}): {plan}")
+        before = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES)
         got = tc.tile_composite(packets, dirs, settings)
         want = tc.tile_composite_plain(packets, dirs, settings)
         torch.cuda.synchronize()
@@ -4973,9 +5003,8 @@ def tile_size_checks(tc, scene, cam, key, card) -> dict:
         plain_ms = cuda_ms(
             lambda: tc.tile_composite_plain(packets, dirs, settings), 3)
         bnds = tile_bounds(packets, dirs, settings)
-        kernel = "one-block" if tc.one_block(p) else "any-P"
         log(f"phase 14c tile size {ts} (T={dirs.shape[0]}, P={p}, K=256; "
-            f"the {kernel} kernels): forward vs plain max abs err {err:.3e} "
+            f"the {path} kernels): forward vs plain max abs err {err:.3e} "
             f"(rtol {RTOL}, atol {ATOL}); at transmittance_min=0 bit-equal "
             f"to the one-block kernel on the same pixels; kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms (CUDA events; {card}); "
@@ -4983,15 +5012,30 @@ def tile_size_checks(tc, scene, cam, key, card) -> dict:
             f"alpha > 0; {bound_text(bnds['fwd'], ms)}")
         bwd = bwd_check(tc, packets, dirs, settings, f"tile size {ts}", card,
                         phase="14c")
+        after = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES)
+        launched = {name: after[name] - before[name] for name in after
+                    if after[name] != before[name]}
+        planned = dict(one_block=("fwd", "bwd"),
+                       cluster=("fwd_any", "bwd_any"),
+                       group_loop=("fwd_group", "bwd_group"))[path]
+        # The forward's one-block launches also serve as_block_tiles.
+        others = {"bwd", "fwd_any", "bwd_any", "fwd_group",
+                  "bwd_group"} - set(planned)
+        check(all(launched.get(name, 0) > 0 for name in planned)
+              and not any(launched.get(name, 0) for name in others),
+              f"14c tile size {ts}: the {path} kernels were planned, the "
+              f"launches were {launched}")
         res[ts] = dict(fwd=dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                                bound=bnds["fwd"]), bwd=bwd)
-        log(f"phase 14c tile size {ts}: {time.perf_counter() - t0:.1f} s")
+                                bound=bnds["fwd"]), bwd=bwd, path=path,
+                       launches=launched)
+        log(f"phase 14c tile size {ts}: launches {json.dumps(launched)}; "
+            f"{time.perf_counter() - t0:.1f} s")
     return res
 
 
 def tile32_paths(tc, gm, dt, scene, cam, small, small_cam, key, dev,
                  card) -> dict:
-    """14d: the tile path at tile size 32 (P = 1024, the any-P kernels) end
+    """14d: the tile path at tile size 32 (P = 1024, the cluster kernels) end
     to end: a headline frame (prepare_tiles and one jittered
     render_prepared of the 1M cloud at 800x800, K=256; phase 2's gates);
     at phase 1's small size the slice (2 samples) and three fit steps, the
@@ -5043,7 +5087,7 @@ def tile32_paths(tc, gm, dt, scene, cam, small, small_cam, key, dev,
         f"{slice_err:.3e}; the small fit card vs CPU, step by step from the "
         f"same parameters ({FIT_STEPS_14} steps): gradients max err "
         f"{fit['grad']:.3e} of the leaf's max |g|, losses max rel err "
-        f"{fit['loss']:.3e}; any-P launches: forward "
+        f"{fit['loss']:.3e}; cluster kernel launches: forward "
         f"{frame['fwd_any'] + small_counts['fwd_any']}, backward "
         f"{small_counts['bwd_any']} ({card})")
     return dict(fwd_any=frame["fwd_any"] + small_counts["fwd_any"],
@@ -5202,7 +5246,7 @@ def phase14(cli, tc, gm, gt, dt, capture, small, small_cam, key, dev,
     scene = random_cloud(1_000_000, seed=13, spread=1.5, device=dev)
     cam = Camera(c2w=look_at((0.0, 0.5, 4.0), (0.0, 0.0, 0.0), device=dev),
                  fov_y_deg=50.0, width=800, height=800)
-    tiles = tile_size_checks(tc, scene, cam, key, card)
+    tiles = tile_size_checks(tc, gm, dt, scene, cam, key, card)
     mark("14c")
     paths = tile32_paths(tc, gm, dt, scene, cam, small, small_cam, key, dev,
                          card)
@@ -5673,6 +5717,8 @@ def main() -> int:
     marches = p14["grid"]["marches"]
     trace_w, vis_w = marches[(True, 256)], marches[(False, 256)]
     tile32 = p14["tiles"][32]
+    group_loop = {k: sum(r["launches"].get(k, 0) for r in p14["tiles"].values())
+                  for k in ("fwd_group", "bwd_group")}
 
     def wide_shapes(feat):
         return [dict(name=f"Kc={kc}", ms=r["ms"], plain_ms=r["plain_ms"],
@@ -5680,7 +5726,7 @@ def main() -> int:
                 for (f, kc), r in marches.items() if f == feat]
 
     def tile_shapes(which):
-        return [dict(name=f"tile size {ts}", ms=r[which]["ms"],
+        return [dict(name=f"tile size {ts} ({r['path']})", ms=r[which]["ms"],
                      plain_ms=r[which]["plain_ms"],
                      bound_ms=r[which]["bound"]["bound_ms"])
                 for ts, r in p14["tiles"].items()
@@ -5761,12 +5807,18 @@ def main() -> int:
         entry("grid_visibility_wide", GRID_SOURCE, GRID_VIS_REPLACES,
               p14["grid"]["pose"]["launches"][1], vis_w, vis_w,
               shapes=wide_shapes(False)),
+        # The cluster kernels (P up to 2048): times at tile size 32; the
+        # group-loop kernels' launches (14c, above 2048 pixels) beside them.
         entry("tile_composite_fwd_any", KERNEL_SOURCE, KERNEL_REPLACES,
               p14["paths"]["fwd_any"], tile32["fwd"], tile32["fwd"]["bound"],
-              shapes=tile_shapes("fwd")),
+              shapes=tile_shapes("fwd"),
+              group_loop_launches=group_loop["fwd_group"],
+              group_loop_launches_in="phase 14c at tile size 48"),
         entry("tile_composite_bwd_any", BWD_KERNEL_SOURCE,
               BWD_KERNEL_REPLACES, p14["paths"]["bwd_any"], tile32["bwd"],
-              tile32["bwd"]["bound"], shapes=tile_shapes("bwd")),
+              tile32["bwd"]["bound"], shapes=tile_shapes("bwd"),
+              group_loop_launches=group_loop["bwd_group"],
+              group_loop_launches_in="phase 14c at tile size 48"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -199,13 +199,16 @@ def live_share(packets, dirs, settings):
     pixels has alpha > 0, and the (pixel, slot) pairs evaluated with alpha
     > 0, counted in torch from the plain version's alpha. The backward's
     phase 2 works on the live (warp, slot)s alone, and the forward's
-    composite step runs only there. Where P is not a whole number of a
-    block's warps, the any-P kernels' lanes past P repeat pixel P - 1."""
+    composite step runs only there. The any-P kernels' lanes past P repeat
+    pixel P - 1: in the warps that hold a pixel for the cluster kernels
+    (a warp with none skips the slots), in every warp of the last group
+    for the group-loop kernels."""
     geom = packets["geom"]
     t_total, p, _ = dirs.shape
     k = geom.shape[-1]
-    block = min(tc.BLOCK_PIXELS, -(-p // 32) * 32)
-    lanes = -(-p // block) * block
+    path, _, block = tc.any_p_plan(p)
+    unit = block if path == "group_loop" else 32
+    lanes = -(-p // unit) * unit
     _, skip_from, kc = chunk_schedule(packets, dirs, settings)
     slot = torch.arange(k, device=dirs.device)
     run = (slot[None] < torch.ceil(packets["count"]).long()[:, None]) \

@@ -11,9 +11,11 @@
 // slot-major and double-buffered (the helpers at the end). The forward
 // and the harness share one stage loop (stage_loop) and the forward's
 // slot step (forward_tile), so the harness's full mode runs the forward's
-// code.
+// code. The choice of kernel for a tile size (any_p_plan) and the cluster
+// kernels' launch and tile-wide max of T (cluster_max) are here too.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace ptgs {
@@ -29,6 +31,69 @@ struct Params {
   float t_min, t_max, alpha_min, alpha_max, gval_cut, transmittance_min;
 };
 
+// ---- which kernel takes a tile of P pixels --------------------------------
+//
+// kOneBlock: P a multiple of 32 up to kMaxPixels, one block a tile, a thread
+// a pixel. kCluster: any other P up to kMaxClusterCtas * kMaxPixels, one
+// thread-block cluster a tile of g = ceil(P / 256) CTAs, CTA r holding
+// pixels [256 r, 256 r + 256) with min(P, 256) threads rounded up to a
+// warp. kGroupLoop: above that, one block of 256 threads a tile walks its
+// pixels in groups of 256. kernels/tile_composite.py's any_p_plan is the
+// same rule; the entry points refuse a launch whose (path, g, threads)
+// differs from it.
+enum Path { kOneBlock = 0, kCluster = 1, kGroupLoop = 2 };
+constexpr int kMaxClusterCtas = 8;  // the portable cluster size
+struct Plan {
+  int path, g, threads;
+};
+
+__host__ __device__ constexpr Plan any_p_plan(int p) {
+  return p % 32 == 0 && p <= kMaxPixels ? Plan{kOneBlock, 1, p}
+         : p <= kMaxClusterCtas * kMaxPixels
+             ? Plan{kCluster, (p + kMaxPixels - 1) / kMaxPixels,
+                    p < kMaxPixels ? (p + 31) / 32 * 32 : kMaxPixels}
+             : Plan{kGroupLoop, 1, kMaxPixels};
+}
+
+inline bool plan_is(int p, int path, int g, int threads) {
+  const Plan want = any_p_plan(p);
+  return want.path == path && want.g == g && want.threads == threads;
+}
+
+// A launch of n_tiles clusters of plan.g CTAs along x, plan.threads
+// threads each, for cudaLaunchKernelEx. attr holds one attribute.
+inline void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
+                           int n_tiles, const Plan& plan, size_t smem,
+                           cudaStream_t stream) {
+  cfg.gridDim = dim3(static_cast<unsigned>(n_tiles) * plan.g);
+  cfg.blockDim = dim3(plan.threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.g;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+// cudaOccupancyMaxActiveClusters of kernel under plan with smem bytes of
+// dynamic shared memory (0: none can be scheduled). A cluster above the
+// portable size first gets the attribute that allows it.
+template <class Kernel>
+cudaError_t max_clusters(Kernel kernel, const Plan& plan, size_t smem,
+                         int* clusters) {
+  if (plan.g > kMaxClusterCtas) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cluster_config(cfg, attr, 1, plan, smem, nullptr);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
 // Block-wide max of v, returned to every thread. blockDim.x is a
 // multiple of 32; red holds one float per warp.
 __device__ __forceinline__ float block_max(float v, float* red) {
@@ -43,6 +108,29 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   const int n_warps = blockDim.x >> 5;
   for (int i = 1; i < n_warps; ++i) m = fmaxf(m, red[i]);
   return m;
+}
+
+// Cluster-wide max of v over the tile's CTAs (the cluster kernels),
+// returned to every thread: each CTA's block_max goes to slot[par] of its
+// shared memory, and after a cluster barrier every thread reads the CTAs'
+// slots through distributed shared memory. A max is exact, so each CTA
+// takes the decision one block over the whole tile takes. Callers
+// alternate par from one call to the next: a CTA that runs ahead writes
+// the other slot, and it can come back to this one only after the next
+// call's barrier, which every CTA reaches after its reads. A cluster of
+// one CTA takes its block max alone.
+__device__ __forceinline__ float cluster_max(float v, float* red, float* slot,
+                                             int par) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const float m = block_max(v, red);
+  if (cluster.num_blocks() == 1) return m;
+  if (threadIdx.x == 0) slot[par] = m;
+  cluster.sync();
+  float r = *cluster.map_shared_rank(slot + par, 0);
+  for (unsigned g = 1; g < cluster.num_blocks(); ++g)
+    r = fmaxf(r, *cluster.map_shared_rank(slot + par, g));
+  return r;
 }
 
 // One pixel's ray direction and its six quadratic monomials
@@ -205,25 +293,26 @@ __device__ __forceinline__ void stage_feats(const float* buf, int j,
   }
 }
 
-// ---- the forward's stage loop (the forward kernel and the harness) -------
+// ---- the forward's stage loop (the forward kernels and the harness) ------
 //
 // Walks a tile's slots [0, n_valid) in stages of kStage: cp.async copies
 // the next stage into the other half of the double buffer while
 // body(sb, s0, n) reads slots [s0, s0 + n) from this one, one
 // __syncthreads a stage on each side. With kSkip, each chunk of kc slots
-// after the first is skipped once the block-wide max of trans is at or
-// below transmittance_min: the max is uniform over the block and the test
-// cannot pass again once it fails, so the loop ends there. kc is K or a
-// multiple of kStage, so a stage never straddles two chunks.
-template <int F, bool kSkip, class Body>
-__device__ __forceinline__ void stage_loop(
+// after the first is skipped once tile_max(chunk), the max of T over the
+// tile's pixels, is at or below transmittance_min: the max is uniform over
+// the tile and the test cannot pass again once it fails, so the loop ends
+// there. kc is K or a multiple of kStage, so a stage never straddles two
+// chunks.
+template <int F, bool kSkip, class TileMax, class Body>
+__device__ __forceinline__ void stage_loop_by(
     const float* g_tile, const float* f_tile, int k, int kc, int n_valid,
     float transmittance_min, float (*stage)[kStage * slot_floats<F>()],
-    float* red, const float& trans, Body body) {
+    TileMax tile_max, Body body) {
   stage_async<F>(g_tile, f_tile, k, 0, min(kStage, n_valid), stage[0]);
   for (int s0 = 0, buf = 0; s0 < n_valid; s0 += kStage, buf ^= 1) {
     if (kSkip && s0 > 0 && s0 % kc == 0 &&
-        !(block_max(trans, red) > transmittance_min))
+        !(tile_max(s0 / kc) > transmittance_min))
       break;
     stage_async<F>(g_tile, f_tile, k, s0 + kStage,
                    min(kStage, n_valid - s0 - kStage), stage[buf ^ 1]);
@@ -234,6 +323,17 @@ __device__ __forceinline__ void stage_loop(
     __syncthreads();  // the stage is no longer read: the next may refill it
   }
   cp_async_wait<0>();
+}
+
+// stage_loop_by for a tile held by one block: the block-wide max of trans.
+template <int F, bool kSkip, class Body>
+__device__ __forceinline__ void stage_loop(
+    const float* g_tile, const float* f_tile, int k, int kc, int n_valid,
+    float transmittance_min, float (*stage)[kStage * slot_floats<F>()],
+    float* red, const float& trans, Body body) {
+  stage_loop_by<F, kSkip>(g_tile, f_tile, k, kc, n_valid, transmittance_min,
+                          stage, [&](int) { return block_max(trans, red); },
+                          body);
 }
 
 // The forward's composite of one tile's slots [0, n_valid) into this

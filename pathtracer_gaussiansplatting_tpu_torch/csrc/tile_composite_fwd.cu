@@ -40,21 +40,33 @@
 // no TF32 or bf16 anywhere (exp of the quadratic amplifies truncated
 // operands).
 //
-// Every other tile size (tile_composite_fwd_any_kernel: P not a multiple
-// of 32, or above 256): one block a tile still, of min(P, 256) threads
-// rounded up to a warp, takes the tile's pixels in groups of its size,
-// pixel g * blockDim + thread in group g, chunk by chunk. A chunk's skip
-// needs the block-wide max of T over every pixel of the tile, so each
-// group runs the chunk in turn, with the forward's per-pixel code, and
-// where the tile has more than one group it keeps each pixel's T, depth
-// sum and feature sums in its outputs between chunks. The lanes past P
-// repeat pixel P - 1 and store nothing: their T is a pixel's T, so the
-// max does not change, and their votes only make a warp evaluate a slot
-// it could skip, which changes no bit. Each pixel's result is the
-// 16x16 kernel's for the same pixel under the same chunk schedule.
+// Every other tile size up to 2048 pixels (tile_composite_fwd_cluster_kernel:
+// P not a multiple of 32, or above 256; tiles up to 45x45): one
+// thread-block cluster a tile, of G = ceil(P / 256) CTAs (csrc
+// tile_composite_common.cuh, any_p_plan). CTA r holds pixels
+// [256 r, 256 r + 256), a thread a pixel with its state in registers as
+// above, and stages each stage of slots once into its own buffers. The
+// chunk skip needs the max of T over the whole tile: at each chunk
+// boundary every CTA puts its block max in shared memory and, after a
+// cluster barrier, reads the others' through distributed shared memory
+// (cluster_max). Each CTA writes its pixels' outputs once, at the end. The
+// lanes past P repeat pixel P - 1 and store nothing; they give T = 0 to
+// the max, and a warp of such lanes alone skips the slot work (it still
+// copies stages and joins the barriers). A cluster of one CTA (P up to
+// 256) takes no cluster barrier. Each pixel's result is the 16x16
+// kernel's for the same pixel under the same chunk schedule, bit for bit.
+//
+// Above 2048 pixels (tile_composite_fwd_group_kernel): one block of 256
+// threads a tile takes the tile's pixels in groups of 256, chunk by chunk.
+// Each group runs the chunk in turn with the forward's per-pixel code and
+// keeps each pixel's T, depth sum and feature sums in its outputs between
+// chunks; the block max of T over the groups decides the skip. The lanes
+// past P repeat pixel P - 1 and store nothing: their T is a pixel's T, so
+// the max does not change.
 //
 // Plain C entry points (bound with ctypes); each returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "tile_composite_common.cuh"
@@ -103,8 +115,69 @@ __global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_kernel(
   for (int f = 0; f < F; ++f) out[px * F + f] = acc[f];
 }
 
+// The cluster kernel: see the top of this file. Launched with a cluster
+// of G CTAs along x, G CTAs a tile.
 template <int F>
-__global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_any_kernel(
+__global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_cluster_kernel(
+    const float* __restrict__ count, const float* __restrict__ dirs,
+    const float* __restrict__ geom, const float* __restrict__ feats,
+    float* __restrict__ out, float* __restrict__ alpha_acc,
+    float* __restrict__ depth, int p, int k, int kc, Params prm) {
+  constexpr int kS = ptgs::slot_floats<F>();
+  __shared__ __align__(16) float stage[2][kStage * kS];
+  __shared__ float red[32];
+  __shared__ float t_slot[2];  // this CTA's max of T, by chunk parity
+
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int tile = blockIdx.x / cluster.num_blocks();
+  const int pix = cluster.block_rank() * blockDim.x + threadIdx.x;
+  const bool real = pix < p;
+  const bool warp_real = pix - static_cast<int>(threadIdx.x & 31) < p;
+  const size_t px = static_cast<size_t>(tile) * p + min(pix, p - 1);
+  const ptgs::PixelDir pd = ptgs::load_dir(dirs + px * 3);
+
+  float trans = 1.0f, s_depth = 0.0f;
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+
+  const int n_valid = min(k, max(0, static_cast<int>(ceilf(count[tile]))));
+  const float* g_tile = geom + static_cast<size_t>(tile) * kGeomRows * k;
+  const float* f_tile = feats + static_cast<size_t>(tile) * F * k;
+  ptgs::stage_loop_by<F, true>(
+      g_tile, f_tile, k, kc, n_valid, prm.transmittance_min, stage,
+      [&](int chunk) {
+        return ptgs::cluster_max(real ? trans : 0.0f, red, t_slot, chunk & 1);
+      },
+      [&](const float* sb, int, int n) {
+        if (!warp_real) return;  // uniform over the warp
+#pragma unroll 4
+        for (int j = 0; j < n; ++j) {
+          const ptgs::SlotEval e =
+              ptgs::eval_geom(pd, ptgs::stage_geom(sb, kS, j), prm);
+          if (__any_sync(ptgs::kFullWarp, e.live)) {
+            float fv[F];
+            ptgs::stage_feats<F>(sb, j, fv);
+            ptgs::composite_step<F>(e, [&](int f) { return fv[f]; }, trans,
+                                    s_depth, acc);
+          }
+        }
+      });
+  // No CTA leaves while another may still read its t_slot.
+  if (cluster.num_blocks() > 1) cluster.sync();
+
+  if (!real) return;
+  const float aa = 1.0f - trans;
+  alpha_acc[px] = aa;
+  depth[px] = s_depth / fmaxf(aa, 1e-8f);
+#pragma unroll
+  for (int f = 0; f < F; ++f) out[px * F + f] = acc[f];
+}
+
+// The group-loop kernel (above 2048 pixels): see the top of this file.
+template <int F>
+__global__ void __launch_bounds__(kMaxPixels) tile_composite_fwd_group_kernel(
     const float* __restrict__ count, const float* __restrict__ dirs,
     const float* __restrict__ geom, const float* __restrict__ feats,
     float* __restrict__ out, float* __restrict__ alpha_acc,
@@ -195,13 +268,22 @@ cudaError_t launch(const float* count, const float* dirs, const float* geom,
                    const float* feats, float* out, float* alpha_acc,
                    float* depth, int n_tiles, int p, int k, int kc,
                    Params prm, cudaStream_t stream) {
-  if (p % 32 == 0 && p <= kMaxPixels)
+  const ptgs::Plan plan = ptgs::any_p_plan(p);
+  if (plan.path == ptgs::kOneBlock) {
     tile_composite_fwd_kernel<F><<<n_tiles, p, 0, stream>>>(
         count, dirs, geom, feats, out, alpha_acc, depth, p, k, kc, prm);
-  else
-    tile_composite_fwd_any_kernel<F>
-        <<<n_tiles, min(kMaxPixels, (p + 31) / 32 * 32), 0, stream>>>(
-            count, dirs, geom, feats, out, alpha_acc, depth, p, k, kc, prm);
+  } else if (plan.path == ptgs::kGroupLoop) {
+    tile_composite_fwd_group_kernel<F><<<n_tiles, plan.threads, 0, stream>>>(
+        count, dirs, geom, feats, out, alpha_acc, depth, p, k, kc, prm);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    ptgs::cluster_config(cfg, attr, n_tiles, plan, 0, stream);
+    cudaError_t e = cudaLaunchKernelEx(
+        &cfg, tile_composite_fwd_cluster_kernel<F>, count, dirs, geom, feats,
+        out, alpha_acc, depth, p, k, kc, prm);
+    if (e != cudaSuccess) return e;
+  }
   return cudaGetLastError();
 }
 
@@ -209,17 +291,19 @@ cudaError_t launch(const float* count, const float* dirs, const float* geom,
 
 // count (T,), dirs (T, P, 3), geom (T, 16, K), feats (T, F, K) in;
 // out (T, P, F), alpha_acc (T, P), depth (T, P) out; all float32,
-// contiguous. P a multiple of 32 up to 256 launches the 16x16 kernel, any
-// other P the any-P kernel. kc must divide K and be K or a multiple of 32,
-// and F must be 14 (the packet features). Returns a cudaError_t.
+// contiguous. path, g and threads must be any_p_plan(P)'s: the one-block
+// kernel (P a multiple of 32 up to 256), the cluster kernel (up to 2048
+// pixels) or the group-loop kernel. kc must divide K and be K or a
+// multiple of 32, and F must be 14 (the packet features). Returns a
+// cudaError_t.
 extern "C" int ptgs_tile_composite_fwd(
     const float* count, const float* dirs, const float* geom,
     const float* feats, float* out, float* alpha_acc, float* depth,
-    int n_tiles, int p, int k, int f, int kc, float t_min, float t_max,
-    float alpha_min, float alpha_max, float gval_cut,
-    float transmittance_min, void* stream) {
+    int n_tiles, int p, int k, int f, int kc, int path, int g, int threads,
+    float t_min, float t_max, float alpha_min, float alpha_max,
+    float gval_cut, float transmittance_min, void* stream) {
   if (n_tiles <= 0 || p <= 0 || kc <= 0 || k % kc != 0 ||
-      (kc != k && kc % kStage != 0))
+      (kc != k && kc % kStage != 0) || !ptgs::plan_is(p, path, g, threads))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params prm{t_min, t_max, alpha_min, alpha_max, gval_cut,
                    transmittance_min};
@@ -232,4 +316,18 @@ extern "C" int ptgs_tile_composite_fwd(
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// How many clusters of the forward's cluster kernel the card can hold at
+// once for a tile of P pixels (cudaOccupancyMaxActiveClusters), into
+// *clusters; with g > 0, for clusters of g CTAs instead of any_p_plan(P)'s
+// (above 8, non-portable: the attribute that allows them is set first).
+// Returns a cudaError_t (cudaErrorInvalidValue where P takes no cluster).
+extern "C" int ptgs_tile_composite_fwd_clusters(int p, int g, int* clusters) {
+  ptgs::Plan plan = ptgs::any_p_plan(p);
+  if (plan.path != ptgs::kCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g > 0) plan.g = g;
+  return static_cast<int>(ptgs::max_clusters(
+      tile_composite_fwd_cluster_kernel<14>, plan, 0, clusters));
 }

@@ -16,15 +16,18 @@ with Q the world-space inverse covariance, composited front to back into
 (out (T, P, F), alpha_acc (T, P), depth (T, P)).
 
 For CUDA tensors ``tile_composite`` launches the CUDA kernel
-``csrc/tile_composite_fwd.cu`` (counted in ``LAUNCHES``) and its backward
-launches ``csrc/tile_composite_bwd.cu`` (counted in ``BWD_LAUNCHES``): a
-block a tile, a thread a pixel, where P is a multiple of 32 up to 256
-(tiles of 16x16 or 8x8); any other P launches the files' any-P kernels
-(counted in ``ANY_LAUNCHES`` and ``BWD_ANY_LAUNCHES``), a block a tile that
-takes the pixels in groups of up to 256; for
-CPU tensors they run ``tile_composite_plain`` and
-``tile_composite_bwd_plain``. There is no fallback from the card to the
-plain versions: a CUDA input either launches the kernel or raises.
+``csrc/tile_composite_fwd.cu`` and its backward launches
+``csrc/tile_composite_bwd.cu``, the kernel that :func:`any_p_plan` picks
+for the tile's P pixels: a block a tile, a thread a pixel, where P is a
+multiple of 32 up to 256 (tiles of 16x16 or 8x8; counted in ``LAUNCHES``
+and ``BWD_LAUNCHES``); for any other P up to 2048 (tiles up to 45x45) a
+thread-block cluster a tile, a CTA a group of 256 pixels (``ANY_LAUNCHES``,
+``BWD_ANY_LAUNCHES``); above that a block a tile that takes its pixels in
+groups of 256 (``ANY_GROUP_LAUNCHES``, ``BWD_ANY_GROUP_LAUNCHES``). For CPU
+tensors they run ``tile_composite_plain`` and ``tile_composite_bwd_plain``.
+There is no fallback from the card to the plain versions or from one
+kernel to another: a CUDA input either launches the planned kernel or
+raises, a cluster the card cannot schedule included.
 """
 from __future__ import annotations
 
@@ -46,11 +49,16 @@ ROW_OPAC = 10
 GEOM_ROWS = 16
 FEATURE_DIM = 14  # the packet features of render.tiled._packet_features
 
-LAUNCHES = 0  # forward kernel launches; read by chip_smoke.py
-BWD_LAUNCHES = 0  # backward kernel launches; read by chip_smoke.py
-ANY_LAUNCHES = 0  # the any-P kernels' launches; read by chip_smoke.py
+# Launches by kernel, read by chip_smoke.py: the one-block kernels, the
+# cluster kernels and the group-loop kernels (any_p_plan).
+LAUNCHES = 0
+BWD_LAUNCHES = 0
+ANY_LAUNCHES = 0
 BWD_ANY_LAUNCHES = 0
+ANY_GROUP_LAUNCHES = 0
+BWD_ANY_GROUP_LAUNCHES = 0
 BLOCK_PIXELS = 256  # a block's threads: one tile of up to 16x16 pixels
+MAX_CLUSTER_CTAS = 8  # the portable cluster size: tiles of up to 2048 pixels
 PLAIN_CHUNK_ELEMS = 1 << 24  # (tiles, P, K) elements per plain-version chunk
 
 
@@ -222,10 +230,12 @@ def tile_composite_bwd_plain(packets, dirs: torch.Tensor, cot,
     return d_geom, d_featsT, d_dirs if want_dirs else None
 
 
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                  + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                  + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+_PATH_CODES = {"one_block": 0, "cluster": 1, "group_loop": 2}
+_CLUSTERS = {}  # (kernel, device, P, K, G) -> (max clusters, smem bytes)
 
 
 def _kernel_fn(name: str, argtypes):
@@ -264,10 +274,70 @@ def _check_shapes(name: str, tensors, expect) -> None:
                 f"contiguous={x.is_contiguous()}")
 
 
+def any_p_plan(p: int):
+    """(path, G, threads): which kernel takes a tile of P pixels, with its
+    CTAs a tile and threads a CTA. "one_block": P a multiple of 32 up to
+    BLOCK_PIXELS, a block of P threads. "cluster": any other P up to
+    MAX_CLUSTER_CTAS * BLOCK_PIXELS, a cluster of G = ceil(P / 256) CTAs,
+    each of min(P, 256) threads rounded up to a warp. "group_loop": above,
+    one block of 256 threads walking the tile's pixels in groups. The
+    kernels' entry points hold their arguments to the same rule
+    (``any_p_plan`` in ``csrc/tile_composite_common.cuh``)."""
+    if p % 32 == 0 and p <= BLOCK_PIXELS:
+        return "one_block", 1, p
+    if p <= MAX_CLUSTER_CTAS * BLOCK_PIXELS:
+        return ("cluster", -(-p // BLOCK_PIXELS),
+                min(BLOCK_PIXELS, -(-p // 32) * 32))
+    return "group_loop", 1, BLOCK_PIXELS
+
+
 def one_block(p: int) -> bool:
     """Whether a tile of P pixels takes the kernels' thread-a-pixel block
-    (P a multiple of 32 up to BLOCK_PIXELS) rather than their any-P one."""
-    return p % 32 == 0 and p <= BLOCK_PIXELS
+    rather than an any-P kernel."""
+    return any_p_plan(p)[0] == "one_block"
+
+
+def cluster_occupancy(kernel: str, p: int, k: int, device, g: int = 0):
+    """(clusters, smem bytes): cudaOccupancyMaxActiveClusters of the
+    cluster kernel ``kernel`` ("fwd", "bwd" or "bwd_dirs") for tiles of P
+    pixels and K slots on ``device`` (a CUDA device), and a CTA's dynamic
+    shared memory; with g > 0, for clusters of g CTAs instead of
+    any_p_plan(P)'s (above 8 the card's non-portable sizes). Cached by its
+    arguments."""
+    dev = torch.device(device)
+    key = (kernel, dev.index, p, k, g)
+    if key not in _CLUSTERS:
+        n, smem = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            if kernel == "fwd":
+                fn = _kernel_fn("ptgs_tile_composite_fwd_clusters",
+                                [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                err = fn(p, g, ctypes.addressof(n))
+            else:
+                fn = _kernel_fn("ptgs_tile_composite_bwd_clusters",
+                                [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+                err = fn(p, k, int(kernel == "bwd_dirs"), g,
+                         ctypes.addressof(n), ctypes.addressof(smem))
+        if err != 0:
+            raise RuntimeError(f"cluster_occupancy({kernel}, P={p}, K={k}, "
+                               f"g={g}): CUDA error {err}")
+        _CLUSTERS[key] = (n.value, smem.value)
+    return _CLUSTERS[key]
+
+
+def _plan_args(name: str, kernel: str, p: int, k: int, device):
+    """(path, (path code, G, threads)): the plan and its arguments for the
+    entry points; for a cluster, raises unless the card can hold one (no
+    other kernel takes the tile instead)."""
+    path, g, threads = any_p_plan(p)
+    if path == "cluster":
+        n, smem = cluster_occupancy(kernel, p, k, device)
+        if n == 0:
+            raise RuntimeError(
+                f"{name}: the card cannot schedule a cluster of {g} CTAs of "
+                f"{threads} threads with {smem} B of dynamic shared memory "
+                f"each (P={p}, K={k}; cudaOccupancyMaxActiveClusters = 0)")
+    return path, (_PATH_CODES[path], g, threads)
 
 
 def as_block_tiles(packets, dirs: torch.Tensor):
@@ -295,7 +365,7 @@ def _kernel_settings(settings: RenderSettings):
 def _fwd(geom, featsT, dirs, count, settings: RenderSettings):
     """Forward dispatch: the plain version on the CPU, the kernel on the
     card."""
-    global LAUNCHES, ANY_LAUNCHES
+    global LAUNCHES, ANY_LAUNCHES, ANY_GROUP_LAUNCHES
     tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count)
     if _on_cpu("tile_composite", tensors):
         return tile_composite_plain(dict(geom=geom, featsT=featsT), dirs,
@@ -312,20 +382,23 @@ def _fwd(geom, featsT, dirs, count, settings: RenderSettings):
     depth = torch.empty((t_total, p), dtype=torch.float32, device=dev)
     if t_total == 0:
         return out, alpha_acc, depth
+    path, plan = _plan_args("tile_composite", "fwd", p, k, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel_fn("ptgs_tile_composite_fwd", _FWD_ARGTYPES)(
             count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
             featsT.data_ptr(), out.data_ptr(), alpha_acc.data_ptr(),
             depth.data_ptr(), t_total, p, k, FEATURE_DIM, _chunk_size(k),
-            *_kernel_settings(settings), stream)
+            *plan, *_kernel_settings(settings), stream)
     if err != 0:
         raise RuntimeError(f"tile_composite: kernel launch failed with CUDA "
                            f"error {err}")
-    if one_block(p):
+    if path == "one_block":
         LAUNCHES += 1
-    else:
+    elif path == "cluster":
         ANY_LAUNCHES += 1
+    else:
+        ANY_GROUP_LAUNCHES += 1
     return out, alpha_acc, depth
 
 
@@ -345,7 +418,7 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
     kernel, which follows the forward kernel's chunk schedule: slots of the
     chunks it skipped get exactly zero.
     """
-    global BWD_LAUNCHES, BWD_ANY_LAUNCHES
+    global BWD_LAUNCHES, BWD_ANY_LAUNCHES, BWD_ANY_GROUP_LAUNCHES
     geom, featsT, count = packets["geom"], packets["featsT"], packets["count"]
     g_out, g_alpha, g_depth = cot
     tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count,
@@ -366,9 +439,11 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
     d_dirs = torch.empty_like(dirs) if want_dirs else None
     if t_total == 0:
         return d_geom, d_featsT, d_dirs
-    # Above a block's pixels, each pixel's forward state between chunks and
-    # phases: T, depth sum and the two cotangent sums, in double.
-    scratch = None if p <= BLOCK_PIXELS else torch.empty(
+    path, plan = _plan_args("tile_composite_bwd",
+                            "bwd_dirs" if want_dirs else "bwd", p, k, dev)
+    # The group-loop kernel keeps each pixel's forward state between chunks
+    # and phases: T, depth sum and the two cotangent sums, in double.
+    scratch = None if path != "group_loop" else torch.empty(
         (t_total, p, 4), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -378,15 +453,17 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
             g_depth.data_ptr(), None if d_dirs is None else d_dirs.data_ptr(),
             d_geom.data_ptr(), d_featsT.data_ptr(),
             None if scratch is None else scratch.data_ptr(), t_total, p, k,
-            FEATURE_DIM, _chunk_size(k), int(want_dirs),
+            FEATURE_DIM, _chunk_size(k), int(want_dirs), *plan,
             *_kernel_settings(settings), stream)
     if err != 0:
         raise RuntimeError(f"tile_composite_bwd: kernel launch failed with "
                            f"CUDA error {err}")
-    if one_block(p):
+    if path == "one_block":
         BWD_LAUNCHES += 1
-    else:
+    elif path == "cluster":
         BWD_ANY_LAUNCHES += 1
+    else:
+        BWD_ANY_GROUP_LAUNCHES += 1
     return d_geom, d_featsT, d_dirs
 
 

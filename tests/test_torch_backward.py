@@ -150,12 +150,12 @@ def test_function_grads_match_pallas(multi_chunk, transmittance_min):
                      err_msg=name)
 
 
-@pytest.mark.parametrize("tile_size", [8, 12, 32])
+@pytest.mark.parametrize("tile_size", [8, 12, 24, 32, 48])
 def test_function_grads_match_pallas_tile_sizes(tile_size):
     """Gradients through tile_composite vs the Pallas backward in interpret
-    mode at tile sizes other than 16 (P = 64, 144 and 1024 pixels a tile),
-    with no transmittance cutoff, on multi_chunk's near pose (far thin
-    splats' gradients cancel in float32: dirs_term_mass in
+    mode at tile sizes other than 16 (P = 64, 144, 576, 1024 and 2304
+    pixels a tile), with no transmittance cutoff, on multi_chunk's near
+    pose (far thin splats' gradients cancel in float32: dirs_term_mass in
     chip_smoke.py)."""
     packets, dirs, tpk, tdirs = pose_packets(
         600, 1.0, 128, eye=(0.0, 0.0, 1.5), scale_range=(-2.0, -1.0),

@@ -64,11 +64,12 @@ def test_plain_matches_pallas_interpret():
         assert_close(g, w, 1e-3, 3e-4, err_msg=name)
 
 
-@pytest.mark.parametrize("tile_size", [8, 12, 32])
+@pytest.mark.parametrize("tile_size", [8, 12, 24, 32, 48])
 def test_plain_matches_pallas_tile_sizes(tile_size):
     """tile_composite_plain vs the Pallas kernel in interpret mode at tile
-    sizes other than 16: P = 64, 144 (not a multiple of 32) and 1024
-    pixels a tile (the card's any-P kernel above 256)."""
+    sizes other than 16: P = 64, 144 (not a multiple of 32), 576 and 1024
+    (the card's cluster kernels above 256) and 2304 pixels a tile (its
+    group-loop kernels above 2048)."""
     packets, dirs, tpk, tdirs = pose_packets(600, 1.0, 128,
                                              tile_size=tile_size)
     assert tdirs.shape[1] == tile_size * tile_size
@@ -301,15 +302,38 @@ def test_kernel_chunk_shapes_on_card(k, p):
         assert_close(g, w, 2e-3, 2e-4, err_msg=name)
 
 
+def _launches(bwd: bool) -> dict:
+    """The tile kernels' launch counts by path (any_p_plan's names)."""
+    names = ("BWD_LAUNCHES", "BWD_ANY_LAUNCHES", "BWD_ANY_GROUP_LAUNCHES") \
+        if bwd else ("LAUNCHES", "ANY_LAUNCHES", "ANY_GROUP_LAUNCHES")
+    return dict(zip(("one_block", "cluster", "group_loop"),
+                    (getattr(tc, n) for n in names)))
+
+
+@pytest.mark.parametrize("p, plan", [
+    (64, ("one_block", 1, 64)), (144, ("cluster", 1, 160)),
+    (256, ("one_block", 1, 256)), (576, ("cluster", 3, 256)),
+    (1024, ("cluster", 4, 256)), (2048, ("cluster", 8, 256)),
+    (2304, ("group_loop", 1, 256))])
+def test_any_p_plan(p, plan):
+    """The kernel each tile size takes: tiles 8 and 16 the one-block
+    kernels; tile 12 a cluster of one CTA of 160 threads; tiles 24, 32 and
+    45 (P up to 2048) clusters of ceil(P / 256) CTAs; tile 48 the
+    group-loop kernels. one_block agrees."""
+    assert tc.any_p_plan(p) == plan
+    assert tc.one_block(p) == (plan[0] == "one_block")
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile_size", [8, 12, 32])
+@pytest.mark.parametrize("tile_size", [8, 12, 24, 32, 48])
 def test_kernel_tile_sizes_on_card(tile_size):
     """Tile sizes other than 16 on the card: P = 64 on the one-block
-    kernels, 144 and 1024 on the any-P kernels. The forward within the
-    plain version's tolerance at the default cutoff; without it (so that
-    no chunk skip depends on how the pixels are grouped) bit-equal to the
-    one-block kernel on the same pixels cut into 16x16-sized tiles; the
-    backward within its tolerance, with and without d_dirs."""
+    kernels, 144, 576 and 1024 on the cluster kernels, 2304 on the
+    group-loop kernels, each launch counted under its path. The forward
+    within the plain version's tolerance at the default cutoff; without it
+    (so that no chunk skip depends on how the pixels are grouped) bit-equal
+    to the one-block kernel on the same pixels cut into 16x16-sized tiles;
+    the backward within its tolerance, with and without d_dirs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
     _, _, tpk, tdirs = pose_packets(1500, 0.8, 256, tile_size=tile_size)
@@ -317,13 +341,12 @@ def test_kernel_tile_sizes_on_card(tile_size):
     packets = {key: v.to(dev) for key, v in tpk.items()}
     dirs = tdirs.to(dev)
     p = tile_size * tile_size
+    path = tc.any_p_plan(p)[0]
     settings = RenderSettings()
-    before = (tc.LAUNCHES, tc.ANY_LAUNCHES)
+    before = _launches(bwd=False)
     got = tc.tile_composite(packets, dirs, settings)
     torch.cuda.synchronize()
-    any_p = p % 32 != 0 or p > 256
-    assert (tc.LAUNCHES, tc.ANY_LAUNCHES) == (before[0] + (not any_p),
-                                              before[1] + any_p)
+    assert _launches(bwd=False) == dict(before, **{path: before[path] + 1})
     want = tc.tile_composite_plain(packets, dirs, settings)
     for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
         assert_close(g, w, 1e-3, 3e-4, err_msg=name)
@@ -340,8 +363,11 @@ def test_kernel_tile_sizes_on_card(tile_size):
                 for i, x in enumerate(want))
     want = tc.tile_composite_bwd_plain(packets, dirs, cot, full)
     for want_dirs in (False, True):
+        before = _launches(bwd=True)
         got = tc.tile_composite_bwd(packets, dirs, cot, full, want_dirs)
         torch.cuda.synchronize()
+        assert _launches(bwd=True) == dict(before,
+                                           **{path: before[path] + 1})
         for g, w, name in zip(got[:2], want[:2], ("d_geom", "d_featsT")):
             assert_close(g, w, 2e-3, 2e-4, err_msg=name)
     assert torch.isfinite(got[2]).all()
