@@ -195,7 +195,18 @@ first use. Then:
            fit_scene(mesh=) against fit_scene, 8 steps with deterministic
            kernels, equal losses; (e) (a)'s slab composite at K = 160
            (two launches of the top-K kernel) against the plain top-K on
-           256 rays. The group is destroyed at the end.
+           256 rays; (f) tools/scaling.run_ray_dp on the mesh at
+           benchmarks/scaling.py's sizes (5000 Gaussians, 4096 rays, 3
+           timed calls), bit-equal to render_radiance_dense and against
+           the plain top-K on 256 rays, then the tool itself as a
+           subprocess (a world of one rank on the card, the ring's "needs
+           2 ranks" line); (g) tools/spatial_chip at
+           benchmarks/spatial_chip.py's sizes (slab 0 of 8 of
+           surface_scene(2M), 4096 rays dense, 65536 on its grid): the
+           slab features against the plain top-K on 256 rays, the slab
+           march against march_plain on 16384 rays with 6b's gates and
+           the tool's own trace against a launch on those rays
+           (SLAB_EXACT_ATOL). The group is destroyed at the end.
   phase 12 the downstream loop (pathtracer_gaussiansplatting_tpu_torch/
            tools/downstream_loop.py): (a) run_downstream at
            DOWNSTREAM.json's config (surface_scene(50k), 12 poses x 32 spp
@@ -3830,6 +3841,12 @@ RING_RTOL, RING_ATOL = 1e-5, 1e-6
 # transmittance), so the ring equals the single-device march within this.
 SLAB_EXACT_ATOL = 1e-6
 FIT_STEPS_11 = 8
+# 11f: benchmarks/scaling.py's main defaults (n_gauss, rays_per_device,
+# iters). 11g runs tools/spatial_chip at its defaults, which are
+# benchmarks/spatial_chip.py's, and holds its march on the first
+# SPATIAL_CHIP_GRID_SUBSET rays to march_plain.
+SCALE_N, SCALE_RAYS, SCALE_ITERS = 5000, 4096, 3
+SPATIAL_CHIP_GRID_SUBSET = 16384
 # Losses of fit_scene(mesh=) against fit_scene at world size 1, both with
 # deterministic kernels: the all-reduce over one rank changes nothing.
 FIT_LOSS_RTOL = 1e-6
@@ -4322,6 +4339,145 @@ def sharded_renderers(dt, mesh, dev, card) -> dict:
     return dict(launches=launches + fit_launches)
 
 
+def scaling_checks(dt, mesh, dev, card) -> dict:
+    """11f: tools/scaling.run_ray_dp on phase 11's (1, 1) mesh at the
+    reference's sizes, bit-equal to render_radiance_dense (11d's gate) and
+    against the plain top-K on SPATIAL_SUBSET rays; then ``python -m
+    ...tools.scaling`` as a user runs it (a world of one rank a card)."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import Rays
+    from pathtracer_gaussiansplatting_tpu_torch.render.reference import (
+        render_radiance_dense,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools import scaling
+
+    scene = scaling.scaling_scene(SCALE_N, dev)
+    rays = scaling.scaling_rays(SCALE_RAYS, 1, dev)
+    settings = scaling.SETTINGS
+    dt.TOPK_LAUNCHES = 0
+    res = scaling.run_ray_dp(mesh, scene, rays, settings, SCALE_ITERS)
+    launches = dt.TOPK_LAUNCHES
+    check(launches == SCALE_ITERS + 1, f"11f: dense_topk launched "
+          f"{launches} times, not {SCALE_ITERS + 1} (a warm-up and "
+          f"{SCALE_ITERS} timed calls)")
+    sub = Rays(rays.origins[:SPATIAL_SUBSET], rays.directions[:SPATIAL_SUBSET])
+    with torch.no_grad():
+        want = render_radiance_dense(scene, rays, settings)
+        with PlainTopK(dt):
+            plain = render_radiance_dense(scene, sub, settings)
+    check(torch.equal(res["image"], want), "11f: run_ray_dp not bit-equal "
+          "to render_radiance_dense")
+    err = compare(res["image"][:SPATIAL_SUBSET], plain,
+                  "11f run_ray_dp vs plain top-K", rtol=RING_RTOL,
+                  atol=RING_ATOL)
+    log(f"phase 11f: tools/scaling.run_ray_dp on the (1, 1) mesh, "
+        f"random_cloud({SCALE_N}, seed 13, spread 1.2), {SCALE_RAYS} rays, "
+        f"K=32: {res['seconds'] * 1e3:.3f} ms a call (host clock between "
+        f"fences, {SCALE_ITERS} calls after a warm-up), "
+        f"{res['rays_per_s']:.0f} rays/s; bit-equal to "
+        f"render_radiance_dense; vs plain top-K on {SPATIAL_SUBSET} rays max "
+        f"abs err {err:.3e} (rtol {RING_RTOL}, atol {RING_ATOL}); dense_topk "
+        f"launches {launches} ({card})")
+    cmd = [sys.executable, "-m",
+           "pathtracer_gaussiansplatting_tpu_torch.tools.scaling"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    for line in (proc.stdout + proc.stderr).splitlines()[-20:]:
+        log("  11f| " + line)
+    check(proc.returncode == 0, f"11f: the tool exited {proc.returncode}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    ran = {ln["devices"]: ln for ln in lines
+           if ln.get("mode") == "ray-dp" and "rays_per_s" in ln}
+    ring = [ln for ln in lines if ln.get("mode") == "gauss-ring"]
+    n_cards = torch.cuda.device_count()
+    check(set(ran) == {nd for nd in scaling.WORLD_SIZES if nd <= n_cards}
+          and all(ln["rays_per_s"] > 0 for ln in ran.values()),
+          f"11f: the tool's ray-dp lines {lines}")
+    check(len(ring) == 1 and (
+        ring[0].get("functional_ok") is True if n_cards >= 2 else
+        "needs 2 ranks" in ring[0].get("skipped", "")),
+        f"11f: the tool's ring line {ring}")
+    check("efficiencies" in lines[-1], "11f: no summary line")
+    log(f"phase 11f: python {' '.join(cmd[1:])} (no --device): exit 0 in "
+        f"{wall:.1f} s of wall (a new process and one spawned rank); "
+        f"ray-dp at nd=1 {ran[1]['rays_per_s']} rays/s; the ring: "
+        f"{json.dumps(ring[0])} ({card})")
+    return dict(launches=launches, rays_per_s=res["rays_per_s"],
+                tool_rays_per_s=ran[1]["rays_per_s"])
+
+
+def spatial_chip_checks(dt, gm, gt, dev, card) -> dict:
+    """11g: tools/spatial_chip at benchmarks/spatial_chip.py's sizes: the
+    dense slab step's features against the plain top-K on SPATIAL_SUBSET
+    rays (11a's gate), the grid slab's march on its first
+    SPATIAL_CHIP_GRID_SUBSET rays against march_plain (6b's gates) and
+    the tool's own trace there against a launch on those rays alone
+    (11c's SLAB_EXACT_ATOL: a ray's march depends on no other ray)."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import Rays
+    from pathtracer_gaussiansplatting_tpu_torch.parallel import spatial
+    from pathtracer_gaussiansplatting_tpu_torch.tools import spatial_chip
+
+    n_slabs = spatial_chip.SLABS
+    t0 = time.perf_counter()
+    step = spatial_chip.slab_step(n_slabs=n_slabs, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    dt.TOPK_LAUNCHES = gm.TRACE_LAUNCHES = 0
+    res = spatial_chip.measure(step, n_slabs)
+    launches = (dt.TOPK_LAUNCHES, gm.TRACE_LAUNCHES)
+    calls = spatial_chip.ITERS + 1
+    check(launches == (2 * calls, calls), f"11g: launches (dense_topk, "
+          f"grid_trace) {launches}, not {(2 * calls, calls)}")
+    n = SPATIAL_SUBSET
+    with torch.no_grad(), PlainTopK(dt):
+        feats, trans = spatial._slab_interaction_feats(
+            step.block, step.origins[:n], step.dirs[:n], step.axis,
+            step.settings, step.table)
+    err_f = compare(step.feats[:n], feats, "11g slab features vs plain "
+                    "top-K", rtol=RING_RTOL, atol=RING_ATOL)
+    err_t = compare(step.trans[:n], trans, "11g slab trans vs plain top-K",
+                    rtol=RING_RTOL, atol=RING_ATOL)
+    g = SPATIAL_CHIP_GRID_SUBSET
+    og, dg = step.origins_grid[:g], step.dirs_grid[:g]
+    steps = 128  # trace_grid's default, the tool's
+    with torch.no_grad():
+        got = gt.march(step.accel, og, dg, step.settings, steps)
+        want = gt.march_plain(step.accel, og, dg, step.settings, steps)
+        torch.cuda.synchronize()
+        gates = grid_gates("11g slab march", got, want, True)
+        mine = gt.interaction_from_sums(got[0], got[1], og, dg,
+                                        step.settings)
+    exact = max(compare(step.trace[k][:g], v, f"11g the tool's trace {k} "
+                        "vs a launch on its first rays", rtol=0.0,
+                        atol=SLAB_EXACT_ATOL)
+                for k, v in mine.items() if k != "hit")
+    check(torch.equal(step.trace["hit"][:g], mine["hit"]),
+          "11g: hit differs")
+    out = {k: v for k, v in res.items() if k != "step"}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "spatial_chip.json"), "w") as fh:
+        json.dump(out, fh, indent=1)
+    log(f"phase 11g: {json.dumps(out)}")
+    log(f"phase 11g: tools/spatial_chip, slab 0 of {n_slabs} of "
+        f"surface_scene({spatial_chip.N}) ({step.block.num_gaussians} "
+        f"Gaussians; set-up "
+        f"{setup_s:.1f} s, the grids' build included): table build "
+        f"{res['table_build_ms']:.3f} ms, slab step "
+        f"{res['slab_compute_ms']:.3f} ms ({step.origins.shape[0]} rays), "
+        f"grid slab march {res['grid_slab']['slab_march_ms']:.3f} ms "
+        f"({step.origins_grid.shape[0]} rays), host clock after a warm-up; "
+        f"features / trans vs plain top-K on {n} rays max abs err "
+        f"{err_f:.3e} / {err_t:.3e} (rtol {RING_RTOL}, atol {RING_ATOL}); "
+        f"march vs march_plain on {g} rays: {gates['text']}; the tool's "
+        f"trace vs a launch on those rays {exact:.3e} (atol "
+        f"{SLAB_EXACT_ATOL}); launches (dense_topk, grid_trace) {launches}; "
+        f"comm projected at the assumed {spatial_chip.LINK_GBPS:.0f} GB/s "
+        f"(not measured) ({card})")
+    return dict(launches=launches, result=out)
+
+
 def phase11(tc, dt, gm, gt, pt_settings, dense_ms, dev, card) -> dict:
     """Phase 11: the mesh, the slab ring and the sharded renderers on a
     world of one (NCCL); returns the path's launches by kernel."""
@@ -4337,13 +4493,20 @@ def phase11(tc, dt, gm, gt, pt_settings, dense_ms, dev, card) -> dict:
             pt_settings, rr_start_depth=2, opaque_depth=3), dev, card)
         c = grid_slab_checks(gm, gt, mesh, pt_settings, dev, card)
         d = sharded_renderers(dt, mesh, dev, card)
+        t_fg = time.perf_counter()
+        f = scaling_checks(dt, mesh, dev, card)
+        t_g = time.perf_counter()
+        g = spatial_chip_checks(dt, gm, gt, dev, card)
+        log(f"phase 11f: {t_g - t_fg:.1f} s; 11g: "
+            f"{time.perf_counter() - t_g:.1f} s ({card})")
     finally:
         dist.destroy_process_group()
     log(f"phase 11: {time.perf_counter() - t11:.1f} s")
     return dict(fwd=b["launches"][0],
                 topk=a["launches"] + a["launches_l"] + b["launches"][1]
-                + d["launches"],
-                dense_vis=b["launches"][2], trace=c["launches"][0],
+                + d["launches"] + f["launches"] + g["launches"][0],
+                dense_vis=b["launches"][2],
+                trace=c["launches"][0] + g["launches"][1],
                 vis=c["launches"][1], rng=b["launches"][3],
                 topk_rev=a["rev"])
 
