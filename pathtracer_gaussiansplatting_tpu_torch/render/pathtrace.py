@@ -21,16 +21,22 @@ the batch a ray is traced in is part of the result, as in the reference.
 
 The loop takes no host sync: light tables, fluxes, the alive mask and the
 last pdf stay tensors; only settings and the lights' count are Python
-branches. ``torch.profiler`` sees each bounce's random draws as the range
-``ptgs.rng`` and its shading (emission, NEE, BSDF sampling) as
-``ptgs.shade``.
+branches.
+
+While a ``torch.profiler`` records (``utils/profiling.span``), each
+bounce's random draws are the range ``ptgs.rng`` and its shading
+(emission, MIS, NEE, scatter, roulette) ``ptgs.shade``; inside the
+shading, the light samples (``lights.sample_emissive``,
+``sample_punctual``) are ``ptgs.lights`` and the shadow rays
+(``backend.visibility``) ``ptgs.vis``. The counters ``rays_shaded`` (R at
+each bounce d >= 1) and ``rays_alive`` (the alive mask's sum there) give
+the share of the masked shading's rays that are alive.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-from torch.profiler import record_function
 
 from pathtracer_gaussiansplatting_tpu_torch.core import rng as rng_mod
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
@@ -47,6 +53,9 @@ from pathtracer_gaussiansplatting_tpu_torch.render.pipeline import (
 )
 from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
     prepare_tiles, render_prepared, untile_image,
+)
+from pathtracer_gaussiansplatting_tpu_torch.utils.profiling import (
+    count, span,
 )
 
 
@@ -67,7 +76,7 @@ def _bounce_uniforms(dkey: torch.Tensor, r: int, device, settings,
                      d: int) -> dict:
     """The uniforms bounce d uses, by name: (R, 1) or (R, 2) each."""
     dims = bounce_dims(settings, d)
-    with record_function("ptgs.rng"):
+    with span("ptgs.rng"):
         return rng_mod.bounce_uniforms(dkey, r, dims, device)
 
 
@@ -92,7 +101,8 @@ def _nee(u: dict, scene: GaussianScene, tables: lights_mod.LightTables,
     eps = settings.shadow_eps
 
     # Emissive surfels.
-    em = lights_mod.sample_emissive(u_sel, u["disk"], scene, tables)
+    with span("ptgs.lights"):
+        em = lights_mod.sample_emissive(u_sel, u["disk"], scene, tables)
     to_l = em["position"] - pos
     dist_sq = torch.clamp_min(torch.sum(to_l * to_l, dim=-1), 1e-4)
     dist = torch.sqrt(dist_sq)
@@ -111,8 +121,9 @@ def _nee(u: dict, scene: GaussianScene, tables: lights_mod.LightTables,
         active_e = active_e & alive
     if use_nee is not None:
         active_e = active_e & use_nee
-    vis, frozen = backend.visibility(pos + n * eps, l_dir, dist - 2 * eps,
-                                     active_e)
+    with span("ptgs.vis"):
+        vis, frozen = backend.visibility(pos + n * eps, l_dir,
+                                         dist - 2 * eps, active_e)
     e_contrib = brdf * em["emission"] \
         / torch.clamp_min(pdf_nee, 1e-10)[:, None]
     e_contrib = e_contrib * (mis * vis)[:, None] * settings.ambient[3]
@@ -124,15 +135,18 @@ def _nee(u: dict, scene: GaussianScene, tables: lights_mod.LightTables,
 
     # Punctual lights.
     if punctual is not None and punctual.num_lights > 0:
-        pl = lights_mod.sample_punctual(u_sel, punctual, tables, pos)
+        with span("ptgs.lights"):
+            pl = lights_mod.sample_punctual(u_sel, punctual, tables, pos)
         n_dot_lp = torch.sum(n * pl["direction"], dim=-1)
         brdf_p = bsdf_mod.eval_bsdf(n, view, pl["direction"], albedo,
                                     metallic, rough)
         active_p = (n_dot_lp > 1e-3) & ~take_emissive
         if alive is not None:
             active_p = active_p & alive
-        vis_p, frozen_p = backend.visibility(
-            pos + n * eps, pl["direction"], pl["dist"] - 2 * eps, active_p)
+        with span("ptgs.vis"):
+            vis_p, frozen_p = backend.visibility(
+                pos + n * eps, pl["direction"], pl["dist"] - 2 * eps,
+                active_p)
         frozen = frozen + frozen_p
         p_contrib = brdf_p * pl["radiance"] \
             * (vis_p * pl["inv_prob"])[:, None]
@@ -193,7 +207,10 @@ def pathtrace(scene: GaussianScene, rays: Rays, settings: RenderSettings,
                                   active=None if d == 0 else alive)
             if "frozen_alive" in inter:
                 frozen_total = frozen_total + inter["frozen_alive"]
-        with record_function("ptgs.shade"):
+        if d >= 1:
+            count("rays_shaded", r)
+            count("rays_alive", alive)
+        with span("ptgs.shade"):
             alpha = inter["alpha_acc"]
             # The escaping fraction sees the sky.
             radiance = radiance + torch.where(

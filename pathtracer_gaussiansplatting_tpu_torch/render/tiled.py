@@ -38,6 +38,7 @@ from pathtracer_gaussiansplatting_tpu_torch.ops.composite import (
 from pathtracer_gaussiansplatting_tpu_torch.ops.safe_math import (
     safe_normalize,
 )
+from pathtracer_gaussiansplatting_tpu_torch.utils.profiling import span
 
 ALL_OUTPUTS = ("color", "feats", "alpha_acc", "depth")
 
@@ -127,7 +128,8 @@ def prepare_tiles(scene: GaussianScene, camera: Camera,
 
     Runs once per pose; :func:`render_prepared` then runs per sample.
     Returns the packets (geom, featsT, count) plus the binning stats as
-    ``stat_*`` scalar tensors.
+    ``stat_*`` scalar tensors. While a profiler records, the work is the
+    range ``ptgs.bin``.
     """
     if config.alpha_min != settings.alpha_min:
         # The footprint shrink assumes the compositor kills alpha below the
@@ -135,19 +137,20 @@ def prepare_tiles(scene: GaussianScene, camera: Camera,
         raise ValueError(
             f"BinningConfig.alpha_min ({config.alpha_min}) must match "
             f"RenderSettings.alpha_min ({settings.alpha_min})")
-    tiles_x, tiles_y = num_tiles(camera, config)
-    # Binning yields indices, masks and stats: nothing to differentiate.
-    with torch.no_grad():
-        proj = project_gaussians(scene, camera, config)
-        tile_idx, tile_mask, _, stats = bin_gaussians(proj, tiles_x,
-                                                      tiles_y, config)
-    origin = camera.c2w[:3, 3]
-    feats_all = _packet_features(scene, origin, settings)
-    packets = build_tile_packets(scene, feats_all, origin, tile_idx,
-                                 tile_mask)
-    for k, v in stats.items():
-        packets["stat_" + k] = v
-    return packets
+    with span("ptgs.bin"):
+        tiles_x, tiles_y = num_tiles(camera, config)
+        # Binning yields indices, masks and stats: nothing to differentiate.
+        with torch.no_grad():
+            proj = project_gaussians(scene, camera, config)
+            tile_idx, tile_mask, _, stats = bin_gaussians(proj, tiles_x,
+                                                          tiles_y, config)
+        origin = camera.c2w[:3, 3]
+        feats_all = _packet_features(scene, origin, settings)
+        packets = build_tile_packets(scene, feats_all, origin, tile_idx,
+                                     tile_mask)
+        for k, v in stats.items():
+            packets["stat_" + k] = v
+        return packets
 
 
 def render_prepared(packets, camera: Camera,

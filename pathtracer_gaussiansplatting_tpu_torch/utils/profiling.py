@@ -1,9 +1,15 @@
-"""Profiling helpers: fenced timers, a rays/s meter, device memory, traces.
+"""Profiling helpers: fenced timers, device memory, traces, and the
+program's spans and counters.
 
 Counterpart of ``pathtracer_gaussiansplatting_tpu/utils/profiling.py`` on
 tensors. CUDA work is asynchronous: ``fence`` synchronizes the devices of
 the tensors it is given and pulls every leaf's sum to the host, so a
 host-clock time taken after it covers the work that produced them.
+
+``span`` and ``count`` record only while a ``torch.profiler`` records:
+spans are the profiler's own user annotations (``ptgs.<layer>``, on the
+clock of its device trace), counters sum on the device and are read by
+``counts``. With no profiler each costs one check.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from pathtracer_gaussiansplatting_tpu_torch.core.device import resolve_device
 
@@ -58,24 +65,42 @@ def device_timer(label: str = "", result_holder: Optional[dict] = None):
         result_holder[label or "elapsed"] = dt
 
 
-class RaysPerSecondMeter:
-    """Streaming rays/s counter for render loops."""
+# Counters of ``count``: name -> an int or a 0-dim device tensor.
+_COUNTS: dict = {}
 
-    def __init__(self):
-        self.rays = 0
-        self.t0 = time.perf_counter()
 
-    def add(self, num_rays: int):
-        self.rays += num_rays
+def _recording() -> bool:
+    return torch._C._autograd._profiler_enabled()
 
-    @property
-    def rays_per_s(self) -> float:
-        dt = max(time.perf_counter() - self.t0, 1e-9)
-        return self.rays / dt
 
-    def reset(self):
-        self.rays = 0
-        self.t0 = time.perf_counter()
+def span(name: str):
+    """The profiler range ``name`` around a block while a profiler records,
+    else a no-op (an entered ``record_function`` costs some microseconds
+    whether or not anything records)."""
+    if _recording():
+        return record_function(name)
+    return contextlib.nullcontext()
+
+
+def count(name: str, value) -> None:
+    """Adds ``value`` to the counter ``name`` while a profiler records: an
+    int, or a tensor whose elements are summed on its device (no host
+    sync until :func:`counts`)."""
+    if not _recording():
+        return
+    if isinstance(value, torch.Tensor):
+        value = value.sum()
+    prev = _COUNTS.get(name)
+    _COUNTS[name] = value if prev is None else prev + value
+
+
+def counts() -> dict:
+    """{name: int} of every counter since :func:`reset_counts`."""
+    return {k: int(v) for k, v in _COUNTS.items()}
+
+
+def reset_counts() -> None:
+    _COUNTS.clear()
 
 
 def device_memory_stats(print_out: bool = False, device=None) -> list:

@@ -80,17 +80,6 @@ def test_metrics_logger_matches(tmp_path, caplog):
     assert logger is tlogging.get_logger() and len(logger.handlers) == 1
 
 
-def test_rays_meter_matches():
-    meters = jprof.RaysPerSecondMeter(), tprof.RaysPerSecondMeter()
-    for m in meters:
-        for n in (1000, 2500, 7):
-            m.add(n)
-    assert meters[0].rays == meters[1].rays == 3507
-    assert all(m.rays_per_s > 0 for m in meters)
-    meters[1].reset()
-    assert meters[1].rays == 0
-
-
 def test_fence_matches():
     """The float sum of every leaf (tensors and a numpy scalar) of nested
     dicts, lists, tuples and scenes, as the JAX fence returns it."""
