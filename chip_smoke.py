@@ -29,11 +29,15 @@ first use. Then:
            cutoff, exact zeros on the chunks it skips; d_geom and d_featsT
            the same bits either way; both launches timed, and the share of
            (warp, slot) pairs with a live pixel counted, with both
-           bounds (the yardstick and the function's); (b)
-           fit_scene_tiled on the headline cloud, 800x800, K=256, 8 steps
-           over two poses (timed, one step profiled and its device time
-           split into the backward kernel, the packet gather's backward and
-           the rest), and a color-only fit at the same size that must
+           bounds (the yardstick and the function's); the packet
+           gather's backward (csrc/packet_gather.cu) bit-equal to its plain
+           version, index_put_ with accumulate, at phase 2's packets,
+           timed beside it, its bound and index_put_ on the live slots
+           alone; (b) fit_scene_tiled on the headline cloud, 800x800,
+           K=256, 8 steps over two poses (timed, one launch of each kernel
+           a step, one step profiled and its device time split into the
+           backward kernel, the packet gather's backward and the rest),
+           and a color-only fit at the same size that must
            learn; (c) the training step on the card against the CPU at
            phase 1's small size;
   phase 5  path tracing on the dense backend (csrc/dense_topk.cu,
@@ -336,6 +340,17 @@ GRID_VIS_REPLACES = ("pathtracer_gaussiansplatting_tpu/render/"
 VARIANT_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
                   "tile_composite_variants.cu")
 VARIANT_REPLACES = "benchmarks/variant_kernel.py:58"
+GATHER_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
+                 "packet_gather.cu")
+GATHER_REPLACES = ("pathtracer_gaussiansplatting_tpu/kernels/"
+                   "tile_composite.py:163")
+# A training step's device split: the tile kernels and the packet gather's
+# backward by name, and the rest of the gather's backward (its counts'
+# zeros and the cumsum) by its autograd node's range.
+TRAIN_PROFILE_NAMES = dict(tile_composite_bwd="tile_composite_bwd",
+                           tile_composite_fwd="tile_composite_fwd",
+                           gather_bwd="packet_indexing_backward")
+TRAIN_OP_RANGES = dict(gather_glue="PacketGatherBackward")
 K5_SOURCE = "pathtracer_gaussiansplatting_tpu_torch/csrc/threefry.cu"
 K5_REPLACES = "pathtracer_gaussiansplatting_tpu/core/rng.py:47"
 # K5's work a uniform: 78 INT32 operations (the two key adds; 20 rounds of
@@ -723,6 +738,152 @@ def bwd_check(tc, packets, dirs, settings, name: str, card: str,
                 bound=bnd["bwd"])
 
 
+def gather_bound(idx, mask, n: int, cols: int) -> dict:
+    """The packet gather backward's bound by bytes: the 4 bytes of each of
+    a live slot's ``cols`` values read, d_table written once, and the
+    integer passes (idx and mask read twice, a live slot's count, place and
+    id, the counts' zeros and cumsum, the segment ends). Beside it, not a
+    bound: the same with a 32-byte sector charged for every value, what the
+    (T, rows, K) layout costs where no two reads share a sector. Flops: one
+    add a live slot's value."""
+    live, slots = int(mask.sum()), idx.numel()
+    ints = 10 * slots + 16 * live + 20 * n
+    flops = live * cols
+    out = {}
+    for key, per_value in (("bound", 4), ("sector", 32)):
+        nbytes = live * cols * per_value + n * cols * 4 + ints
+        out[key] = max(flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) \
+            * 1e3
+        out[key + "_bytes"] = nbytes
+    return dict(bound_ms=out["bound"], bound_by="bytes", bound_flops=flops,
+                bound_bytes=out["bound_bytes"], sector_ms=out["sector"],
+                sector_bytes=out["sector_bytes"], live=live, slots=slots)
+
+
+def gather_bwd_check(tc, scene, cam, settings, cfg, packets, dirs,
+                     card: str, phase: str = "4a") -> dict:
+    """The packet gather's backward (csrc/packet_gather.cu) against its
+    plain version, index_put_ with accumulate, at the given packets (their
+    binning done again): bit-equal on cotangents from the tile backward and
+    on seeded ones zero at masked slots, the same bits twice, zeros for
+    Gaussians in no live slot. Timed beside the plain version (the library
+    call) and its bound; the kernels' own time from one profiled call; and
+    index_put_ alone on the same rows, on the live slots alone and with the
+    masked slots' index spread over the Gaussians: the masked slots' pile
+    on Gaussian 0."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
+        bin_gaussians, num_tiles, project_gaussians,
+    )
+
+    with torch.no_grad():
+        idx, mask, _, _ = bin_gaussians(project_gaussians(scene, cam, cfg),
+                                        *num_tiles(cam, cfg), cfg)
+    dev = dirs.device
+    n = scene.means.shape[0]
+    t_total, p, _ = dirs.shape
+    check(torch.equal(tc.gather_packets(torch.zeros((n, 1 + tc.ROW_OPAC
+                                                     + tc.FEATURE_DIM),
+                                                    device=dev), idx,
+                                        mask)[2], packets["count"]),
+          f"phase {phase}: the binning again gives other tile counts")
+    rng = np.random.default_rng(19)
+
+    def normal(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    cot = (normal(t_total, p, tc.FEATURE_DIM), normal(t_total, p),
+           normal(t_total, p))
+    d_geom, d_featsT, _ = tc.tile_composite_bwd(packets, dirs, cot, settings,
+                                                False)
+    dead = ~mask[:, None, :]
+    check(bool((d_geom.masked_select(dead) == 0).all())
+          and bool((d_featsT.masked_select(dead) == 0).all()),
+          f"phase {phase}: the tile backward's gradient is not 0 at a "
+          "masked slot")
+    hit = torch.zeros(n, dtype=torch.bool, device=dev)
+    hit[idx[mask].long()] = True
+    gen = torch.Generator(device=dev).manual_seed(23)
+    seeded = tuple(torch.randn(x.shape, generator=gen, device=dev)
+                   * mask[:, None, :] for x in (d_geom, d_featsT))
+    for tag, (dg, df) in (("the tile backward's cotangents",
+                           (d_geom, d_featsT)), ("seeded cotangents", seeded)):
+        want = tc.packet_gather_bwd_plain(dg, df, idx, mask, n)
+        got = tc.packet_gather_bwd(dg, df, idx, mask, n)
+        again = tc.packet_gather_bwd(dg, df, idx, mask, n)
+        torch.cuda.synchronize()
+        diff = got != want
+        rel = (got - want).abs() / want.abs().clamp_min(1e-30)
+        check(not bool(diff.any()),
+              f"phase {phase} packet gather backward, {tag}: "
+              f"{int(diff.sum())} of {diff.numel()} values differ from the "
+              f"plain version, max rel err {float(rel.max()):.3e}")
+        check(torch.equal(got, again),
+              f"phase {phase} packet gather backward, {tag}: two launches "
+              "differ")
+        check(bool((got[~hit] == 0).all()),
+              f"phase {phase} packet gather backward, {tag}: a Gaussian in "
+              "no live slot has a nonzero gradient")
+    del got, again, want, rel, seeded
+    ms = cuda_ms(lambda: tc.packet_gather_bwd(d_geom, d_featsT, idx, mask,
+                                              n), 20)
+    library_ms = cuda_ms(lambda: tc.packet_gather_bwd_plain(
+        d_geom, d_featsT, idx, mask, n), 3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tc.packet_gather_bwd(d_geom, d_featsT, idx, mask, n)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    kern = {}
+    for e in rows:
+        m = re.search(r"packet_indexing_backward\w*", e.key)
+        if m:
+            kern[m.group(0)] = kern.get(m.group(0), 0.0) \
+                + e.self_device_time_total / 1e3
+    kern_ms = sum(kern.values())
+    all_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    cols = tc.TABLE_GEOM + tc.FEATURE_DIM
+    d_rows = torch.cat([d_geom[:, :tc.TABLE_GEOM].transpose(1, 2),
+                        d_featsT.transpose(1, 2)], -1).reshape(-1, cols)
+    flat = idx.reshape(-1).long()
+    live = mask.reshape(-1)
+    spread = torch.where(live, flat,
+                         torch.arange(len(flat), device=dev) % n)
+    live_idx, live_rows = flat[live], d_rows[live]
+    put = {name: cuda_ms(lambda i=i, r=r: d_rows.new_zeros((n, cols))
+                         .index_put_((i,), r, accumulate=True), 3)
+           for name, i, r in (("every slot", flat, d_rows),
+                              ("live slots alone", live_idx, live_rows),
+                              ("masked slots spread", spread, d_rows))}
+    bnd = gather_bound(idx, mask, n, cols)
+    zero_hits = int((flat[~live] == 0).sum())
+    log(f"phase {phase} packet gather backward: T={t_total}, K={idx.shape[1]}"
+        f", N={n}: bit-equal to the plain version on the tile backward's and "
+        f"on seeded cotangents, the same bits twice, zeros for the "
+        f"{int((~hit).sum())} Gaussians in no live slot; live slots "
+        f"{bnd['live']} of {bnd['slots']} = {bnd['live'] / bnd['slots']:.4f}"
+        f", masked slots on Gaussian 0: {zero_hits}")
+    log(f"phase {phase} packet gather backward: {ms:.4f} ms (CUDA events), "
+        f"its kernels {kern_ms:.4f} ms ("
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(kern.items()))
+        + f") of {all_ms:.4f} ms of device time in "
+        f"one profiled call; the plain version (the library call) "
+        f"{library_ms:.3f} ms; index_put_ alone: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in put.items())
+        + f" ({card})")
+    log(f"phase {phase} packet gather backward: bound {bnd['bound_ms']:.4f} "
+        f"ms by bytes ({bnd['bound_bytes']:.4e} B, 4 a value) = "
+        f"{bnd['bound_ms'] / ms:.1%} of its rate; a sector a value (no two "
+        f"reads sharing one) {bnd['sector_ms']:.4f} ms "
+        f"({bnd['sector_bytes']:.4e} B) = {bnd['sector_ms'] / ms:.1%}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=library_ms,
+                library_ms=library_ms, kernels_ms=kern_ms, put_ms=put,
+                bound=bnd)
+
+
 def noised_start(scene, noise: float, seed: int = 5):
     """The scene with sh_coeffs + noise * N(0, 1) (numpy-seeded)."""
     z = np.random.default_rng(seed).normal(size=scene.sh_coeffs.shape)
@@ -751,11 +912,12 @@ def fit_run(tc, scene, cams, settings, cfg, steps: int, lr: float,
 
     def progress(i, loss):
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), tc.LAUNCHES, tc.BWD_LAUNCHES))
+        marks.append((time.perf_counter(), tc.LAUNCHES, tc.BWD_LAUNCHES,
+                      tc.GATHER_BWD_LAUNCHES))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tc.LAUNCHES = tc.BWD_LAUNCHES = 0
+    tc.LAUNCHES = tc.BWD_LAUNCHES = tc.GATHER_BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     _, losses, final = train.fit_scene_tiled(
         start, cams, targets, settings, steps=steps, lr=lr, config=cfg,
@@ -769,11 +931,11 @@ def fit_run(tc, scene, cams, settings, cfg, steps: int, lr: float,
 
 
 def check_fit_ran(tr: dict) -> None:
-    """One forward and one backward kernel launch per step, finite
-    losses."""
-    check(tr["counts"] == [(i + 1, i + 1) for i in range(tr["steps"])],
-          f"training launches per step (fwd, bwd) {tr['counts']}, not one "
-          "each")
+    """One forward, one backward and one packet gather backward launch per
+    step, finite losses."""
+    check(tr["counts"] == [(i + 1,) * 3 for i in range(tr["steps"])],
+          f"training launches per step (fwd, bwd, gather bwd) "
+          f"{tr['counts']}, not one each")
     check(bool(np.isfinite(tr["losses"]).all()),
           f"non-finite losses {tr['losses']}")
 
@@ -831,7 +993,8 @@ def log_fit(tag: str, tr: dict, res: int, card: str) -> float:
         f"leaf trained: losses "
         f"{', '.join(f'{x:.6f}' for x in tr['losses'])}; PSNR pose 0 "
         f"{tr['psnr0']:.3f} -> {tr['final']['psnr']:.3f} dB, SSIM "
-        f"{tr['final']['ssim']:.4f}; launches (fwd, bwd) after the last "
+        f"{tr['final']['ssim']:.4f}; launches (fwd, bwd, gather bwd) after "
+        f"the last "
         f"step {tr['counts'][-1]} ({card})")
     log(f"{tag}: step ms {', '.join(f'{m:.2f}' for m in tr['step_ms'])} "
         f"(median of 2-{tr['steps']} {med:.2f}; pose 0 {pose0:.2f}, pose 1 "
@@ -2958,6 +3121,7 @@ def reset_counts(tc, gm, dt) -> None:
 
     tc.LAUNCHES = tc.BWD_LAUNCHES = tc.ANY_LAUNCHES = tc.BWD_ANY_LAUNCHES = 0
     tc.ANY_GROUP_LAUNCHES = tc.BWD_ANY_GROUP_LAUNCHES = 0
+    tc.GATHER_BWD_LAUNCHES = 0
     gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
     gm.TRACE_WIDE_LAUNCHES = gm.VIS_WIDE_LAUNCHES = 0
     dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
@@ -3502,7 +3666,8 @@ def bench_run(cli, tc, gm, dt, card) -> dict:
     t0 = time.perf_counter()
     lines = run_cli(cli, ["bench"])
     wall = time.perf_counter() - t0
-    counts = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES)
+    counts = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES,
+                  gather_bwd=tc.GATHER_BWD_LAUNCHES)
     res = json.loads(lines[-1])
     want_keys = [bench.REPLACED_KEYS.get(k, k) for k in
                  bench.reference_bench(os.path.join(ROOT, "bench.py"))[0]]
@@ -4585,7 +4750,8 @@ def downstream_run(ds, capture, train, tc, gm, gt, dt, dev, card) -> dict:
             res = ds.run_downstream(out, device=dev, progress=progress, **c)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-        launches = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES)
+        launches = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES,
+                        gather_bwd=tc.GATHER_BWD_LAUNCHES)
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         pc = load_point_cloud_ply(os.path.join(out, "points3d.ply"))
         cams, imgs = ds.load_split(out, "train", dev)
@@ -4686,15 +4852,14 @@ def downstream_run(ds, capture, train, tc, gm, gt, dt, dev, card) -> dict:
     split = profile_split(
         "phase12_fit_step", lambda: step(params, opt_state, cams[0],
                                          imgs[0]),
-        res["fit_step_ms"], card,
-        names=dict(tile_composite_bwd="tile_composite_bwd",
-                   tile_composite_fwd="tile_composite_fwd"),
-        op_ranges=dict(gather_bwd="IndexBackward0"))
+        res["fit_step_ms"], card, names=TRAIN_PROFILE_NAMES,
+        op_ranges=TRAIN_OP_RANGES)
     log(f"phase 12a: one fit step {sum(split.values()):.3f} ms of device "
         f"time over {res['fit_step_ms']:.3f} ms (the median step) = "
         f"{sum(split.values()) / res['fit_step_ms']:.1%} busy: the backward "
         f"kernel {split['tile_composite_bwd']:.3f} ms, the packet gather's "
-        f"backward {split['gather_bwd']:.3f} ms, the rest "
+        f"backward {split['gather_bwd']:.3f} ms (its kernels; the zeros and "
+        f"cumsum {split['gather_glue']:.3f} ms), the rest "
         f"{split['rest'] + split['tile_composite_fwd']:.3f} ms ({card})")
     return dict(launches, fwd_err=fwd_err, bwd_err=bwd["max_abs_err"])
 
@@ -5658,6 +5823,8 @@ def main() -> int:
     # (a) the backward kernel against its plain version at both sizes.
     bwd = bwd_check(tc, packets, dirs_t, settings, "headline", card)
     bwd_pt = bwd_check(tc, pt_packets, pt_dirs, pt_settings, "1080p", card)
+    gather = gather_bwd_check(tc, scene, cam, settings, cfg, packets, dirs_t,
+                              card)
     del packets, pt_packets, pt_dirs, pt_scene
 
     # (b) training at full width: 1M Gaussians, 800x800, K=256, two poses.
@@ -5676,12 +5843,10 @@ def main() -> int:
     opt_state = opt(params.parameters())
     step = train.make_tiled_train_step(settings, opt, config=cfg)
     # The step's device split: the backward kernel, the packet gather's
-    # backward (the kernels of autograd's IndexBackward0) and the rest.
+    # backward (its kernels, and its zeros and cumsum) and the rest.
     profile_split("phase4_train_step", lambda: step(
         params, opt_state, cams[0], tr["targets"][0]), pose0_ms, card,
-        names=dict(tile_composite_bwd="tile_composite_bwd",
-                   tile_composite_fwd="tile_composite_fwd"),
-        op_ranges=dict(gather_bwd="IndexBackward0"))
+        names=TRAIN_PROFILE_NAMES, op_ranges=TRAIN_OP_RANGES)
     del params, opt_state, tr
     # On this cloud a step of Adam on every leaf raises the loss: it moves
     # each mean by ~lr, which reorders the depth-sorted composite. The
@@ -5874,7 +6039,8 @@ def main() -> int:
                     replaces=replaces, launches=launches,
                     max_abs_err=res["max_abs_err"], ms=res["ms"],
                     plain_ms=res["plain_ms"], bound_ms=bnd["bound_ms"],
-                    bound_by=bnd["bound_by"], library_ms=None, **fn_key,
+                    bound_by=bnd["bound_by"],
+                    library_ms=extra.pop("library_ms", None), **fn_key,
                     **extra)
 
     marches = p14["grid"]["marches"]
@@ -5921,6 +6087,12 @@ def main() -> int:
               dict(max_abs_err=max(bwd["max_abs_err"],
                                    bwd_pt["max_abs_err"], p12["bwd_err"]),
                    ms=bwd["ms"], plain_ms=bwd["plain_ms"]), bwd["bound"]),
+        entry("packet_gather_bwd", GATHER_SOURCE, GATHER_REPLACES,
+              launches_p4[2] + p10["gather_bwd"] + p12["gather_bwd"],
+              gather, gather["bound"],
+              library_ms=gather["library_ms"],
+              library_call="index_put_ with accumulate (autograd's "
+              "transpose of the gather)"),
         # Times and bounds at 5a's primary chunk at K = 64; the other
         # shapes beside them.
         entry("dense_topk", TOPK_SOURCE, TOPK_REPLACES,

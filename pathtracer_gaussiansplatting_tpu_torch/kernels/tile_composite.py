@@ -28,6 +28,13 @@ tensors they run ``tile_composite_plain`` and ``tile_composite_bwd_plain``.
 There is no fallback from the card to the plain versions or from one
 kernel to another: a CUDA input either launches the planned kernel or
 raises, a cluster the card cannot schedule included.
+
+The packet gather is the autograd Function ``PacketGather``: its forward
+is the plain gather (the same PyTorch operations on every device), its
+backward on CUDA tensors the deterministic segment sum of
+``csrc/packet_gather.cu`` (:func:`packet_gather_bwd`, counted in
+``GATHER_BWD_LAUNCHES``) and on CPU tensors
+:func:`packet_gather_bwd_plain`, autograd's own transpose of the gather.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     GaussianScene, RenderSettings,
 )
 from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import rotmat_cols
+from pathtracer_gaussiansplatting_tpu_torch.utils import profiling
 
 # Geometry packet rows (geom (T, 16, K)): Q upper triangle
 # [q00, q11, q22, 2q01, 2q02, 2q12], Q (o - mu), c, opacity (0 where masked);
@@ -47,6 +55,7 @@ from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import rotmat_cols
 ROW_C = 9
 ROW_OPAC = 10
 GEOM_ROWS = 16
+TABLE_GEOM = ROW_OPAC + 1  # the gathered table's geometry columns
 FEATURE_DIM = 14  # the packet features of render.tiled._packet_features
 
 # Launches by kernel, read by chip_smoke.py: the one-block kernels, the
@@ -57,6 +66,7 @@ ANY_LAUNCHES = 0
 BWD_ANY_LAUNCHES = 0
 ANY_GROUP_LAUNCHES = 0
 BWD_ANY_GROUP_LAUNCHES = 0
+GATHER_BWD_LAUNCHES = 0  # packet gather backwards on the card (3 kernels each)
 BLOCK_PIXELS = 256  # a block's threads: one tile of up to 16x16 pixels
 MAX_CLUSTER_CTAS = 8  # the portable cluster size: tiles of up to 2048 pixels
 PLAIN_CHUNK_ELEMS = 1 << 24  # (tiles, P, K) elements per plain-version chunk
@@ -73,8 +83,19 @@ def build_tile_packets(scene: GaussianScene, feats_all: torch.Tensor,
       tables.
 
     Returns dict: geom (T, 16, K), featsT (T, F, K) and count (T,) float32,
-    1 + the index of the tile's last valid slot.
+    1 + the index of the tile's last valid slot; geom and featsT are
+    differentiable through :class:`PacketGather`.
     """
+    geom, featsT, count = PacketGather.apply(
+        packet_table(scene, feats_all, origin), tile_idx, tile_mask)
+    return dict(geom=geom, featsT=featsT, count=count)
+
+
+def packet_table(scene: GaussianScene, feats_all: torch.Tensor,
+                 origin: torch.Tensor) -> torch.Tensor:
+    """The (N, 11 + F) table the packets gather from: each Gaussian's
+    geometry rows (geom's rows 0-10) seen from ``origin``, then its
+    features."""
     r00, r01, r02, r10, r11, r12, r20, r21, r22 = rotmat_cols(scene.quats)
     d0 = torch.exp(-2.0 * scene.log_scales[:, 0])
     d1 = torch.exp(-2.0 * scene.log_scales[:, 1])
@@ -93,10 +114,16 @@ def build_tile_packets(scene: GaussianScene, feats_all: torch.Tensor,
     wb2 = q02 * ogx + q12 * ogy + q22 * ogz
     c_all = wb0 * ogx + wb1 * ogy + wb2 * ogz
 
-    # One (N, 11 + F) table and one row gather.
+    # One (N, 11 + F) table, for one row gather.
     cols = [q00, q11, q22, 2.0 * q01, 2.0 * q02, 2.0 * q12,
             wb0, wb1, wb2, c_all, scene.opacities]
-    table = torch.cat([torch.stack(cols, dim=-1), feats_all], dim=-1)
+    return torch.cat([torch.stack(cols, dim=-1), feats_all], dim=-1)
+
+
+def gather_packets(table: torch.Tensor, tile_idx: torch.Tensor,
+                   tile_mask: torch.Tensor):
+    """The packet gather from the table (N, 11 + F): (geom (T, 16, K),
+    featsT (T, F, K), count (T,)), the opacity row 0 at masked slots."""
     rows = table[tile_idx.long()]                          # (T, K, 11 + F)
     t_total, k = tile_idx.shape
     geom = rows.new_zeros((t_total, GEOM_ROWS, k))
@@ -108,7 +135,126 @@ def build_tile_packets(scene: GaussianScene, feats_all: torch.Tensor,
                          device=tile_idx.device)
     count = torch.amax(torch.where(tile_mask, slot1, torch.zeros_like(slot1)),
                        dim=-1)
-    return dict(geom=geom, featsT=featsT, count=count)
+    return geom, featsT, count
+
+
+def packet_gather_bwd_plain(d_geom: torch.Tensor, d_featsT: torch.Tensor,
+                            tile_idx: torch.Tensor, tile_mask: torch.Tensor,
+                            n: int) -> torch.Tensor:
+    """Plain version of the gather's backward, autograd's transpose of
+    :func:`gather_packets`: the rows' gradient (T, K, 11 + F), its opacity
+    column 0 at masked slots, added into zeros (N, 11 + F) by index_put_
+    with accumulate (PyTorch's indexing backward)."""
+    d_opac = torch.where(tile_mask, d_geom[:, ROW_OPAC],
+                         torch.zeros_like(d_geom[:, ROW_OPAC]))
+    d_rows = torch.cat([d_geom[:, :ROW_OPAC].transpose(1, 2),
+                        d_opac[..., None], d_featsT.transpose(1, 2)], dim=-1)
+    return d_rows.new_zeros((n, d_rows.shape[-1])).index_put_(
+        (tile_idx.long(),), d_rows, accumulate=True)
+
+
+_GATHER_COUNT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                          + [ctypes.c_void_p] * 2)
+_GATHER_REDUCE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p] * 7)
+
+
+def packet_gather_bwd(d_geom: torch.Tensor, d_featsT: torch.Tensor,
+                      tile_idx: torch.Tensor, tile_mask: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """The gradient of the table (N, 11 + F) from d_geom (T, 16, K) and
+    d_featsT (T, F, K): row g, column c < 11, the sum of d_geom[t, c, k]
+    and column 11 + j of d_featsT[t, j, k] over the live slots (t, k)
+    (tile_mask true) with tile_idx g, in ascending slot order from 0; a
+    Gaussian in no live slot gets zeros. Masked slots are never read. On
+    cotangents that are zero at masked slots (the tile backward's: their
+    opacity is 0) this equals :func:`packet_gather_bwd_plain` bit for bit.
+
+    CPU tensors go through :func:`packet_gather_bwd_plain`; CUDA tensors
+    launch ``csrc/packet_gather.cu``'s three kernels with a cumsum between
+    (one count in ``GATHER_BWD_LAUNCHES``) or raise. While a profiler
+    records, counts ``packet_slots`` (T x K) and ``packet_slots_live``.
+    """
+    global GATHER_BWD_LAUNCHES
+    t_total, k = tile_idx.shape
+    profiling.count("packet_slots", t_total * k)
+    profiling.count("packet_slots_live", tile_mask)
+    tensors = dict(d_geom=d_geom, d_featsT=d_featsT, tile_idx=tile_idx,
+                   tile_mask=tile_mask)
+    if _on_cpu("packet_gather_bwd", tensors):
+        return packet_gather_bwd_plain(d_geom, d_featsT, tile_idx, tile_mask,
+                                       n)
+    f = d_featsT.shape[1] if d_featsT.dim() == 3 else -1
+    _check_shapes("packet_gather_bwd", dict(d_geom=d_geom, d_featsT=d_featsT),
+                  {"d_geom": (t_total, GEOM_ROWS, k),
+                   "d_featsT": (t_total, f, k)})
+    if tile_idx.dtype != torch.int32 or tile_mask.dtype != torch.bool \
+            or tuple(tile_mask.shape) != (t_total, k) \
+            or not (tile_idx.is_contiguous() and tile_mask.is_contiguous()):
+        raise ValueError(
+            f"packet_gather_bwd: tile_idx must be contiguous int32 and "
+            f"tile_mask contiguous bool of one shape (T, K), got "
+            f"{tile_idx.dtype} {tuple(tile_idx.shape)}, {tile_mask.dtype} "
+            f"{tuple(tile_mask.shape)}")
+    if TABLE_GEOM + f > 32 or t_total * k >= 2**31 or not 0 < n < 2**31:
+        raise ValueError(f"packet_gather_bwd: 11 + F = {TABLE_GEOM + f} "
+                         f"columns (at most 32 for a warp's lanes), "
+                         f"T x K = {t_total * k} slots and N = {n} "
+                         "Gaussians (each below 2^31, N above 0)")
+    dev = d_geom.device
+    cnt = torch.zeros((n,), dtype=torch.int32, device=dev)
+    seg = torch.empty((t_total * k,), dtype=torch.int32, device=dev)
+    d_table = torch.empty((n, TABLE_GEOM + f), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _kernel_fn("ptgs_packet_gather_count", _GATHER_COUNT_ARGTYPES)(
+            tile_idx.data_ptr(), tile_mask.data_ptr(), t_total * k, n,
+            cnt.data_ptr(), stream)
+        if err == 0:
+            ends = torch.cumsum(cnt, 0, dtype=torch.int32)
+            err = _kernel_fn("ptgs_packet_gather_reduce",
+                             _GATHER_REDUCE_ARGTYPES)(
+                tile_idx.data_ptr(), tile_mask.data_ptr(), t_total * k, n, k,
+                f, ends.data_ptr(), cnt.data_ptr(), seg.data_ptr(),
+                d_geom.data_ptr(), d_featsT.data_ptr(), d_table.data_ptr(),
+                stream)
+    if err != 0:
+        raise RuntimeError(f"packet_gather_bwd: kernel launch failed with "
+                           f"CUDA error {err}")
+    GATHER_BWD_LAUNCHES += 1
+    return d_table
+
+
+class PacketGather(torch.autograd.Function):
+    """The packet gather (:func:`gather_packets`) with a backward that
+    reads only the live slots (:func:`packet_gather_bwd`). Saves tile_idx
+    and tile_mask, no gathered rows; count is not differentiable.
+
+    The invariant the backward rests on: the cotangents of geom and featsT
+    are zero at masked slots. The forward fills a masked slot with the
+    geometry and features of the Gaussian its tile_idx names (the
+    binning's 0) and only its opacity with 0, so the tile backward gives
+    such a slot zero gradients. On CUDA tensors the backward never reads a
+    masked slot; on CPU tensors autograd's transpose adds it in. For any
+    consumer whose cotangents are not zero there, the two devices give
+    different gradients: such a consumer zeroes them first."""
+
+    @staticmethod
+    def forward(ctx, table, tile_idx, tile_mask):
+        geom, featsT, count = gather_packets(table, tile_idx, tile_mask)
+        ctx.mark_non_differentiable(count)
+        ctx.n = table.shape[0]
+        ctx.save_for_backward(tile_idx, tile_mask)
+        return geom, featsT, count
+
+    @staticmethod
+    def backward(ctx, d_geom, d_featsT, d_count):
+        tile_idx, tile_mask = ctx.saved_tensors
+        d_table = packet_gather_bwd(d_geom.contiguous(),
+                                    d_featsT.contiguous(), tile_idx,
+                                    tile_mask, ctx.n)
+        return d_table, None, None
 
 
 def _chunk_size(k: int) -> int:
