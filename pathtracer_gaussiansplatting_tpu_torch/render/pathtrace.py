@@ -24,7 +24,8 @@ last pdf stay tensors; only settings and the lights' count are Python
 branches.
 
 While a ``torch.profiler`` records (``utils/profiling.span``), each
-bounce's random draws are the range ``ptgs.rng`` and its shading
+bounce's trace (``backend.trace``, every backend) is the range
+``ptgs.trace``, its random draws ``ptgs.rng`` and its shading
 (emission, MIS, NEE, scatter, roulette) ``ptgs.shade``; inside the
 shading, the light samples (``lights.sample_emissive``,
 ``sample_punctual``) are ``ptgs.lights`` and the shadow rays
@@ -203,8 +204,9 @@ def pathtrace(scene: GaussianScene, rays: Rays, settings: RenderSettings,
         if d == 0 and primary_interaction is not None:
             inter = primary_interaction
         else:
-            inter = backend.trace(scene, Rays(origins, dirs), settings,
-                                  active=None if d == 0 else alive)
+            with span("ptgs.trace"):
+                inter = backend.trace(scene, Rays(origins, dirs), settings,
+                                      active=None if d == 0 else alive)
             if "frozen_alive" in inter:
                 frozen_total = frozen_total + inter["frozen_alive"]
         if d >= 1:

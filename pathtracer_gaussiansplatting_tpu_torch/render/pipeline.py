@@ -6,7 +6,9 @@ Counterpart of ``pathtracer_gaussiansplatting_tpu/render/pipeline.py``
 of calls the bounce loop makes, in place of the reference's signature
 inspection of bare callables. Three backends: "dense", "grid" ("auto"
 takes grid above ``AUTO_DENSE_LIMIT`` Gaussians) and "spatial", the slab
-ring of ``parallel/spatial.py`` over a (rays, gauss) mesh.
+ring of ``parallel/spatial.py`` over a (rays, gauss) mesh. While a
+``torch.profiler`` records, the dense backend's shadow rays (K2 and its
+glue) are the range ``ptgs.dense_vis``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from pathtracer_gaussiansplatting_tpu_torch.parallel import mesh as mesh_mod
 from pathtracer_gaussiansplatting_tpu_torch.parallel import spatial
 from pathtracer_gaussiansplatting_tpu_torch.render import grid_trace
 from pathtracer_gaussiansplatting_tpu_torch.render import reference as ref
+from pathtracer_gaussiansplatting_tpu_torch.utils.profiling import span
 
 AUTO_DENSE_LIMIT = 50_000
 # Dense backend calls its table cache could not serve (each then builds
@@ -92,8 +95,9 @@ def _dense_trace(cache: _DenseTableCache, scene: GaussianScene, rays,
 
 def _dense_vis(cache: _DenseTableCache, scene: GaussianScene,
                settings: RenderSettings, origins, dirs, t_end, active=None):
-    return ref.visibility_dense(scene, origins, dirs, t_end, settings,
-                                active, cache.get(scene, settings)), 0
+    with span("ptgs.dense_vis"):
+        return ref.visibility_dense(scene, origins, dirs, t_end, settings,
+                                    active, cache.get(scene, settings)), 0
 
 
 def _grid_trace(accel, max_steps: int, scene: GaussianScene, rays,

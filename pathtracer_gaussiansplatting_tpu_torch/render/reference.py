@@ -5,6 +5,13 @@ Counterpart of ``pathtracer_gaussiansplatting_tpu/render/reference.py``
 ``render_radiance_dense``, ``visibility_dense``). The (R, N) stages run in
 ``kernels/dense_trace.py`` (a CUDA kernel on the card, the plain version on
 the CPU); the (R, K) feature gather and composite are plain torch.
+
+While a ``torch.profiler`` records (``utils/profiling``), the top-K (K1
+and its arguments) is the range ``ptgs.topk`` and the trace's feature
+gather ``ptgs.gather``; the counters ``dense_rays`` (R, the rays of each
+top-K), ``dense_list_slots`` (R x K) and ``dense_list_filled`` (the
+entries with alpha > 0) give the share of the lists that holds
+contributors.
 """
 from __future__ import annotations
 
@@ -23,6 +30,9 @@ from pathtracer_gaussiansplatting_tpu_torch.ops.composite import (
 )
 from pathtracer_gaussiansplatting_tpu_torch.ops.safe_math import (
     safe_normalize,
+)
+from pathtracer_gaussiansplatting_tpu_torch.utils.profiling import (
+    count, span,
 )
 
 
@@ -72,13 +82,17 @@ def dense_topk(scene: GaussianScene, rays: Rays, settings: RenderSettings,
     gradient; only idx and validity come from the kernel.
     """
     k = min(settings.max_contribs, scene.num_gaussians)
-    if table is None:
-        table = dense_trace.gaussian_table(scene, settings)
-    o, d = rays.origins.contiguous(), rays.directions.contiguous()
-    idx, t, alpha = dense_trace.dense_topk(o, d, table, k, settings,
-                                           sort_depths, active)
-    if _geometry_needs_grad(scene):
-        t, alpha = selected_peaks(scene, o, d, idx, alpha > 0, settings)
+    with span("ptgs.topk"):
+        if table is None:
+            table = dense_trace.gaussian_table(scene, settings)
+        o, d = rays.origins.contiguous(), rays.directions.contiguous()
+        idx, t, alpha = dense_trace.dense_topk(o, d, table, k, settings,
+                                               sort_depths, active)
+        if _geometry_needs_grad(scene):
+            t, alpha = selected_peaks(scene, o, d, idx, alpha > 0, settings)
+    count("dense_rays", o.shape[0])
+    count("dense_list_slots", o.shape[0] * k)
+    count("dense_list_filled", lambda: alpha > 0)
     return idx, t, alpha
 
 
@@ -114,7 +128,8 @@ def trace_dense(scene: GaussianScene, rays: Rays, settings: RenderSettings,
     :func:`dense_topk`."""
     idx, t, alpha = dense_topk(scene, rays, settings, sort_depths, active,
                                table)
-    feats = _gather_features(scene, rays, idx, t, settings)
+    with span("ptgs.gather"):
+        feats = _gather_features(scene, rays, idx, t, settings)
     weights, trans = composite_weights(alpha)
     alpha_acc = 1.0 - trans
 

@@ -85,9 +85,12 @@ def span(name: str):
 def count(name: str, value) -> None:
     """Adds ``value`` to the counter ``name`` while a profiler records: an
     int, or a tensor whose elements are summed on its device (no host
-    sync until :func:`counts`)."""
+    sync until :func:`counts`), or a function of no arguments returning
+    either, called only then (a count that costs device work)."""
     if not _recording():
         return
+    if callable(value):
+        value = value()
     if isinstance(value, torch.Tensor):
         value = value.sum()
     prev = _COUNTS.get(name)
