@@ -70,7 +70,11 @@ first use. Then:
            CPU's, at 2000 Gaussians, 64x48, and of visibility_dense
            through the shadow kernel's pair list on segments into the
            same cloud. Both images are written to
-           chiprun_out/chip_smoke/;
+           chiprun_out/chip_smoke/; (f) the composite kernel
+           (csrc/dense_composite.cu) against its plain version on K1's
+           lists of 65536 primary, bounce and thin-far rays at 40k
+           Gaussians, K=64, timed beside its bound by bytes (5c counts
+           its launches: one a bounce trace);
   phase 6  the grid backend (csrc/grid_march.cu) at 500k Gaussians
            (surface_scene(500k, seed 13), built without a device: on the
            card): (a) build_grid_accel (Kc=32, 2.5e9 B), timed, its stats
@@ -340,6 +344,10 @@ GRID_VIS_REPLACES = ("pathtracer_gaussiansplatting_tpu/render/"
 VARIANT_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
                   "tile_composite_variants.cu")
 VARIANT_REPLACES = "benchmarks/variant_kernel.py:58"
+COMPOSITE_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
+                    "dense_composite.cu")
+COMPOSITE_REPLACES = ("pathtracer_gaussiansplatting_tpu/render/"
+                      "reference.py:63")
 GATHER_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
                  "packet_gather.cu")
 GATHER_REPLACES = ("pathtracer_gaussiansplatting_tpu/kernels/"
@@ -1773,12 +1781,14 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = pipeline.TABLE_MISSES = 0
-    k5.LAUNCHES = 0
+    k5.LAUNCHES = dt.COMPOSITE_LAUNCHES = 0
     with HostTimer(capture, "pathtrace") as timer:
         img, total_ms = host_ms(lambda: capture.render_pose(
             render_fn, cam.c2w, w, h, cam.fov_y_deg, chunk=PT_CHUNK))
     launches = (dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
-    rng_launches = k5.LAUNCHES
+    rng_launches, composite = k5.LAUNCHES, dt.COMPOSITE_LAUNCHES
+    check(composite == launches[0], f"5c: dense_composite launched "
+          f"{composite} times for {launches[0]} bounce traces")
     check(pipeline.TABLE_MISSES == 0, f"5c: {pipeline.TABLE_MISSES} dense "
           f"calls built their own table")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -1803,8 +1813,9 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
         f"{w * h * spp / (total_ms * 1e-3):.4e} path-traced rays/s; 512 spp "
         f"would take {512 * med / 6e4:.2f} min; launches per sample "
         f"dense_topk {launches[0] // spp}, dense_visibility "
-        f"{launches[1] // spp}, threefry_uniforms {rng_launches // spp}; "
-        f"table cache misses 0; peak memory "
+        f"{launches[1] // spp}, dense_composite {composite // spp}, "
+        f"threefry_uniforms {rng_launches // spp}; table cache misses 0; "
+        f"peak memory "
         f"{peak_gib:.2f} GiB ({card})")
     log(f"phase 5c: image finite, in [0, {settings.firefly_clamp}], mean "
         f"{mean:.5f}, max {img.max():.5f}; saved {os.path.relpath(jpg, ROOT)}")
@@ -1813,7 +1824,74 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
     split = profile_split("phase5c_sample", lambda: capture.render_pose(
         one, cam.c2w, w, h, cam.fov_y_deg, chunk=PT_CHUNK), med, card)
     return dict(launches=launches, rng=rng_launches, median_ms=med,
-                split=split)
+                split=split, composite=composite)
+
+
+def composite_bound(dt, lists, n: int, degree: int) -> dict:
+    """The composite's bound by bytes: every slot's alpha (4 B), idx and t
+    of each filled slot (8 B), the feature table once, a ray's direction
+    (12 B) and its 16 floats out. Flops: a filled slot's SH (6 a basis
+    function), the weight, the normal's flip test and the 15 weighted sums
+    (39), and 3 a slot for the transmittance scan."""
+    idx, _, alpha = lists
+    r, k = idx.shape
+    filled = int((alpha > 0).sum())
+    kb = (degree + 1) ** 2
+    n_bytes = 4 * r * k + 8 * filled + 4 * n * dt.composite_cols(degree) \
+        + 4 * r * (3 + dt.COMPOSITE_OUT)
+    res = bound(n_bytes, filled * (6 * kb + 39) + 3 * r * k)
+    res["filled"] = filled / (r * k)
+    return res
+
+
+def composite_checks(dt, dev, card) -> dict:
+    """Phase 5f: dense_composite against dense_composite_plain on K1's
+    lists of 5a's chunks of the 40k-Gaussian room (the dense capture
+    cell's N, R and K), each timed (CUDA events) beside its bound; two
+    launches give the same bits."""
+    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
+        Rays, RenderSettings,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render import reference as ref
+    from pathtracer_gaussiansplatting_tpu_torch.tools import (
+        dense_table_order as dto,
+    )
+
+    settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
+    scene, light, cam = pt_world(40_000, 800, 800, dev)
+    ch = dto.dense_chunks(dt, scene, light, cam, settings, PT_CHUNK)
+    degree = dt.composite_degree(scene, settings)
+    table = dt.composite_table(scene, degree)
+    shapes, err = [], 0.0
+    for name, o, d in ch["topk"]:
+        with torch.no_grad():
+            lists = ref.dense_topk(scene, Rays(o, d), settings,
+                                   table=ch["table"])
+        want = dt.dense_composite_plain(*lists, d, table, degree)
+        got = dt.dense_composite(*lists, d, table, degree)
+        check(torch.equal(got, dt.dense_composite(*lists, d, table, degree)),
+              f"5f {name}: two launches differ")
+        e = float(((got - want).abs() / (1.0 + want.abs())).max())
+        check(e < 1e-5, f"5f {name}: kernel vs plain {e:.3e}")
+        err = max(err, e)
+        ms = cuda_ms(lambda: dt.dense_composite(*lists, d, table, degree), 20)
+        plain_ms = cuda_ms(lambda: dt.dense_composite_plain(
+            *lists, d, table, degree), 3)
+        bnd = composite_bound(dt, lists, scene.num_gaussians, degree)
+        log(f"phase 5f {name} (R={o.shape[0]}, N={scene.num_gaussians}, "
+            f"K={lists[0].shape[1]}, {bnd['filled']:.2%} of the slots "
+            f"filled): dense_composite {ms:.4f} ms, plain {plain_ms:.3f} ms; "
+            f"max err {e:.3e} (of 1 + |plain|); bound {bnd['bound_ms']:.4f} "
+            f"ms by {bnd['bound_by']} ({bnd['bound_bytes']:.4e} bytes, "
+            f"{bnd['bound_flops']:.4e} flops) = {bnd['bound_ms'] / ms:.1%} "
+            f"of its rate ({card})")
+        shapes.append(dict(name=f"5f {name}", ms=ms, plain_ms=plain_ms,
+                           max_abs_err=e, bound=bnd))
+    del scene
+    first = shapes[0]
+    return dict(first, max_abs_err=err, shapes=[
+        dict(name=r["name"], ms=r["ms"], plain_ms=r["plain_ms"],
+             bound_ms=r["bound"]["bound_ms"]) for r in shapes])
 
 
 def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
@@ -5876,6 +5954,7 @@ def main() -> int:
     scene5, light5, cam5 = pt_world(50_000, 800, 800, dev)
     dense = dense_kernel_checks(dt, scene5, light5, cam5, pt_settings, card)
     flat = flat_route(dt, scene5, light5, cam5, pt_settings, card, spp=8)
+    comp = composite_checks(dt, dev, card)
     tiled = tiled_route(tc, dt, scene5, light5, cam5, pt_settings, card,
                         spp=4)
     del scene5
@@ -6099,6 +6178,11 @@ def main() -> int:
               flat["launches"][0] + tiled["launches"][1] + p9["topk"]
               + p10["topk"] + p11["topk"] + p14["cli_launches"], topk, topk,
               shapes=topk_shapes()),
+        # Times and bound at 5f's primary chunk; the other chunks beside.
+        entry("dense_composite", COMPOSITE_SOURCE, COMPOSITE_REPLACES,
+              flat["composite"], comp, comp["bound"], shapes=comp["shapes"],
+              library_call="none: the gathers, SH, cumprod and einsums of "
+              "the plain version are ~90 launches"),
         entry("dense_visibility", VIS_SOURCE, VIS_REPLACES,
               flat["launches"][1] + tiled["launches"][2] + p9["dense_vis"]
               + p11["dense_vis"], vis, vis),

@@ -31,6 +31,13 @@ A culled pair has alpha = 0 in the exact math as well, so the top-K kernel
 stays bit-equal to ``dense_topk_plain`` (equal keys go by index, as the
 plain version's stable sort has them) and a culled shadow factor is
 exactly 1.
+
+``dense_composite`` composites the top-K lists with the Gaussians' shading
+features from a per-Gaussian table (:func:`composite_table`): on CUDA
+tensors the kernel ``csrc/dense_composite.cu`` (counted in
+``COMPOSITE_LAUNCHES``: a warp a ray, only the filled entries read), on CPU
+tensors ``dense_composite_plain``, the gathers, SH, normal flip, cumprod
+and weighted sums of ``render/reference.trace_dense`` in torch.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from typing import Optional, Union
 
 import torch
 
+from pathtracer_gaussiansplatting_tpu_torch.core import sh as sh_mod
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     GaussianScene, RenderSettings,
 )
@@ -48,6 +56,9 @@ from pathtracer_gaussiansplatting_tpu_torch.kernels.tile_composite import (
     _kernel_fn, _on_cpu,
 )
 from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as gops
+from pathtracer_gaussiansplatting_tpu_torch.ops.composite import (
+    composite_weights,
+)
 
 # mean (3), M = diag(1/s) R^T row-major (9), opacity, and the cull radii:
 # R0 of the trace, R1, R0 of a shadow segment. 64 bytes a row.
@@ -70,6 +81,12 @@ VIS_LAUNCHES = 0   # dense_visibility kernel launches; read by chip_smoke.py
 # dense_visibility_pairs' launches of the same kernel (two a call: the
 # counts, then the pairs); read by chip_smoke.py
 VIS_PAIR_LAUNCHES = 0
+COMPOSITE_LAUNCHES = 0  # dense_composite kernel launches; read by chip_smoke
+# dense_composite's outputs a ray: the transmittance, then the weighted
+# sums of SH colour (3), emission (3), the viewer-facing normal (3), t and
+# the five materials (metallic, roughness, clearcoat, its roughness,
+# transmission).
+COMPOSITE_OUT = 16
 PLAIN_CHUNK_ELEMS = 1 << 24  # (rays, N) pairs per plain-version chunk
 
 # The cull's margins (csrc/dense_common.cuh derives them): the relative
@@ -617,3 +634,114 @@ def dense_visibility_pairs(origins: torch.Tensor, dirs: torch.Tensor,
     seg = torch.repeat_interleave(
         torch.arange(r, device=dev), counts.long(), output_size=gid.numel())
     return vis, seg, gid.long()
+
+
+def composite_cols(degree: int) -> int:
+    """Columns of a :func:`composite_table` row at SH degree ``degree``:
+    3 (degree + 1)^2 SH coefficients, emission (3), five materials and the
+    normal (3), padded to a multiple of 4 (16 bytes)."""
+    return -(-(3 * (degree + 1) ** 2 + 11) // 4) * 4
+
+
+def composite_degree(scene: GaussianScene, settings: RenderSettings) -> int:
+    """The SH degree the trace evaluates: ``settings.sh_degree``, else the
+    one the scene's coefficients imply (as ``core/sh.eval_sh``)."""
+    return scene.sh_degree if settings.sh_degree is None \
+        else settings.sh_degree
+
+
+def composite_table(scene: GaussianScene, degree: int) -> torch.Tensor:
+    """The (N, :func:`composite_cols`) float32 feature table that
+    :func:`dense_composite` reads, a row a Gaussian: its first
+    (degree + 1)^2 SH coefficients (coefficient-major), emission, metallic,
+    roughness, clearcoat, clearcoat roughness, transmission and the
+    unflipped shortest-axis normal (``ops/gaussians.surfel_normal``), then
+    zeros. Carries no gradient; serves only the scene it was built from."""
+    kb = (degree + 1) ** 2
+    n = scene.num_gaussians
+    with torch.no_grad():
+        parts = [scene.sh_coeffs[:, :kb].reshape(n, 3 * kb), scene.emission,
+                 *(x[:, None] for x in (
+                     scene.metallic, scene.roughness, scene.clearcoat,
+                     scene.clearcoat_roughness, scene.transmission)),
+                 gops.surfel_normal(scene.log_scales, scene.quats)]
+        used = sum(p.shape[1] for p in parts)
+        parts.append(scene.means.new_zeros((n, composite_cols(degree) - used)))
+        return torch.cat(parts, dim=-1).contiguous()
+
+
+def dense_composite_plain(idx: torch.Tensor, t: torch.Tensor,
+                          alpha: torch.Tensor, dirs: torch.Tensor,
+                          table: torch.Tensor, degree: int) -> torch.Tensor:
+    """Plain PyTorch version of the composite: (R, COMPOSITE_OUT) float32,
+    the transmittance prod (1 - alpha) and the sums over the K slots of w
+    times the slot's SH colour (``core/sh.eval_sh`` at ``dirs``), emission,
+    normal flipped to face the viewer, t and materials, with w the
+    front-to-back weights of ``ops/composite.composite_weights``: the
+    operations of ``render/reference.trace_dense`` on the table's rows."""
+    kb = (degree + 1) ** 2
+    r, k = idx.shape
+    rows = table[idx.long()]
+    d = dirs[:, None, :]
+    color = sh_mod.eval_sh(rows[..., :3 * kb].reshape(r, k, kb, 3),
+                           d.expand(r, k, 3), degree)
+    n = rows[..., 3 * kb + 8:3 * kb + 11]
+    # surfel_normal's flip test, summed in one fixed order (the kernel's).
+    flip = (n[..., 0:1] * d[..., 0:1] + n[..., 1:2] * d[..., 1:2]
+            + n[..., 2:3] * d[..., 2:3]) > 0
+    feats = torch.cat([color, rows[..., 3 * kb:3 * kb + 3],
+                       torch.where(flip, -n, n), t[..., None],
+                       rows[..., 3 * kb + 3:3 * kb + 8]], dim=-1)
+    weights, trans = composite_weights(alpha)
+    return torch.cat([trans[:, None],
+                      torch.einsum("rk,rkf->rf", weights, feats)], dim=-1)
+
+
+_COMPOSITE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p] * 2)
+
+
+def dense_composite(idx: torch.Tensor, t: torch.Tensor, alpha: torch.Tensor,
+                    dirs: torch.Tensor, table: torch.Tensor,
+                    degree: int) -> torch.Tensor:
+    """The composite of the top-K lists idx (R, K) int32, t and alpha (R, K)
+    (``dense_topk``'s) with the feature table (N, cols) of
+    :func:`composite_table` at SH degree ``degree`` (0-3), for directions
+    dirs (R, 3): (R, COMPOSITE_OUT) as :func:`dense_composite_plain`. CPU
+    tensors run the plain version; CUDA tensors launch
+    ``csrc/dense_composite.cu`` (one launch; the same outputs up to the
+    order of the sums, and the same bits launch to launch)."""
+    global COMPOSITE_LAUNCHES
+    tensors = dict(t=t, alpha=alpha, dirs=dirs, table=table)
+    if _on_cpu("dense_composite", dict(tensors, idx=idx)):
+        return dense_composite_plain(idx, t, alpha, dirs, table, degree)
+    r, k = idx.shape
+    if not 0 <= degree <= 3:
+        raise ValueError(f"dense_composite: SH degree {degree} not in 0-3")
+    cols = composite_cols(degree)
+    expect = dict(t=(r, k), alpha=(r, k), dirs=(r, 3),
+                  table=(table.shape[0], cols))
+    for key, x in dict(tensors, idx=idx).items():
+        dtype = torch.int32 if key == "idx" else torch.float32
+        shape = (r, k) if key == "idx" else expect[key]
+        if tuple(x.shape) != shape or x.dtype != dtype \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"dense_composite: {key} must be a contiguous {dtype} tensor "
+                f"of shape {shape}, got {x.dtype} {tuple(x.shape)} "
+                f"contiguous={x.is_contiguous()}")
+    if table.data_ptr() % 16:
+        raise ValueError("dense_composite: the table must start on a "
+                         "16-byte boundary")
+    out = torch.empty((r, COMPOSITE_OUT), dtype=torch.float32,
+                      device=idx.device)
+    if r == 0:
+        return out
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        err = _kernel_fn("ptgs_dense_composite", _COMPOSITE_ARGTYPES)(
+            idx.data_ptr(), t.data_ptr(), alpha.data_ptr(), dirs.data_ptr(),
+            table.data_ptr(), r, k, degree, out.data_ptr(), stream)
+    _raise_on("dense_composite", err)
+    COMPOSITE_LAUNCHES += 1
+    return out

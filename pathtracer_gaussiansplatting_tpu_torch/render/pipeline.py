@@ -19,7 +19,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
-    GaussianScene, Rays, RenderSettings,
+    SCENE_FIELDS, GaussianScene, Rays, RenderSettings,
 )
 from pathtracer_gaussiansplatting_tpu_torch.kernels import dense_trace
 from pathtracer_gaussiansplatting_tpu_torch.parallel import mesh as mesh_mod
@@ -61,20 +61,31 @@ def _geometry_versions(scene: GaussianScene) -> tuple:
                                       scene.quats, scene.opacity_logits))
 
 
+def _scene_versions(scene: GaussianScene) -> tuple:
+    return tuple(getattr(scene, f)._version for f in SCENE_FIELDS)
+
+
 class _DenseTableCache:
     """The dense kernels' table (``dense_trace.dense_table`` of
-    ``gaussian_table``), built once for the backend's scene and settings.
-    ``get`` hands it out only for that scene object, unchanged in place
-    since, and the same sigma_cut and alpha_min, and not where autograd
-    wants the geometry (the cached table carries no gradient); else None,
+    ``gaussian_table``) and the composite kernel's feature table
+    (``dense_trace.composite_table``), built once for the backend's scene
+    and settings. ``get`` hands the first out only for that scene object,
+    its geometry unchanged in place since, and the same sigma_cut and
+    alpha_min, and not where autograd wants the geometry (the cached table
+    carries no gradient); ``features`` hands the second out only for that
+    scene object, no leaf changed in place since (SH, emission and
+    materials included), and the same SH degree. Else each returns None,
     counted in ``TABLE_MISSES``, and the call builds its own."""
 
     def __init__(self, scene: GaussianScene, settings: RenderSettings):
         self.scene, self.versions = scene, _geometry_versions(scene)
         self.key = (settings.sigma_cut, settings.alpha_min)
+        self.all_versions = _scene_versions(scene)
+        self.degree = dense_trace.composite_degree(scene, settings)
         with torch.no_grad():
             self.table = dense_trace.dense_table(
                 dense_trace.gaussian_table(scene, settings))
+        self.feature_table = dense_trace.composite_table(scene, self.degree)
 
     def get(self, scene: GaussianScene, settings: RenderSettings):
         global TABLE_MISSES
@@ -86,11 +97,23 @@ class _DenseTableCache:
         TABLE_MISSES += 1
         return None
 
+    def features(self, scene: GaussianScene, settings: RenderSettings):
+        global TABLE_MISSES
+        if (scene is self.scene and _scene_versions(scene) == self.all_versions
+                and dense_trace.composite_degree(scene, settings)
+                == self.degree):
+            return self.feature_table
+        TABLE_MISSES += 1
+        return None
+
 
 def _dense_trace(cache: _DenseTableCache, scene: GaussianScene, rays,
                  settings: RenderSettings, active=None):
+    features = cache.features(scene, settings) \
+        if ref.composite_on_card(scene, rays) else None
     return ref.trace_dense(scene, rays, settings, active=active,
-                           table=cache.get(scene, settings))
+                           table=cache.get(scene, settings),
+                           features=features)
 
 
 def _dense_vis(cache: _DenseTableCache, scene: GaussianScene,

@@ -4,14 +4,18 @@ Counterpart of ``pathtracer_gaussiansplatting_tpu/render/reference.py``
 (``dense_topk``, ``_gather_features``, ``trace_dense``,
 ``render_radiance_dense``, ``visibility_dense``). The (R, N) stages run in
 ``kernels/dense_trace.py`` (a CUDA kernel on the card, the plain version on
-the CPU); the (R, K) feature gather and composite are plain torch.
+the CPU). ``trace_dense``'s (R, K) feature gather and composite run as one
+kernel, ``dense_trace.dense_composite``, where the rays are on the card
+and autograd wants no scene leaf (:func:`composite_on_card`); elsewhere,
+and in ``render_radiance_dense``, they are plain torch.
 
 While a ``torch.profiler`` records (``utils/profiling``), the top-K (K1
 and its arguments) is the range ``ptgs.topk`` and the trace's feature
-gather ``ptgs.gather``; the counters ``dense_rays`` (R, the rays of each
-top-K), ``dense_list_slots`` (R x K) and ``dense_list_filled`` (the
-entries with alpha > 0) give the share of the lists that holds
-contributors.
+gather and composite ``ptgs.gather``; the counters ``dense_rays`` (R, the
+rays of each top-K), ``dense_list_slots`` (R x K) and
+``dense_list_filled`` (the entries with alpha > 0) give the share of the
+lists that holds contributors, and ``dense_composite_rays`` (R) the rays
+the composite kernel took.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 
 from pathtracer_gaussiansplatting_tpu_torch.core import sh as sh_mod
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
-    GaussianScene, Rays, RenderSettings,
+    SCENE_FIELDS, GaussianScene, Rays, RenderSettings,
 )
 from pathtracer_gaussiansplatting_tpu_torch.kernels import dense_trace
 from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as gops
@@ -42,6 +46,22 @@ def _geometry_needs_grad(scene: GaussianScene) -> bool:
     return torch.is_grad_enabled() and any(
         x.requires_grad for x in (scene.means, scene.log_scales, scene.quats,
                                   scene.opacity_logits))
+
+
+def _trace_needs_grad(scene: GaussianScene, rays: Rays) -> bool:
+    """Whether autograd wants anything of the trace: grad mode is on and a
+    scene leaf (geometry, opacity, SH, emission or a material) or the rays
+    require grad."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in (*(getattr(scene, f) for f in SCENE_FIELDS),
+                                  rays.origins, rays.directions))
+
+
+def composite_on_card(scene: GaussianScene, rays: Rays) -> bool:
+    """Whether :func:`trace_dense` composites with the kernel
+    ``dense_trace.dense_composite``: the rays are CUDA tensors and autograd
+    wants nothing of the trace (its outputs carry no gradient)."""
+    return rays.origins.is_cuda and not _trace_needs_grad(scene, rays)
 
 
 def selected_peaks(scene: GaussianScene, origins: torch.Tensor,
@@ -118,16 +138,28 @@ def _gather_features(scene: GaussianScene, rays: Rays, idx: torch.Tensor,
 def trace_dense(scene: GaussianScene, rays: Rays, settings: RenderSettings,
                 sort_depths: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
-                table: Optional[dense_trace.Table] = None
+                table: Optional[dense_trace.Table] = None,
+                features: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
     """Trace rays against the whole scene and composite one aggregate
     surface interaction per ray: (R, ...) radiance_emitted, albedo,
     normal, position, depth, metallic, roughness, clearcoat, cc_roughness,
     transmission, alpha_acc, trans and hit. A ray that ``active`` masks
     out composites nothing (alpha 0 everywhere). ``table`` as in
-    :func:`dense_topk`."""
+    :func:`dense_topk`; ``features`` the scene's
+    ``dense_trace.composite_table`` at the trace's SH degree (built here
+    when None and the kernel composites, :func:`composite_on_card`)."""
     idx, t, alpha = dense_topk(scene, rays, settings, sort_depths, active,
                                table)
+    if composite_on_card(scene, rays):
+        with span("ptgs.gather"):
+            degree = dense_trace.composite_degree(scene, settings)
+            if features is None:
+                features = dense_trace.composite_table(scene, degree)
+            out = dense_trace.dense_composite(
+                idx, t, alpha, rays.directions.contiguous(), features, degree)
+            count("dense_composite_rays", idx.shape[0])
+            return interaction_from_composite(out, rays, settings)
     with span("ptgs.gather"):
         feats = _gather_features(scene, rays, idx, t, settings)
     weights, trans = composite_weights(alpha)
@@ -148,6 +180,34 @@ def trace_dense(scene: GaussianScene, rays: Rays, settings: RenderSettings,
         clearcoat=wsum(feats["clearcoat"]) / denom,
         cc_roughness=wsum(feats["cc_roughness"]) / denom,
         transmission=wsum(feats["transmission"]) / denom,
+        alpha_acc=alpha_acc,
+        trans=trans,
+        hit=alpha_acc > settings.hit_opacity_threshold,
+    )
+
+
+def interaction_from_composite(out: torch.Tensor, rays: Rays,
+                               settings: RenderSettings) -> dict:
+    """:func:`trace_dense`'s interaction from ``dense_trace
+    .dense_composite``'s (R, 16): the weighted sums as the plain path
+    divides and normalizes them. The position's sum of w (o + t d) is
+    o (1 - trans) + d sum(w t): the weights sum to 1 - trans."""
+    trans = out[:, 0]
+    alpha_acc = 1.0 - trans
+    denom = torch.clamp_min(alpha_acc, 1e-8)
+    scaled = out[:, 10:16] / denom[:, None]   # depth, then the materials
+    return dict(
+        radiance_emitted=out[:, 4:7],
+        albedo=out[:, 1:4],
+        normal=safe_normalize(out[:, 7:10]),
+        position=(rays.origins * alpha_acc[:, None]
+                  + rays.directions * out[:, 10:11]) / denom[:, None],
+        depth=scaled[:, 0],
+        metallic=scaled[:, 1],
+        roughness=scaled[:, 2],
+        clearcoat=scaled[:, 3],
+        cc_roughness=scaled[:, 4],
+        transmission=scaled[:, 5],
         alpha_acc=alpha_acc,
         trans=trans,
         hit=alpha_acc > settings.hit_opacity_threshold,
