@@ -322,6 +322,8 @@ from pathtracer_gaussiansplatting_tpu_torch.bench import (  # noqa: E402
     FP32_FLOPS_PER_S, HBM_BYTES_PER_S, bound, card_line, chunk_schedule,
     tile_bounds,
 )
+# Launches of the hand kernels by key, read and reset by every phase.
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch  # noqa: E402
 OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 KERNEL_SOURCE = ("pathtracer_gaussiansplatting_tpu_torch/csrc/"
                  "tile_composite_fwd.cu")
@@ -920,12 +922,12 @@ def fit_run(tc, scene, cams, settings, cfg, steps: int, lr: float,
 
     def progress(i, loss):
         torch.cuda.synchronize()
-        marks.append((time.perf_counter(), tc.LAUNCHES, tc.BWD_LAUNCHES,
-                      tc.GATHER_BWD_LAUNCHES))
+        marks.append((time.perf_counter(), *launch_counts(
+            "tile_fwd", "tile_bwd", "packet_gather_bwd")))
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tc.LAUNCHES = tc.BWD_LAUNCHES = tc.GATHER_BWD_LAUNCHES = 0
+    zero_launches("tile_fwd", "tile_bwd", "packet_gather_bwd")
     t0 = time.perf_counter()
     _, losses, final = train.fit_scene_tiled(
         start, cams, targets, settings, steps=steps, lr=lr, config=cfg,
@@ -1259,13 +1261,11 @@ def topk_launch_bound(dt, args, phase: str, card: str, ms: float,
     (origins, dirs, DenseTable, K, settings[, sort_depths, active]),
     counted in torch on the card and printed beside its time ``ms``:
     bound_ms and function_bound_ms."""
-    from pathtracer_gaussiansplatting_tpu_torch.tools import (
-        dense_table_order as dto,
-    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools import chunks as tch
 
     o, d, table, k, st, *rest = args
     active = rest[1] if len(rest) > 1 else None
-    cnt = dto.cull_counts(dt, o, d, table, st, active,
+    cnt = tch.cull_counts(dt, o, d, table, st, active,
                           rays_per_pass=rays_per_pass, supers=True)
     cnt["contributing"] = contributing_pairs(
         dt, o, d, table.rows, st, active, rays_per_pass=rays_per_pass)
@@ -1287,13 +1287,11 @@ def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
     dense_chunks' chunks and on four chunks of primary rays in one launch,
     each kernel timed on each chunk, with the cull's counts and the bound
     recounted by code path."""
-    from pathtracer_gaussiansplatting_tpu_torch.tools import (
-        dense_table_order as dto,
-    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools import chunks as tch
 
-    cull_counts = dto.cull_counts
-    dt.TOPK_LAUNCHES = 0
-    ch = dto.dense_chunks(dt, scene, light, cam, settings, PT_CHUNK)
+    cull_counts = tch.cull_counts
+    zero_launches("dense_topk")
+    ch = tch.dense_chunks(dt, scene, light, cam, settings, PT_CHUNK)
     table, k, bo = ch["table"], ch["k"], ch["origins"]
     topk_chunks, vis_chunks = ch["topk"], ch["vis"]
     n = table.rows.shape[0]
@@ -1309,8 +1307,9 @@ def dense_kernel_checks(dt, scene, light, cam, settings, card) -> dict:
     wide = (*ch["wide"], table, k, settings)
     err_a = max(err_a, topk_check(
         dt, wide, f"the first {4 * PT_CHUNK} primary rays in one launch"))
-    log(f"phase 5a: dense_topk launched {dt.TOPK_LAUNCHES} times (the pose's "
-        f"primary trace in dense_chunks, then one a chunk checked)")
+    log(f"phase 5a: dense_topk launched {launch.launches['dense_topk']} "
+        f"times (the pose's primary trace in dense_chunks, then one a chunk "
+        f"checked)")
 
     res = {}
     for name, co, cd in topk_chunks:
@@ -1509,7 +1508,7 @@ def shadow_grad_check(base, dev, card) -> dict:
     w = torch.from_numpy(np.random.default_rng(8).uniform(
         -1, 1, n).astype(np.float32))
     grads, vis = [], []
-    dt.VIS_PAIR_LAUNCHES = 0
+    zero_launches("dense_visibility_pairs")
     for device in (dev, torch.device("cpu")):
         scene = base.to(device).replace(**{
             k: getattr(base, k).to(device, copy=True).requires_grad_(True)
@@ -1520,7 +1519,7 @@ def shadow_grad_check(base, dev, card) -> dict:
             (w.to(device) * vis[-1]).sum(),
             [getattr(scene, k) for k in names])])
         if device == dev:
-            launches = dt.VIS_PAIR_LAUNCHES
+            launches = launch.launches["dense_visibility_pairs"]
             with torch.no_grad():
                 check(torch.equal(vis[-1], ref.visibility_dense(scene,
                                                                 *args)),
@@ -1771,7 +1770,6 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
     dense call must be served the backend's table."""
     from pathtracer_gaussiansplatting_tpu_torch.data import capture
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
     from pathtracer_gaussiansplatting_tpu_torch.render import pipeline
 
     w, h = cam.width, cam.height
@@ -1780,13 +1778,14 @@ def flat_route(dt, scene, light, cam, settings, card, spp: int) -> dict:
                                                    spp, backend="dense")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = pipeline.TABLE_MISSES = 0
-    k5.LAUNCHES = dt.COMPOSITE_LAUNCHES = 0
+    zero_launches("dense_topk", "dense_visibility", "threefry",
+                  "dense_composite")
+    pipeline.TABLE_MISSES = 0
     with HostTimer(capture, "pathtrace") as timer:
         img, total_ms = host_ms(lambda: capture.render_pose(
             render_fn, cam.c2w, w, h, cam.fov_y_deg, chunk=PT_CHUNK))
-    launches = (dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
-    rng_launches, composite = k5.LAUNCHES, dt.COMPOSITE_LAUNCHES
+    launches = launch_counts("dense_topk", "dense_visibility")
+    rng_launches, composite = launch_counts("threefry", "dense_composite")
     check(composite == launches[0], f"5c: dense_composite launched "
           f"{composite} times for {launches[0]} bounce traces")
     check(pipeline.TABLE_MISSES == 0, f"5c: {pipeline.TABLE_MISSES} dense "
@@ -1853,13 +1852,11 @@ def composite_checks(dt, dev, card) -> dict:
         Rays, RenderSettings,
     )
     from pathtracer_gaussiansplatting_tpu_torch.render import reference as ref
-    from pathtracer_gaussiansplatting_tpu_torch.tools import (
-        dense_table_order as dto,
-    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools import chunks as tch
 
     settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
     scene, light, cam = pt_world(40_000, 800, 800, dev)
-    ch = dto.dense_chunks(dt, scene, light, cam, settings, PT_CHUNK)
+    ch = tch.dense_chunks(dt, scene, light, cam, settings, PT_CHUNK)
     degree = dt.composite_degree(scene, settings)
     table = dt.composite_table(scene, degree)
     shapes, err = [], 0.0
@@ -1904,14 +1901,13 @@ def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
     there."""
     from pathtracer_gaussiansplatting_tpu_torch.data import capture
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
     from pathtracer_gaussiansplatting_tpu_torch.render import pipeline
 
     w, h = cam.width, cam.height
     render = capture.make_tiled_pose_renderer(scene, settings, light, spp,
                                               bounce_backend="dense")
     torch.cuda.synchronize()
-    tc.LAUNCHES = dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = k5.LAUNCHES = 0
+    zero_launches("tile_fwd", "dense_topk", "dense_visibility", "threefry")
     pipeline.TABLE_MISSES = 0
     with HostTimer(capture, "prepare_tiles") as prep, \
             HostTimer(capture, "pathtrace_camera") as samples, \
@@ -1919,8 +1915,8 @@ def tiled_route(tc, dt, scene, light, cam, settings, card, spp: int) -> dict:
             FirstCalls(dt, "dense_visibility") as marches:
         img = render(cam.c2w, w, h, cam.fov_y_deg)
         torch.cuda.synchronize()
-    launches = (tc.LAUNCHES, dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
-    rng_launches = k5.LAUNCHES
+    launches = launch_counts("tile_fwd", "dense_topk", "dense_visibility")
+    rng_launches = launch.launches["threefry"]
     check(pipeline.TABLE_MISSES == 0, f"5d: {pipeline.TABLE_MISSES} dense "
           f"calls built their own table")
     check(rng_launches == spp * (settings.max_depth + 1),
@@ -2263,7 +2259,6 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
     prepare_tiles, then pathtrace_camera at 1920x1080, depth 4, one warm
     and three timed samples; one more sample profiled."""
     from pathtracer_gaussiansplatting_tpu_torch.core import rng
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
     from pathtracer_gaussiansplatting_tpu_torch.render import lights
     from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
         accumulate, pathtrace_camera,
@@ -2278,7 +2273,7 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
     torch.cuda.reset_peak_memory_stats()
     packets, prep_ms = host_ms(lambda: prepare_tiles(scene, cam, settings,
                                                      cfg))
-    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = k5.LAUNCHES = 0
+    zero_launches("grid_trace", "grid_visibility", "threefry")
     acc = torch.zeros((h * w, 3), device=cam.c2w.device)
     sample_ms, frozen = [], 0
     jitters, states = [], []
@@ -2294,8 +2289,8 @@ def grid_pathtrace(gm, scene, cam, settings, cfg, backend, key,
         sample_ms.append(ms)
         frozen += int(aux["frozen_alive"])
     states.append(card_state())
-    launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
-    rng_launches = k5.LAUNCHES
+    launches = launch_counts("grid_trace", "grid_visibility")
+    rng_launches = launch.launches["threefry"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check(jitters == ["cuda"] * 4, f"6d: jitter built on {jitters}")
     check(launches == (4 * (settings.max_depth - 1), 4 * settings.max_depth),
@@ -2346,7 +2341,6 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card, spp: int,
         toroidal_c2w,
     )
     from pathtracer_gaussiansplatting_tpu_torch.data.images import save_jpg
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
 
     render = capture.make_tiled_pose_renderer(scene, settings, None, spp,
                                               bounce_backend="grid",
@@ -2354,11 +2348,12 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card, spp: int,
     c2w = toroidal_c2w(123.0, 20.0, 2.5, 0.3)   # no device: the card
     check(c2w.device.type == "cuda", f"{phase}: pose built on {c2w.device}")
     wide = accel.max_per_cell > gm.REG_KC
-    counters = (("TRACE_WIDE_LAUNCHES", "VIS_WIDE_LAUNCHES") if wide
-                else ("TRACE_LAUNCHES", "VIS_LAUNCHES"))
+    counters = (("grid_trace_wide", "grid_visibility_wide") if wide
+                else ("grid_trace", "grid_visibility"))
+    others = (("grid_trace", "grid_visibility") if wide
+              else ("grid_trace_wide", "grid_visibility_wide"))
     torch.cuda.synchronize()
-    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = k5.LAUNCHES = 0
-    gm.TRACE_WIDE_LAUNCHES = gm.VIS_WIDE_LAUNCHES = 0
+    zero_launches(*counters, *others, "threefry")
     stats = {}
     with HostTimer(capture, "prepare_tiles") as prep, \
             HostTimer(capture, "pathtrace_camera") as samples, \
@@ -2367,10 +2362,9 @@ def grid_pose(gm, gt, capture, scene, settings, accel, card, spp: int,
                        lambda kw: kw.get("with_features", True)) as marches:
         img = render(c2w, 800, 800, 45.0, stats_out=stats)
         torch.cuda.synchronize()
-    launches = tuple(getattr(gm, c) for c in counters)
-    other = (gm.VIS_LAUNCHES + gm.TRACE_LAUNCHES if wide
-             else gm.TRACE_WIDE_LAUNCHES + gm.VIS_WIDE_LAUNCHES)
-    rng_launches = k5.LAUNCHES
+    launches = launch_counts(*counters)
+    other = sum(launch_counts(*others))
+    rng_launches = launch.launches["threefry"]
     check(launches == (spp * (settings.max_depth - 1),
                        spp * settings.max_depth) and other == 0,
           f"{phase}: grid kernel launches (trace, visibility) {launches}, "
@@ -2542,7 +2536,7 @@ def ablation_times(tc, tv, inputs, name: str, card: str) -> dict:
     packets = dict(geom=geom, featsT=featsT, count=count)
     bnds = tile_bounds(packets, dirs, settings)
     fbound = bnds["fwd"]["function_bound_ms"]
-    tv.LAUNCHES = 0
+    zero_launches("tile_variant")
 
     def fwd():
         tc.tile_composite(packets, dirs, settings)
@@ -2573,8 +2567,8 @@ def ablation_times(tc, tv, inputs, name: str, card: str) -> dict:
             f"full, saves {base - ms:+.4f} ms = "
             f"{(base - ms) / (base - fbound):+7.1%} of full's distance to "
             f"the function's bound{note}")
-    return dict(launches=tv.LAUNCHES, ms=base, fwd_ms=fwd_ms,
-                full_ms=full_ms, bounds=bnds)
+    return dict(launches=launch.launches["tile_variant"], ms=base,
+                fwd_ms=fwd_ms, full_ms=full_ms, bounds=bnds)
 
 
 def ablation(tc, tv, dev, key, card) -> dict:
@@ -2676,7 +2670,7 @@ def capture_run(capture, gm, gt, tc, dt, card) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(tc, gm, dt)
+    reset_counts()
     with tempfile.TemporaryDirectory(dir=ROOT,
                                      prefix=".chip_smoke_capture_") as out:
         with HostTimer(gt, "build_grid_accel") as builds, \
@@ -2700,7 +2694,7 @@ def capture_run(capture, gm, gt, tc, dt, card) -> dict:
                                  progress=progress)
         torch.cuda.synchronize()
         pano_s = time.perf_counter() - t1
-        launches = read_counts(tc, gm, dt)
+        launches = read_counts()
 
         # The dataset: layout, split, sizes, the point cloud.
         check(lines[0] == "capture backend: tiled+grid",
@@ -3194,28 +3188,36 @@ class Loaders:
                 f"{sum(t['rtbox'].ms) / 1e3:.3f} s)")
 
 
-def reset_counts(tc, gm, dt) -> None:
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
+# The short names of the launch tallies that phases print and sum, by
+# their key in launch.launches.
+COUNT_NAMES = dict(
+    fwd="tile_fwd", bwd="tile_bwd", fwd_any="tile_fwd_cluster",
+    bwd_any="tile_bwd_cluster", fwd_group="tile_fwd_group_loop",
+    bwd_group="tile_bwd_group_loop", gather_bwd="packet_gather_bwd",
+    trace="grid_trace", vis="grid_visibility", trace_wide="grid_trace_wide",
+    vis_wide="grid_visibility_wide", topk="dense_topk",
+    dense_vis="dense_visibility", rng="threefry")
 
-    tc.LAUNCHES = tc.BWD_LAUNCHES = tc.ANY_LAUNCHES = tc.BWD_ANY_LAUNCHES = 0
-    tc.ANY_GROUP_LAUNCHES = tc.BWD_ANY_GROUP_LAUNCHES = 0
-    tc.GATHER_BWD_LAUNCHES = 0
-    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
-    gm.TRACE_WIDE_LAUNCHES = gm.VIS_WIDE_LAUNCHES = 0
-    dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = 0
-    k5.LAUNCHES = 0
+
+def reset_counts() -> None:
+    """Zeroes every hand kernel's launch count."""
+    launch.launches.clear()
 
 
-def read_counts(tc, gm, dt) -> dict:
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
+def read_counts() -> dict:
+    """The launch counts under their short names (COUNT_NAMES)."""
+    return {name: launch.launches[key] for name, key in COUNT_NAMES.items()}
 
-    return dict(fwd=tc.LAUNCHES, trace=gm.TRACE_LAUNCHES, vis=gm.VIS_LAUNCHES,
-                topk=dt.TOPK_LAUNCHES, dense_vis=dt.VIS_LAUNCHES,
-                rng=k5.LAUNCHES, fwd_any=tc.ANY_LAUNCHES,
-                bwd_any=tc.BWD_ANY_LAUNCHES, trace_wide=gm.TRACE_WIDE_LAUNCHES,
-                vis_wide=gm.VIS_WIDE_LAUNCHES,
-                fwd_group=tc.ANY_GROUP_LAUNCHES,
-                bwd_group=tc.BWD_ANY_GROUP_LAUNCHES)
+
+def zero_launches(*keys) -> None:
+    """Zeroes the launch counts of ``keys`` alone."""
+    for key in keys:
+        launch.launches[key] = 0
+
+
+def launch_counts(*keys) -> tuple:
+    """The launch counts of ``keys``."""
+    return tuple(launch.launches[key] for key in keys)
 
 
 def run_cli(cli, argv) -> list:
@@ -3296,7 +3298,7 @@ def cli_capture(cli, capture, gm, gt, tc, dt, ref, cfg_path: str, out: str,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(tc, gm, dt)
+    reset_counts()
     cli.capture_scene_data = capture_with_progress
     try:
         with Loaders(cli) as loaders, \
@@ -3315,7 +3317,7 @@ def cli_capture(cli, capture, gm, gt, tc, dt, ref, cfg_path: str, out: str,
             total_s = time.perf_counter() - t0
     finally:
         cli.capture_scene_data = real_capture
-    launches = read_counts(tc, gm, dt)
+    launches = read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     scene, punctual = loaders.timers["assembly"].results[0]
     n_gltf = loaders.timers["gltf"].results[0][0].num_gaussians
@@ -3563,7 +3565,7 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
         return img
 
     # render, 800x800, 16 spp.
-    reset_counts(tc, gm, dt)
+    reset_counts()
     png = os.path.join(root, "render_9d.png")
     with Loaders(cli) as loaders:
         t0 = time.perf_counter()
@@ -3571,7 +3573,7 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
                       "--output", png])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    c = read_counts(tc, gm, dt)
+    c = read_counts()
     add(c)
     check(c["fwd"] == 16 and c["trace"] > 0 and c["vis"] > 0
           and c["topk"] == 0 and c["rng"] > 16, f"9d render: launches {c}")
@@ -3582,14 +3584,14 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
         f"({loaders.text()}); launches {json.dumps(c)} ({card})")
 
     # panorama, 2 steps x 4 spp.
-    reset_counts(tc, gm, dt)
+    reset_counts()
     pano = os.path.join(root, "pano")
     t0 = time.perf_counter()
     run_cli(cli, ["panorama", "--scene", cfg_path, "--steps", "2", "--spp",
                   "4", "--output", pano])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    c = read_counts(tc, gm, dt)
+    c = read_counts()
     add(c)
     names = sorted(os.listdir(os.path.join(pano, "panorama")))
     check(names == ["pano_0.jpg", "pano_1.jpg"] and c["trace"] > 0,
@@ -3600,7 +3602,7 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
         f"on the grid): {wall:.2f} s; launches {json.dumps(c)} ({card})")
 
     # fit with the command's defaults: 64x64, 500 Gaussians, 200 steps.
-    reset_counts(tc, gm, dt)
+    reset_counts()
     fitted = os.path.join(root, "fitted.ply")
     with HostTimer(cli, "fit_scene") as fit, \
             HostTimer(dt, "dense_topk", keep=True) as k1:
@@ -3608,7 +3610,7 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
         printed = run_cli(cli, ["fit", "--scene", cfg_path, "--output",
                                 fitted])
         wall = time.perf_counter() - t0
-    c = read_counts(tc, gm, dt)
+    c = read_counts()
     add(c)
     rows = [getattr(a[2], "sorted_rows", a[2]).shape[0] for a, _ in k1.calls]
     m = re.search(r"loss (\S+) -> (\S+) over 200 steps", "\n".join(printed))
@@ -3660,7 +3662,7 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
             f"pixels lit ({card})")
 
     # interact with a command file.
-    reset_counts(tc, gm, dt)
+    reset_counts()
     cmds = os.path.join(root, "interact.txt")
     saved = os.path.join(root, "interact.png")
     with open(cmds, "w") as fh:
@@ -3669,9 +3671,9 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
     real_step = session.InteractiveSession.step
 
     def counted_step(self):
-        before = read_counts(tc, gm, dt)
+        before = read_counts()
         out = real_step(self)
-        after = read_counts(tc, gm, dt)
+        after = read_counts()
         steps.append((self.render_mode, self.frame,
                       {k: after[k] - before[k] for k in after}))
         return out
@@ -3685,7 +3687,7 @@ def cli_commands(cli, gm, gt, tc, dt, cfg_path: str, root: str,
             wall = time.perf_counter() - t0
     finally:
         session.InteractiveSession.step = real_step
-    c = read_counts(tc, gm, dt)
+    c = read_counts()
     add(c)
     frames = [ln for ln in printed if ln.startswith("frame")]
     check(frames == CLI_INTERACT_FRAMES, f"9d interact: printed {frames}")
@@ -3740,12 +3742,11 @@ def bench_run(cli, tc, gm, dt, card) -> dict:
     env = sorted(k for k in os.environ if k.startswith("GSPT_BENCH_"))
     check(not env, f"10a: {env} set; the bench runs at its defaults here")
     c = bench.BenchConfig()
-    reset_counts(tc, gm, dt)
+    reset_counts()
     t0 = time.perf_counter()
     lines = run_cli(cli, ["bench"])
     wall = time.perf_counter() - t0
-    counts = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES,
-                  gather_bwd=tc.GATHER_BWD_LAUNCHES)
+    counts = read_counts()
     res = json.loads(lines[-1])
     want_keys = [bench.REPLACED_KEYS.get(k, k) for k in
                  bench.reference_bench(os.path.join(ROOT, "bench.py"))[0]]
@@ -3913,9 +3914,9 @@ def pt12_profile(gm, card) -> dict:
                                     backend=backend, config=cfg)
 
     host_ms(lambda: sample(0))
-    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
+    zero_launches("grid_trace", "grid_visibility")
     img, ms = host_ms(lambda: sample(1))
-    launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
+    launches = launch_counts("grid_trace", "grid_visibility")
     check(launches == (st.max_depth - 1, st.max_depth),
           f"10c: grid kernel launches (trace, visibility) {launches}")
     check_pt_image(img.cpu().numpy(), st, "10c")
@@ -4023,9 +4024,7 @@ def dense_baseline_split(dt, card) -> dict:
     from pathtracer_gaussiansplatting_tpu_torch.render.reference import (
         render_radiance_dense,
     )
-    from pathtracer_gaussiansplatting_tpu_torch.tools import (
-        dense_table_order as dto,
-    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools import chunks as tch
 
     n = 50_000
     cloud = random_cloud(1_000_000, seed=13, spread=1.5)
@@ -4046,7 +4045,7 @@ def dense_baseline_split(dt, card) -> dict:
     ms = cuda_ms(lambda: dt.dense_topk(o, d, table, k, st), 3)
     plain_ms = cuda_ms(lambda: dt.dense_topk_plain(o, d, table.rows, k, st),
                        1)
-    cnt = dto.cull_counts(dt, o, d, table, st, supers=True)
+    cnt = tch.cull_counts(dt, o, d, table, st, supers=True)
     cnt["contributing"] = contributing_pairs(dt, o, d, table.rows, st)
     bnd = dense_bound(dt, cnt, o.shape[0], n, k)
     log(f"phase 10d: dense baseline (N={n}, R={o.shape[0]}, K={k}): one "
@@ -4186,11 +4185,11 @@ def spatial_2m(dt, mesh, dev, card) -> dict:
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    dt.TOPK_LAUNCHES = 0
+    zero_launches("dense_topk")
     with torch.no_grad(), HostTimer(dt, "dense_topk", keep=True) as k1:
         out, fwd_ms = host_ms(lambda: spatial.render_spatial(
             block, rays, settings, mesh))
-    fwd_launches = dt.TOPK_LAUNCHES
+    fwd_launches = launch.launches["dense_topk"]
     logits = block.opacity_logits.clone().requires_grad_(True)
 
     def fwd_bwd():
@@ -4200,7 +4199,7 @@ def spatial_2m(dt, mesh, dev, card) -> dict:
         return img
 
     img, grad_ms = host_ms(fwd_bwd)
-    launches = dt.TOPK_LAUNCHES
+    launches = launch.launches["dense_topk"]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(fwd_launches == 2 and launches == 4,
           f"11a: dense_topk launched {fwd_launches} / {launches} times, not "
@@ -4248,11 +4247,11 @@ def spatial_2m(dt, mesh, dev, card) -> dict:
     # tests/test_spatial.py:324's max_contribs) against the plain top-K on
     # the same rays.
     settings_l = RenderSettings(max_contribs=SPATIAL_K_LIST)
-    dt.TOPK_LAUNCHES = 0
+    zero_launches("dense_topk")
     with torch.no_grad():
         got, ms_l = host_ms(lambda: spatial.render_spatial(
             block, sub, settings_l, mesh))
-        launches_l = dt.TOPK_LAUNCHES
+        launches_l = launch.launches["dense_topk"]
         with PlainTopK(dt):
             want = spatial.render_spatial(block, sub, settings_l, mesh)
     check(launches_l == 2,
@@ -4275,7 +4274,6 @@ def spatial_backend_route(tc, dt, mesh, settings, dev, card,
     point light, 800x800, depth 4), spp samples, beside phase 5d's dense
     tiled sample."""
     from pathtracer_gaussiansplatting_tpu_torch.core import rng
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
     from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
         BinningConfig,
     )
@@ -4301,7 +4299,7 @@ def spatial_backend_route(tc, dt, mesh, settings, dev, card,
     acc = torch.zeros((cam.height * cam.width, 3), device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tc.LAUNCHES = dt.TOPK_LAUNCHES = dt.VIS_LAUNCHES = k5.LAUNCHES = 0
+    zero_launches("tile_fwd", "dense_topk", "dense_visibility", "threefry")
     host, events = [], []
     for f in range(spp):
         jit = rng.subpixel_jitter(key, cam.height, cam.width, f, device=dev)
@@ -4318,7 +4316,8 @@ def spatial_backend_route(tc, dt, mesh, settings, dev, card,
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t0) * 1e3)
         events.append(start.elapsed_time(end))
-    launches = (tc.LAUNCHES, dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES, k5.LAUNCHES)
+    launches = launch_counts("tile_fwd", "dense_topk", "dense_visibility",
+                             "threefry")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     per = tuple(x / spp for x in launches)
     want = (1, 2 * (settings.max_depth - 1), 2 * settings.max_depth,
@@ -4406,7 +4405,7 @@ def grid_slab_checks(gm, gt, mesh, settings, dev, card) -> dict:
     )
     from pathtracer_gaussiansplatting_tpu_torch.parallel import mesh as pm
     from pathtracer_gaussiansplatting_tpu_torch.parallel import spatial
-    from pathtracer_gaussiansplatting_tpu_torch.tools.grid_march_lanes import (
+    from pathtracer_gaussiansplatting_tpu_torch.tools.chunks import (
         march_chunks,
     )
 
@@ -4437,14 +4436,14 @@ def grid_slab_checks(gm, gt, mesh, settings, dev, card) -> dict:
     (_, bo, bd, _), (_, so, sd, skw) = chunks[0], chunks[1]
     rays = Rays(bo, bd)
     steps = GRID_MAX_STEPS
-    gm.TRACE_LAUNCHES = gm.VIS_LAUNCHES = 0
+    zero_launches("grid_trace", "grid_visibility")
     got = spatial.trace_spatial(slabbed, rays, settings, mesh,
                                 slab_accel=local, accel_meta=meta,
                                 max_steps=steps)
     vis, frozen_v = spatial.visibility_spatial(
         slabbed, so, sd, skw["t_end"], settings, mesh, slab_accel=local,
         accel_meta=meta, max_steps=steps, return_frozen=True)
-    launches = (gm.TRACE_LAUNCHES, gm.VIS_LAUNCHES)
+    launches = launch_counts("grid_trace", "grid_visibility")
     check(launches == (1, 1), f"11c: march launches {launches}, not (1, 1)")
     want = gt.trace_grid(slabbed, rays, settings, ref_accel, max_steps=steps)
     want_v, frozen_w = gt.visibility_grid(slabbed, ref_accel, so, sd,
@@ -4527,10 +4526,10 @@ def sharded_renderers(dt, mesh, dev, card) -> dict:
     rays_block = pm.shard_rays(rays, mesh)
     with torch.no_grad():
         want = render_radiance_dense(scene, rays, settings)
-        dt.TOPK_LAUNCHES = 0
+        zero_launches("dense_topk")
         dense = shard.render_dense_ray_sharded(scene, rays, settings, mesh)
         ring = shard.ring_topk_radiance(block, rays_block, settings, mesh)
-        launches = dt.TOPK_LAUNCHES
+        launches = launch.launches["dense_topk"]
     check(launches == 2, f"11d: dense_topk launches {launches}, not 2")
     check(torch.equal(pm.gather_rays(dense, mesh), want),
           "11d: render_dense_ray_sharded not bit-equal to "
@@ -4554,11 +4553,11 @@ def sharded_renderers(dt, mesh, dev, card) -> dict:
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        dt.TOPK_LAUNCHES = 0
+        zero_launches("dense_topk")
         (_, mesh_losses), mesh_ms = host_ms(lambda: train.fit_scene(
             start, rays, want, settings, steps=FIT_STEPS_11, lr=5e-3,
             mesh=mesh))
-        fit_launches = dt.TOPK_LAUNCHES
+        fit_launches = launch.launches["dense_topk"]
         (_, losses), one_ms = host_ms(lambda: train.fit_scene(
             start, rays, want, settings, steps=FIT_STEPS_11, lr=5e-3))
     finally:
@@ -4596,9 +4595,9 @@ def scaling_checks(dt, mesh, dev, card) -> dict:
     scene = scaling.scaling_scene(SCALE_N, dev)
     rays = scaling.scaling_rays(SCALE_RAYS, 1, dev)
     settings = scaling.SETTINGS
-    dt.TOPK_LAUNCHES = 0
+    zero_launches("dense_topk")
     res = scaling.run_ray_dp(mesh, scene, rays, settings, SCALE_ITERS)
-    launches = dt.TOPK_LAUNCHES
+    launches = launch.launches["dense_topk"]
     check(launches == SCALE_ITERS + 1, f"11f: dense_topk launched "
           f"{launches} times, not {SCALE_ITERS + 1} (a warm-up and "
           f"{SCALE_ITERS} timed calls)")
@@ -4667,9 +4666,9 @@ def spatial_chip_checks(dt, gm, gt, dev, card) -> dict:
     step = spatial_chip.slab_step(n_slabs=n_slabs, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    dt.TOPK_LAUNCHES = gm.TRACE_LAUNCHES = 0
+    zero_launches("dense_topk", "grid_trace")
     res = spatial_chip.measure(step, n_slabs)
-    launches = (dt.TOPK_LAUNCHES, gm.TRACE_LAUNCHES)
+    launches = launch_counts("dense_topk", "grid_trace")
     calls = spatial_chip.ITERS + 1
     check(launches == (2 * calls, calls), f"11g: launches (dense_topk, "
           f"grid_trace) {launches}, not {(2 * calls, calls)}")
@@ -4821,15 +4820,14 @@ def downstream_run(ds, capture, train, tc, gm, gt, dt, dev, card) -> dict:
                                      prefix=".chip_smoke_downstream_") as out:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts(tc, gm, dt)
+        reset_counts()
         with HostTimer(capture, "pathtrace_camera") as samples, \
                 FirstCalls(capture, "pathtrace_camera") as sample_args:
             t0 = time.perf_counter()
             res = ds.run_downstream(out, device=dev, progress=progress, **c)
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-        launches = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES,
-                        gather_bwd=tc.GATHER_BWD_LAUNCHES)
+        launches = read_counts()
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         pc = load_point_cloud_ply(os.path.join(out, "points3d.ply"))
         cams, imgs = ds.load_split(out, "train", dev)
@@ -5059,9 +5057,9 @@ def threefry_checks(rng, k5, key, card) -> list:
         plain=lambda: [rng.jitter_plain(jkey, 1080, 1920, r2, dev)]))
     out = []
     for c in cases:
-        before = k5.LAUNCHES
+        before = launch.launches["threefry"]
         got = c["path"]()
-        launched = k5.LAUNCHES - before
+        launched = launch.launches["threefry"] - before
         want = c["plain"]()
         raw = c["raw"]()
         torch.cuda.synchronize()
@@ -5168,13 +5166,11 @@ def topk_ks(dt, dev, card) -> dict:
     from pathtracer_gaussiansplatting_tpu_torch.core.types import (
         RenderSettings,
     )
-    from pathtracer_gaussiansplatting_tpu_torch.tools import (
-        dense_table_order as dto,
-    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools import chunks as tch
 
     st = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
     scene, light, cam = pt_world(50_000, 800, 800, dev)
-    ch = dto.dense_chunks(dt, scene, light, cam, st, PT_CHUNK)
+    ch = tch.dense_chunks(dt, scene, light, cam, st, PT_CHUNK)
     table, n = ch["table"], scene.num_gaussians
     (_, po, pd), (_, bo, bd), _ = ch["topk"]
     tied = torch.round(scene.means[:, 2] * 4.0) / 4.0
@@ -5189,7 +5185,7 @@ def topk_ks(dt, dev, card) -> dict:
     for name, o, d, sd, act in chunks:
         t0 = time.perf_counter()
         want = dt.dense_topk_plain(o, d, table.rows, k_max, st, sd, act)
-        dt.TOPK_LAUNCHES = 0
+        zero_launches("dense_topk")
         for k in TOPK_KS:
             got = dt.dense_topk(o, d, table, k, st, sd, act)
             torch.cuda.synchronize()
@@ -5198,16 +5194,16 @@ def topk_ks(dt, dev, card) -> dict:
         kept = (want[2] > 0).sum(-1)
         log(f"phase 14a {name}: dense_topk at K = "
             f"{', '.join(map(str, TOPK_KS))} bit-equal to the plain version "
-            f"(R={o.shape[0]}, N={n}; {dt.TOPK_LAUNCHES} launches: one a "
-            f"K, and K=2048's lists in global memory, a chunk of rays a "
-            f"launch); contributions a ray: mean "
+            f"(R={o.shape[0]}, N={n}; {launch.launches['dense_topk']} "
+            f"launches: one a K, and K=2048's lists in global memory, a "
+            f"chunk of rays a launch); contributions a ray: mean "
             f"{float(kept.float().mean()):.1f}"
             f", max {int(kept.max())}, {int((kept > 64).sum())} rays above "
             f"K=64; {time.perf_counter() - t0:.1f} s")
         if name not in timed:
             continue
         t0 = time.perf_counter()
-        cnt = dto.cull_counts(dt, o, d, table, st, supers=True)
+        cnt = tch.cull_counts(dt, o, d, table, st, supers=True)
         cnt["contributing"] = contributing_pairs(dt, o, d, table.rows, st)
         log(f"phase 14a {name}: " + topk_counts_line(cnt) + f"; counted in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -5231,11 +5227,11 @@ def topk_ks(dt, dev, card) -> dict:
     del ch, table, scene, chunks, want
     # K = N: the lists in global memory, every contribution of a ray kept.
     small, light, cam = pt_world(TOPK_N_SMALL, 800, 800, dev)
-    ch = dto.dense_chunks(dt, small, light, cam, st, PT_CHUNK)
+    ch = tch.dense_chunks(dt, small, light, cam, st, PT_CHUNK)
     for name, ro, rd in ch["topk"]:
-        before = dt.TOPK_LAUNCHES
+        before = launch.launches["dense_topk"]
         got = dt.dense_topk(ro, rd, ch["table"], TOPK_N_SMALL, st)
-        launches = dt.TOPK_LAUNCHES - before
+        launches = launch.launches["dense_topk"] - before
         want = dt.dense_topk_plain(ro, rd, ch["table"].rows, TOPK_N_SMALL, st)
         torch.cuda.synchronize()
         topk_equal(got, want, f"14a {name}, K=N={TOPK_N_SMALL}")
@@ -5272,7 +5268,7 @@ def grid_wide_checks(gm, gt, capture, dev, card) -> dict:
     from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
         BinningConfig,
     )
-    from pathtracer_gaussiansplatting_tpu_torch.tools.grid_march_lanes import (
+    from pathtracer_gaussiansplatting_tpu_torch.tools.chunks import (
         march_chunks,
     )
 
@@ -5387,7 +5383,7 @@ def tile_size_checks(tc, gm, dt, scene, cam, key, card) -> dict:
                          f"{kern} {n} ({smem} B)"
                          for kern, (n, smem) in occ.items()))
         log(f"phase 14c tile size {ts} (T={dirs.shape[0]}, P={p}): {plan}")
-        before = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES)
+        before = read_counts()
         got = tc.tile_composite(packets, dirs, settings)
         want = tc.tile_composite_plain(packets, dirs, settings)
         torch.cuda.synchronize()
@@ -5418,7 +5414,7 @@ def tile_size_checks(tc, gm, dt, scene, cam, key, card) -> dict:
             f"alpha > 0; {bound_text(bnds['fwd'], ms)}")
         bwd = bwd_check(tc, packets, dirs, settings, f"tile size {ts}", card,
                         phase="14c")
-        after = dict(read_counts(tc, gm, dt), bwd=tc.BWD_LAUNCHES)
+        after = read_counts()
         launched = {name: after[name] - before[name] for name in after
                     if after[name] != before[name]}
         planned = dict(one_block=("fwd", "bwd"),
@@ -5460,14 +5456,14 @@ def tile32_paths(tc, gm, dt, scene, cam, small, small_cam, key, dev,
 
     settings = RenderSettings(background=(0.1, 0.2, 0.3))
     cfg = BinningConfig(max_per_tile=256, tile_size=32)
-    reset_counts(tc, gm, dt)
+    reset_counts()
     packets, prep_ms = host_ms(lambda: prepare_tiles(scene, cam, settings,
                                                      cfg))
     out, ms = host_ms(lambda: render_prepared(
         packets, cam, settings, cfg, outputs=("color",),
         jitter=rng.subpixel_jitter(key, cam.height, cam.width, 0,
                                    device=dev)))
-    frame = read_counts(tc, gm, dt)
+    frame = read_counts()
     img = out["color"].cpu().numpy()
     check(frame["fwd_any"] == 1 and frame["fwd"] == 0,
           f"14d: the headline frame at tile size 32 launched {frame}")
@@ -5476,11 +5472,11 @@ def tile32_paths(tc, gm, dt, scene, cam, small, small_cam, key, dev,
           f"14d: the headline frame at tile size 32: shape {img.shape}, "
           f"mean {img.mean()}")
     small_cfg = BinningConfig(max_per_tile=512, tile_size=32)
-    reset_counts(tc, gm, dt)
+    reset_counts()
     slice_err = small_slice_check(small, small_cam, small_cfg, settings, key,
                                   dev)
     fit = stepwise_train_check(small, small_cam, small_cfg, settings, dev)
-    small_counts = read_counts(tc, gm, dt)
+    small_counts = read_counts()
     check(small_counts["fwd_any"] > 0 and small_counts["bwd_any"] > 0
           and small_counts["fwd"] == 0,
           f"14d: the small slice and fit at tile size 32 launched "
@@ -5604,14 +5600,14 @@ def cli_dense_k256(cli, dt, dev, card) -> int:
                     "objects": [{"model": "room.ply"}]}, fh)
             imgs, launches = [], {}
             for device in (dev, torch.device("cpu")):
-                dt.TOPK_LAUNCHES = 0
+                zero_launches("dense_topk")
                 with HostTimer(cli, "save_png", keep=True) as png:
                     run_cli(cli, ["render", "--scene", cfg, "--output",
                                   os.path.join(root, f"{device.type}.png"),
                                   "--backend", "dense", "--max-contribs",
                                   "256", "--spp", "2", "--device",
                                   device.type])
-                launches[device.type] = dt.TOPK_LAUNCHES
+                launches[device.type] = launch.launches["dense_topk"]
                 imgs.append(torch.from_numpy(np.asarray(png.calls[0][0][1],
                                                         np.float32)))
             check(launches["cuda"] > 0 and launches["cpu"] == 0,
@@ -5783,7 +5779,7 @@ def main() -> int:
     del packets, got, want
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tc.LAUNCHES = k5.LAUNCHES = 0
+    zero_launches("tile_fwd", "threefry")
     packets, prep_ms = host_ms(
         lambda: prepare_tiles(scene, cam, settings, cfg))
     acc = torch.zeros((res, res, 3), device=dev)
@@ -5796,7 +5792,7 @@ def main() -> int:
             return accumulate(acc, out["color"], f)
         acc, ms = host_ms(sample)
         sample_ms.append(ms)
-    launches_p2, rng_p2 = tc.LAUNCHES, k5.LAUNCHES
+    launches_p2, rng_p2 = launch_counts("tile_fwd", "threefry")
     check(launches_p2 == n_samples,
           f"phase 2 launched the kernel {launches_p2} times, not {n_samples}")
     check(rng_p2 == n_samples, f"phase 2 launched threefry_uniforms {rng_p2} "
@@ -5818,7 +5814,7 @@ def main() -> int:
     log(f"phase 2: 1M Gaussians, {res}x{res}, K=256: prepare {prep_ms:.1f} ms"
         f" (first), {prep2_ms:.1f} ms (median of 3 more); samples "
         f"{n_samples}: first {sample_ms[0]:.2f} ms, median of the rest "
-        f"{med:.2f} ms; LAUNCHES {launches_p2}, threefry_uniforms {rng_p2}; "
+        f"{med:.2f} ms; tile_fwd {launches_p2}, threefry_uniforms {rng_p2}; "
         f"({card})")
     log(f"phase 2: amortized over {spp} spp: {amortized:.4e} rays/s; "
         f"per-sample {rays / (med * 1e-3):.4e} rays/s; mean tile count "
@@ -5857,7 +5853,7 @@ def main() -> int:
         f"{bound_text(pt_bnds['fwd'], pt_kernel_ms)}")
     del got, want
 
-    tc.LAUNCHES = k5.LAUNCHES = 0
+    zero_launches("tile_fwd", "threefry")
     pt_packets, pt_prep_ms = host_ms(
         lambda: prepare_tiles(pt_scene, pt_cam, pt_settings, pt_cfg))
     pt_acc = torch.zeros((1080, 1920, 3), device=dev)
@@ -5870,7 +5866,7 @@ def main() -> int:
             return accumulate(pt_acc, out["color"], f)
         pt_acc, ms = host_ms(pt_sample)
         pt_ms.append(ms)
-    launches_p3, rng_p3 = tc.LAUNCHES, k5.LAUNCHES
+    launches_p3, rng_p3 = launch_counts("tile_fwd", "threefry")
     check(launches_p3 == 4,
           f"phase 3 launched the kernel {launches_p3} times, not 4")
     check(rng_p3 == 4, f"phase 3 launched threefry_uniforms {rng_p3} times, "
@@ -5885,7 +5881,7 @@ def main() -> int:
                 if k.startswith("stat_")}
     log(f"phase 3: 500k surface Gaussians, 1920x1080, K=512: prepare "
         f"{pt_prep_ms:.1f} ms; samples {', '.join(f'{m:.2f}' for m in pt_ms)}"
-        f" ms (median {statistics.median(pt_ms[1:]):.2f}); LAUNCHES "
+        f" ms (median {statistics.median(pt_ms[1:]):.2f}); tile_fwd "
         f"{launches_p3}, threefry_uniforms {rng_p3}; ({card})")
     log(f"phase 3: binning stats {json.dumps(pt_stats)}; mean tile count "
         f"{float(pt_packets['count'].mean()):.1f} of 512")
@@ -5973,7 +5969,7 @@ def main() -> int:
     from pathtracer_gaussiansplatting_tpu_torch.render.pipeline import (
         make_trace_backend,
     )
-    from pathtracer_gaussiansplatting_tpu_torch.tools.grid_march_lanes import (
+    from pathtracer_gaussiansplatting_tpu_torch.tools.chunks import (
         march_chunks,
     )
     from pathtracer_gaussiansplatting_tpu_torch.utils import metrics

@@ -150,7 +150,7 @@ def chunk_schedule(packets, dirs, settings):
     whose T sits within the margin is in neither set."""
     count, geom, featsT = packets["count"], packets["geom"], packets["featsT"]
     k = geom.shape[-1]
-    kc = tc._chunk_size(k)
+    kc = tc.chunk_size(k)
     tmin = settings.transmittance_min
     no_skip = count > 0
     skip_from = torch.full_like(count, k // kc, dtype=torch.long)

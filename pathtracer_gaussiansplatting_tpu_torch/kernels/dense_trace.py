@@ -9,15 +9,15 @@ the active mask of ``render/pipeline.py:_dense_vis``). Both evaluate the
 Gaussians from one (N, 16) table, :func:`gaussian_table`.
 
 For CUDA tensors they launch the CUDA kernels ``csrc/dense_topk.cu``
-(counted in ``TOPK_LAUNCHES``: a warp a ray, its list in shared or global
-memory, for every K) and ``csrc/dense_visibility.cu`` (counted in
-``VIS_LAUNCHES``); for CPU tensors they run ``dense_topk_plain`` and
-``dense_visibility_plain``, the unculled math. ``dense_visibility_pairs``
-(the shadow product with the list of its pairs with alpha > 0, for its
-gradient) launches the visibility kernel in its two listing modes (counted
-in ``VIS_PAIR_LAUNCHES``), or runs ``dense_visibility_pairs_plain``. There is no fallback from
-the card to the plain versions: a CUDA input either launches the kernel or
-raises.
+(counted in ``launch.launches`` under "dense_topk": a warp a ray, its list
+in shared or global memory, for every K) and ``csrc/dense_visibility.cu``
+(under "dense_visibility"); for CPU tensors they run ``dense_topk_plain``
+and ``dense_visibility_plain``, the unculled math.
+``dense_visibility_pairs`` (the shadow product with the list of its pairs
+with alpha > 0, for its gradient) launches the visibility kernel in its
+two listing modes (under "dense_visibility_pairs"), or runs
+``dense_visibility_pairs_plain``. There is no fallback from the card to
+the plain versions: a CUDA input either launches the kernel or raises.
 
 The kernels skip a pair whose mean lies farther from the ray's line than
 the Gaussian can reach (:func:`dense_cull_keep` is the same predicate in
@@ -34,14 +34,13 @@ exactly 1.
 
 ``dense_composite`` composites the top-K lists with the Gaussians' shading
 features from a per-Gaussian table (:func:`composite_table`): on CUDA
-tensors the kernel ``csrc/dense_composite.cu`` (counted in
-``COMPOSITE_LAUNCHES``: a warp a ray, only the filled entries read), on CPU
+tensors the kernel ``csrc/dense_composite.cu`` (counted under
+"dense_composite": a warp a ray, only the filled entries read), on CPU
 tensors ``dense_composite_plain``, the gathers, SH, normal flip, cumprod
 and weighted sums of ``render/reference.trace_dense`` in torch.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import math
 from typing import Optional, Union
@@ -52,9 +51,7 @@ from pathtracer_gaussiansplatting_tpu_torch.core import sh as sh_mod
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     GaussianScene, RenderSettings,
 )
-from pathtracer_gaussiansplatting_tpu_torch.kernels.tile_composite import (
-    _kernel_fn, _on_cpu,
-)
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as gops
 from pathtracer_gaussiansplatting_tpu_torch.ops.composite import (
     composite_weights,
@@ -76,12 +73,6 @@ LIST_SCRATCH_BYTES = 1 << 30
 # SUPER_GROUPS consecutive groups' spheres, in the same columns.
 GROUP_ROWS, GROUP_COLS, SUPER_GROUPS = 32, 8, 32
 
-TOPK_LAUNCHES = 0  # dense_topk kernel launches; read by chip_smoke.py
-VIS_LAUNCHES = 0   # dense_visibility kernel launches; read by chip_smoke.py
-# dense_visibility_pairs' launches of the same kernel (two a call: the
-# counts, then the pairs); read by chip_smoke.py
-VIS_PAIR_LAUNCHES = 0
-COMPOSITE_LAUNCHES = 0  # dense_composite kernel launches; read by chip_smoke
 # dense_composite's outputs a ray: the transmittance, then the weighted
 # sums of SH colour (3), emission (3), the viewer-facing normal (3), t and
 # the five materials (metallic, roughness, clearcoat, its roughness,
@@ -416,31 +407,11 @@ def dense_super_keep(origins: torch.Tensor, dirs: torch.Tensor,
     return _sphere_keep(origins, dirs, table.supers, settings, None)
 
 
-def _check(name: str, tensors: dict, expect: dict) -> None:
-    for key, x in tensors.items():
-        dtype = dict(active=torch.bool, order=torch.int32).get(
-            key, torch.float32)
-        if tuple(x.shape) != expect[key] or x.dtype != dtype \
-                or not x.is_contiguous():
-            raise ValueError(
-                f"{name}: {key} must be a contiguous {dtype} tensor of shape "
-                f"{expect[key]}, got {x.dtype} {tuple(x.shape)} "
-                f"contiguous={x.is_contiguous()}")
-    # The kernels stage the rows with 16-byte copies.
-    if tensors["sorted_rows"].data_ptr() % 16:
-        raise ValueError(f"{name}: the sorted rows must start on a 16-byte "
-                         f"boundary")
-
-
-def _ptr(x: Optional[torch.Tensor]):
-    return None if x is None else x.data_ptr()
-
-
 def _dense(name: str, table, tensors: dict):
     """(the table's rows, its DenseTable on the card or None on the CPU);
     a bare (N, 16) table is staged here, on every call."""
     rows = table.rows if isinstance(table, DenseTable) else table
-    if _on_cpu(name, dict(tensors, table=rows)):
+    if launch.on_cpu(name, dict(tensors, table=rows)):
         return rows, None
     return rows, table if isinstance(table, DenseTable) else dense_table(rows)
 
@@ -453,20 +424,14 @@ def _check_table(name: str, dtab: DenseTable, tensors: dict,
     tensors = dict(tensors, rows=dtab.rows, sorted_rows=dtab.sorted_rows,
                    order=dtab.order, groups=dtab.groups, supers=dtab.supers,
                    cull=dtab.cull)
-    _check(name, tensors, dict(
+    # The kernels stage the sorted rows with 16-byte copies.
+    launch.check(name, tensors, dict(
         expect, rows=(n, TABLE_COLS), sorted_rows=(n, TABLE_COLS),
         order=(n,), groups=(n_groups, GROUP_COLS),
-        supers=(-(-n_groups // SUPER_GROUPS), GROUP_COLS), cull=(5, n)))
+        supers=(-(-n_groups // SUPER_GROUPS), GROUP_COLS), cull=(5, n)),
+        dtypes=dict(active=torch.bool, order=torch.int32),
+        aligned=("sorted_rows",))
 
-
-_TOPK_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-                  + [ctypes.c_float] * 5 + [ctypes.c_void_p])
-_VIS_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
-                 + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-_VIS_COUNT_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-_VIS_PAIRS_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
 
 Table = Union[torch.Tensor, DenseTable]
 
@@ -486,7 +451,6 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: Table,
     for the card); 1 <= k <= N; sort_depths (N,) to order by in place of
     t; active (R,) bool.
     """
-    global TOPK_LAUNCHES
     tensors = dict(origins=origins, dirs=dirs)
     if sort_depths is not None:
         tensors["sort_depths"] = sort_depths
@@ -512,7 +476,7 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: Table,
         else sort_depths.index_select(0, dtab.order)
     table_args = (rows.data_ptr(), dtab.sorted_rows.data_ptr(),
                   dtab.order.data_ptr(), dtab.groups.data_ptr(),
-                  dtab.supers.data_ptr(), dtab.cull.data_ptr(), _ptr(sd))
+                  dtab.supers.data_ptr(), dtab.cull.data_ptr(), launch.ptr(sd))
     params = (settings.t_min, settings.t_max, settings.alpha_min,
               settings.alpha_max, _gval_cut(settings))
     # Lists past LIST_SHARED_MAX_K live in a (rays, 2K) int64 scratch, a
@@ -521,24 +485,16 @@ def dense_topk(origins: torch.Tensor, dirs: torch.Tensor, table: Table,
     if k > LIST_SHARED_MAX_K:
         step = max(1, min(r, LIST_SCRATCH_BYTES // (16 * k)))
         lists = torch.empty((step, 2 * k), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for s in range(0, r, step):
-            e = min(s + step, r)
-            err = _kernel_fn("ptgs_dense_topk", _TOPK_ARGTYPES)(
-                origins[s:e].data_ptr(), dirs[s:e].data_ptr(), *table_args,
-                _ptr(None if active is None else active[s:e]), _ptr(lists),
-                idx[s:e].data_ptr(), t[s:e].data_ptr(), alpha[s:e].data_ptr(),
-                e - s, n, k, *params, stream)
-            _raise_on("dense_topk", err)
-            TOPK_LAUNCHES += 1
+    for s in range(0, r, step):
+        e = min(s + step, r)
+        launch.launch(
+            "dense_topk", "ptgs_dense_topk", origins[s:e].data_ptr(),
+            dirs[s:e].data_ptr(), *table_args,
+            launch.ptr(None if active is None else active[s:e]),
+            launch.ptr(lists), idx[s:e].data_ptr(), t[s:e].data_ptr(),
+            alpha[s:e].data_ptr(), e - s, n, k, *params, device=dev,
+            count="dense_topk")
     return idx, t, alpha
-
-
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
 
 
 def dense_visibility(origins: torch.Tensor, dirs: torch.Tensor,
@@ -549,7 +505,6 @@ def dense_visibility(origins: torch.Tensor, dirs: torch.Tensor,
     :func:`dense_visibility_plain`; ``table`` as for :func:`dense_topk`).
     CPU tensors run the plain version; CUDA tensors launch
     ``csrc/dense_visibility.cu``."""
-    global VIS_LAUNCHES
     tensors = dict(origins=origins, dirs=dirs, t_end=t_end)
     if active is not None:
         tensors["active"] = active
@@ -563,17 +518,12 @@ def dense_visibility(origins: torch.Tensor, dirs: torch.Tensor,
     vis = torch.empty((r,), dtype=torch.float32, device=origins.device)
     if r == 0 or n == 0:
         return vis.fill_(1.0)
-    with torch.cuda.device(origins.device):
-        stream = torch.cuda.current_stream(origins.device).cuda_stream
-        err = _kernel_fn("ptgs_dense_visibility", _VIS_ARGTYPES)(
-            origins.data_ptr(), dirs.data_ptr(), t_end.data_ptr(),
-            dtab.sorted_rows.data_ptr(), dtab.groups.data_ptr(), _ptr(active),
-            vis.data_ptr(), r, n, settings.t_min, settings.alpha_min,
-            settings.alpha_max, stream)
-    if err != 0:
-        raise RuntimeError(f"dense_visibility: kernel launch failed with "
-                           f"CUDA error {err}")
-    VIS_LAUNCHES += 1
+    launch.launch("dense_visibility", "ptgs_dense_visibility",
+                  origins.data_ptr(), dirs.data_ptr(), t_end.data_ptr(),
+                  dtab.sorted_rows.data_ptr(), dtab.groups.data_ptr(),
+                  launch.ptr(active), vis.data_ptr(), r, n, settings.t_min,
+                  settings.alpha_min, settings.alpha_max,
+                  device=origins.device, count="dense_visibility")
     return vis
 
 
@@ -589,7 +539,6 @@ def dense_visibility_pairs(origins: torch.Tensor, dirs: torch.Tensor,
     ``csrc/dense_visibility.cu`` twice: its counting mode (vis and each
     segment's count), then, at the counts' prefix sum, its listing mode.
     Every pair is listed: the list is sized from the counts."""
-    global VIS_PAIR_LAUNCHES
     tensors = dict(origins=origins, dirs=dirs, t_end=t_end)
     if active is not None:
         tensors["active"] = active
@@ -607,30 +556,21 @@ def dense_visibility_pairs(origins: torch.Tensor, dirs: torch.Tensor,
         empty = torch.zeros((0,), dtype=torch.int64, device=dev)
         return vis, empty, empty
     args = (settings.t_min, settings.alpha_min, settings.alpha_max)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn("ptgs_dense_visibility_count", _VIS_COUNT_ARGTYPES)(
-            origins.data_ptr(), dirs.data_ptr(), t_end.data_ptr(),
-            dtab.sorted_rows.data_ptr(), dtab.groups.data_ptr(), _ptr(active),
-            vis.data_ptr(), counts.data_ptr(), r, n, *args, stream)
-        if err != 0:
-            raise RuntimeError(f"dense_visibility_pairs: count launch failed "
-                               f"with CUDA error {err}")
-        VIS_PAIR_LAUNCHES += 1
-        ends = torch.cumsum(counts, 0, dtype=torch.int64)
-        offsets = (ends - counts).contiguous()
-        gid = torch.empty((int(ends[-1]),), dtype=torch.int32, device=dev)
-        if gid.numel():
-            err = _kernel_fn("ptgs_dense_visibility_pairs",
-                             _VIS_PAIRS_ARGTYPES)(
-                origins.data_ptr(), dirs.data_ptr(), t_end.data_ptr(),
-                dtab.sorted_rows.data_ptr(), dtab.groups.data_ptr(),
-                dtab.order.data_ptr(), _ptr(active), offsets.data_ptr(),
-                gid.data_ptr(), r, n, *args, stream)
-            if err != 0:
-                raise RuntimeError(f"dense_visibility_pairs: pair launch "
-                                   f"failed with CUDA error {err}")
-            VIS_PAIR_LAUNCHES += 1
+    launch.launch("dense_visibility_pairs", "ptgs_dense_visibility_count",
+                  origins.data_ptr(), dirs.data_ptr(), t_end.data_ptr(),
+                  dtab.sorted_rows.data_ptr(), dtab.groups.data_ptr(),
+                  launch.ptr(active), vis.data_ptr(), counts.data_ptr(), r, n,
+                  *args, device=dev, count="dense_visibility_pairs")
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    offsets = (ends - counts).contiguous()
+    gid = torch.empty((int(ends[-1]),), dtype=torch.int32, device=dev)
+    if gid.numel():
+        launch.launch("dense_visibility_pairs", "ptgs_dense_visibility_pairs",
+                      origins.data_ptr(), dirs.data_ptr(), t_end.data_ptr(),
+                      dtab.sorted_rows.data_ptr(), dtab.groups.data_ptr(),
+                      dtab.order.data_ptr(), launch.ptr(active),
+                      offsets.data_ptr(), gid.data_ptr(), r, n, *args,
+                      device=dev, count="dense_visibility_pairs")
     seg = torch.repeat_interleave(
         torch.arange(r, device=dev), counts.long(), output_size=gid.numel())
     return vis, seg, gid.long()
@@ -697,10 +637,6 @@ def dense_composite_plain(idx: torch.Tensor, t: torch.Tensor,
                       torch.einsum("rk,rkf->rf", weights, feats)], dim=-1)
 
 
-_COMPOSITE_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 2)
-
-
 def dense_composite(idx: torch.Tensor, t: torch.Tensor, alpha: torch.Tensor,
                     dirs: torch.Tensor, table: torch.Tensor,
                     degree: int) -> torch.Tensor:
@@ -711,37 +647,22 @@ def dense_composite(idx: torch.Tensor, t: torch.Tensor, alpha: torch.Tensor,
     tensors run the plain version; CUDA tensors launch
     ``csrc/dense_composite.cu`` (one launch; the same outputs up to the
     order of the sums, and the same bits launch to launch)."""
-    global COMPOSITE_LAUNCHES
-    tensors = dict(t=t, alpha=alpha, dirs=dirs, table=table)
-    if _on_cpu("dense_composite", dict(tensors, idx=idx)):
+    tensors = dict(t=t, alpha=alpha, dirs=dirs, table=table, idx=idx)
+    if launch.on_cpu("dense_composite", tensors):
         return dense_composite_plain(idx, t, alpha, dirs, table, degree)
     r, k = idx.shape
     if not 0 <= degree <= 3:
         raise ValueError(f"dense_composite: SH degree {degree} not in 0-3")
-    cols = composite_cols(degree)
-    expect = dict(t=(r, k), alpha=(r, k), dirs=(r, 3),
-                  table=(table.shape[0], cols))
-    for key, x in dict(tensors, idx=idx).items():
-        dtype = torch.int32 if key == "idx" else torch.float32
-        shape = (r, k) if key == "idx" else expect[key]
-        if tuple(x.shape) != shape or x.dtype != dtype \
-                or not x.is_contiguous():
-            raise ValueError(
-                f"dense_composite: {key} must be a contiguous {dtype} tensor "
-                f"of shape {shape}, got {x.dtype} {tuple(x.shape)} "
-                f"contiguous={x.is_contiguous()}")
-    if table.data_ptr() % 16:
-        raise ValueError("dense_composite: the table must start on a "
-                         "16-byte boundary")
+    launch.check("dense_composite", tensors, dict(
+        t=(r, k), alpha=(r, k), dirs=(r, 3),
+        table=(table.shape[0], composite_cols(degree)), idx=(r, k)),
+        dtypes=dict(idx=torch.int32), aligned=("table",))
     out = torch.empty((r, COMPOSITE_OUT), dtype=torch.float32,
                       device=idx.device)
     if r == 0:
         return out
-    with torch.cuda.device(idx.device):
-        stream = torch.cuda.current_stream(idx.device).cuda_stream
-        err = _kernel_fn("ptgs_dense_composite", _COMPOSITE_ARGTYPES)(
-            idx.data_ptr(), t.data_ptr(), alpha.data_ptr(), dirs.data_ptr(),
-            table.data_ptr(), r, k, degree, out.data_ptr(), stream)
-    _raise_on("dense_composite", err)
-    COMPOSITE_LAUNCHES += 1
+    launch.launch("dense_composite", "ptgs_dense_composite", idx.data_ptr(),
+                  t.data_ptr(), alpha.data_ptr(), dirs.data_ptr(),
+                  table.data_ptr(), r, k, degree, out.data_ptr(),
+                  device=idx.device, count="dense_composite")
     return out

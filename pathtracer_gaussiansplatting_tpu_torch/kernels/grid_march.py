@@ -4,11 +4,11 @@ Counterpart of the march of
 ``pathtracer_gaussiansplatting_tpu/render/grid_trace.py`` (``trace_grid``
 :1060 and ``visibility_grid`` :1109, plain XLA there, not Pallas).
 :func:`march_kernel` launches ``ptgs_grid_trace`` (features into the 15
-sums of ``render.grid_trace.ACC_KEYS``, counted in ``TRACE_LAUNCHES``) or
-``ptgs_grid_visibility`` (geometry only, shadow segments, counted in
-``VIS_LAUNCHES``); above ``REG_KC`` slots a cell the kernel's wide
-instantiation runs instead, counted in ``TRACE_WIDE_LAUNCHES`` and
-``VIS_WIDE_LAUNCHES``. It bounds each cell's work by the slots the cell
+sums of ``render.grid_trace.ACC_KEYS``, counted in ``launch.launches``
+under "grid_trace") or ``ptgs_grid_visibility`` (geometry only, shadow
+segments, under "grid_visibility"); above ``REG_KC`` slots a cell the
+kernel's wide instantiation runs instead, under "grid_trace_wide" and
+"grid_visibility_wide". It bounds each cell's work by the slots the cell
 holds (``GridAccel.fill``): a feature trace's cell of at most 64 slots on
 the register walk, a fuller one in shared memory sized by the table's
 largest fill, a segment's cell in passes of its lanes. The dispatch, and
@@ -39,39 +39,11 @@ from typing import Optional
 import torch
 
 from pathtracer_gaussiansplatting_tpu_torch.core.types import RenderSettings
-from pathtracer_gaussiansplatting_tpu_torch.kernels.tile_composite import (
-    _kernel_fn, _on_cpu,
-)
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 
-TRACE_LAUNCHES = 0  # ptgs_grid_trace launches; read by chip_smoke.py
-VIS_LAUNCHES = 0    # ptgs_grid_visibility launches; read by chip_smoke.py
 N_SUMS = 15         # the per-ray sums of a feature trace
 MAX_ROUNDS = 8      # rounds the kernel's schedule holds
 REG_KC = 128        # max_per_cell up to which a lane's slots are registers
-TRACE_WIDE_LAUNCHES = 0  # the wide instantiations' launches; read by
-VIS_WIDE_LAUNCHES = 0    # chip_smoke.py
-
-_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 8
-             + [ctypes.c_float] * 7 + [ctypes.c_void_p])
-
-
-def _check(tensors: dict, r: int) -> None:
-    shapes = dict(origins=(r, 3), dirs=(r, 3), t_end=(r,), active=(r,),
-                  fill=tensors["geom"].shape[:1])
-    for key, x in tensors.items():
-        dtype = dict(active=torch.bool, btab=torch.int32,
-                     fill=torch.int32).get(key, torch.float32)
-        shape = shapes.get(key, tuple(x.shape))
-        if x.dtype != dtype or not x.is_contiguous() \
-                or tuple(x.shape) != shape:
-            raise ValueError(
-                f"grid_march: {key} must be a contiguous {dtype} tensor of "
-                f"shape {shape}, got {x.dtype} {tuple(x.shape)} "
-                f"contiguous={x.is_contiguous()}")
-
-
-def _ptr(x: Optional[torch.Tensor]):
-    return None if x is None else x.data_ptr()
 
 
 def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
@@ -84,8 +56,6 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
     GridAccel``; ``rounds`` the clipped schedule's (frac, M, a_max, a_exit)
     entries, of which the kernel reads M and a_max (see the module
     docstring). CPU tensors raise: they go to the plain march."""
-    global TRACE_LAUNCHES, VIS_LAUNCHES, TRACE_WIDE_LAUNCHES
-    global VIS_WIDE_LAUNCHES
     tensors = dict(origins=origins, dirs=dirs, btab=accel.btab,
                    geom=accel.geom, packet=accel.packet, fill=accel.fill,
                    lo=accel.lo, hi=accel.hi)
@@ -93,7 +63,7 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
         tensors["t_end"] = t_end
     if active is not None:
         tensors["active"] = active
-    if _on_cpu("grid_march", tensors):
+    if launch.on_cpu("grid_march", tensors):
         raise ValueError("grid_march: CPU tensors run the plain march, "
                          "render.grid_trace.march_plain")
     # Rays may arrive as expanded views (one camera origin for all).
@@ -103,7 +73,11 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
     if t_end is not None:
         tensors["t_end"] = t_end
     r = origins.shape[0]
-    _check(tensors, r)
+    # The cell tables' shapes follow the accel; the rays' and fill's are set.
+    launch.check("grid_march", tensors, dict(
+        {key: x.shape for key, x in tensors.items()}, origins=(r, 3),
+        dirs=(r, 3), t_end=(r,), active=(r,), fill=accel.geom.shape[:1]),
+        dtypes=dict(active=torch.bool, btab=torch.int32, fill=torch.int32))
     kc = accel.max_per_cell
     # The wide instantiation's shared region: slots of the fullest cell.
     wide_slots = accel.max_fill if kc > REG_KC else 0
@@ -121,29 +95,17 @@ def march_kernel(accel, origins: torch.Tensor, dirs: torch.Tensor,
         return trans, acc, frozen
     table = accel.packet if with_features else accel.geom
     cols = table.shape[1] // kc
-    name = "ptgs_grid_trace" if with_features else "ptgs_grid_visibility"
+    kernel = "grid_trace" if with_features else "grid_visibility"
     gx, gy, gz = accel.dims
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn(name, _ARGTYPES)(
-            origins.data_ptr(), dirs.data_ptr(), _ptr(t_end), _ptr(active),
-            accel.btab.data_ptr(), table.data_ptr(), accel.fill.data_ptr(),
-            accel.lo.data_ptr(), accel.hi.data_ptr(),
-            ctypes.addressof(sched), trans.data_ptr(), _ptr(acc),
-            frozen.data_ptr(), r, len(rounds), gx, gy, gz, kc, cols,
-            wide_slots, settings.t_min, settings.t_max,
-            settings.alpha_min, settings.alpha_max,
-            math.exp(-0.5 * settings.sigma_cut * settings.sigma_cut),
-            settings.transmittance_min, accel.jump_unit, stream)
-    if err != 0:
-        raise RuntimeError(f"grid_march: {name} launch failed with CUDA "
-                           f"error {err}")
-    if with_features and kc > REG_KC:
-        TRACE_WIDE_LAUNCHES += 1
-    elif with_features:
-        TRACE_LAUNCHES += 1
-    elif kc > REG_KC:
-        VIS_WIDE_LAUNCHES += 1
-    else:
-        VIS_LAUNCHES += 1
+    launch.launch(
+        "grid_march", f"ptgs_{kernel}", origins.data_ptr(), dirs.data_ptr(),
+        launch.ptr(t_end), launch.ptr(active), accel.btab.data_ptr(),
+        table.data_ptr(), accel.fill.data_ptr(), accel.lo.data_ptr(),
+        accel.hi.data_ptr(), ctypes.addressof(sched), trans.data_ptr(),
+        launch.ptr(acc), frozen.data_ptr(), r, len(rounds), gx, gy, gz, kc,
+        cols, wide_slots, settings.t_min, settings.t_max, settings.alpha_min,
+        settings.alpha_max,
+        math.exp(-0.5 * settings.sigma_cut * settings.sigma_cut),
+        settings.transmittance_min, accel.jump_unit, device=dev,
+        count=kernel + ("_wide" if kc > REG_KC else ""))
     return trans, acc, frozen

@@ -5,7 +5,7 @@ Counterpart of ``jax.random.uniform`` as the reference calls it in
 not Pallas). :func:`threefry_uniforms` launches ``ptgs_threefry_uniforms``
 once for a table of draws, each an (R, num) block of float32 uniforms
 under its own key, or for one frame's subpixel jitter (``r2`` given),
-counted in ``LAUNCHES``. The keys are folded on the host and go to the
+counted in ``launch.launches`` under "threefry". The keys are folded on the host and go to the
 kernel by value, as a launch parameter. The dispatch, and the plain
 version that CPU tensors run, are ``core.rng.bounce_uniforms`` /
 ``uniforms_plain`` and ``subpixel_jitter`` / ``jitter_plain``.
@@ -17,16 +17,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from pathtracer_gaussiansplatting_tpu_torch.kernels.tile_composite import (
-    _kernel_fn, _on_cpu,
-)
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 
-LAUNCHES = 0   # ptgs_threefry_uniforms launches; read by chip_smoke.py
 MAX_DIMS = 16  # draws one launch takes (a bounce draws at most 9)
-
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-             ctypes.c_void_p]
 
 
 def threefry_uniforms(keys: Sequence[Tuple[int, int]], nums: Sequence[int],
@@ -39,7 +32,6 @@ def threefry_uniforms(keys: Sequence[Tuple[int, int]], nums: Sequence[int],
     (the frame's two float32 R2 offsets) the one draw (r, 2) is the
     subpixel jitter, (u + r2) modulo 1. The CPU raises: it runs the plain
     version, ``core.rng.uniforms_plain``."""
-    global LAUNCHES
     if len(keys) != len(nums) or not 0 < len(keys) <= MAX_DIMS:
         raise ValueError(f"threefry: {len(keys)} keys and {len(nums)} nums; "
                          f"one launch takes 1 to {MAX_DIMS} draws")
@@ -50,7 +42,7 @@ def threefry_uniforms(keys: Sequence[Tuple[int, int]], nums: Sequence[int],
         raise ValueError(f"threefry: the jitter is one draw of 2 columns, "
                          f"got nums {list(nums)}")
     out = torch.empty((r * sum(nums),), dtype=torch.float32, device=device)
-    if _on_cpu("threefry", dict(out=out)):
+    if launch.on_cpu("threefry", dict(out=out)):
         raise ValueError("threefry: the CPU runs the plain version, "
                          "core.rng.uniforms_plain")
     if r == 0:
@@ -59,13 +51,8 @@ def threefry_uniforms(keys: Sequence[Tuple[int, int]], nums: Sequence[int],
         *[w & 0xFFFFFFFF for key in keys for w in key])
     cols = (ctypes.c_int * len(nums))(*nums)
     r2x, r2y = (0.0, 0.0) if r2 is None else r2
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream(out.device).cuda_stream
-        err = _kernel_fn("ptgs_threefry_uniforms", _ARGTYPES)(
-            out.data_ptr(), ctypes.addressof(words), ctypes.addressof(cols),
-            len(keys), r, int(r2 is not None), r2x, r2y, stream)
-    if err != 0:
-        raise RuntimeError(f"threefry: ptgs_threefry_uniforms launch failed "
-                           f"with CUDA error {err}")
-    LAUNCHES += 1
+    launch.launch("threefry", "ptgs_threefry_uniforms", out.data_ptr(),
+                  ctypes.addressof(words), ctypes.addressof(cols), len(keys),
+                  r, int(r2 is not None), r2x, r2y, device=out.device,
+                  count="threefry")
     return out

@@ -19,12 +19,13 @@ For CUDA tensors ``tile_composite`` launches the CUDA kernel
 ``csrc/tile_composite_fwd.cu`` and its backward launches
 ``csrc/tile_composite_bwd.cu``, the kernel that :func:`any_p_plan` picks
 for the tile's P pixels: a block a tile, a thread a pixel, where P is a
-multiple of 32 up to 256 (tiles of 16x16 or 8x8; counted in ``LAUNCHES``
-and ``BWD_LAUNCHES``); for any other P up to 2048 (tiles up to 45x45) a
-thread-block cluster a tile, a CTA a group of 256 pixels (``ANY_LAUNCHES``,
-``BWD_ANY_LAUNCHES``); above that a block a tile that takes its pixels in
-groups of 256 (``ANY_GROUP_LAUNCHES``, ``BWD_ANY_GROUP_LAUNCHES``). For CPU
-tensors they run ``tile_composite_plain`` and ``tile_composite_bwd_plain``.
+multiple of 32 up to 256 (tiles of 16x16 or 8x8; counted in
+``launch.launches`` under "tile_fwd" and "tile_bwd"); for any other P up to
+2048 (tiles up to 45x45) a thread-block cluster a tile, a CTA a group of
+256 pixels ("tile_fwd_cluster", "tile_bwd_cluster"); above that a block a
+tile that takes its pixels in groups of 256 ("tile_fwd_group_loop",
+"tile_bwd_group_loop"). For CPU tensors they run ``tile_composite_plain``
+and ``tile_composite_bwd_plain``.
 There is no fallback from the card to the plain versions or from one
 kernel to another: a CUDA input either launches the planned kernel or
 raises, a cluster the card cannot schedule included.
@@ -32,8 +33,8 @@ raises, a cluster the card cannot schedule included.
 The packet gather is the autograd Function ``PacketGather``: its forward
 is the plain gather (the same PyTorch operations on every device), its
 backward on CUDA tensors the deterministic segment sum of
-``csrc/packet_gather.cu`` (:func:`packet_gather_bwd`, counted in
-``GATHER_BWD_LAUNCHES``) and on CPU tensors
+``csrc/packet_gather.cu`` (:func:`packet_gather_bwd`, counted under
+"packet_gather_bwd") and on CPU tensors
 :func:`packet_gather_bwd_plain`, autograd's own transpose of the gather.
 """
 from __future__ import annotations
@@ -46,6 +47,7 @@ import torch
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     GaussianScene, RenderSettings,
 )
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import rotmat_cols
 from pathtracer_gaussiansplatting_tpu_torch.utils import profiling
 
@@ -58,15 +60,6 @@ GEOM_ROWS = 16
 TABLE_GEOM = ROW_OPAC + 1  # the gathered table's geometry columns
 FEATURE_DIM = 14  # the packet features of render.tiled._packet_features
 
-# Launches by kernel, read by chip_smoke.py: the one-block kernels, the
-# cluster kernels and the group-loop kernels (any_p_plan).
-LAUNCHES = 0
-BWD_LAUNCHES = 0
-ANY_LAUNCHES = 0
-BWD_ANY_LAUNCHES = 0
-ANY_GROUP_LAUNCHES = 0
-BWD_ANY_GROUP_LAUNCHES = 0
-GATHER_BWD_LAUNCHES = 0  # packet gather backwards on the card (3 kernels each)
 BLOCK_PIXELS = 256  # a block's threads: one tile of up to 16x16 pixels
 MAX_CLUSTER_CTAS = 8  # the portable cluster size: tiles of up to 2048 pixels
 PLAIN_CHUNK_ELEMS = 1 << 24  # (tiles, P, K) elements per plain-version chunk
@@ -153,12 +146,6 @@ def packet_gather_bwd_plain(d_geom: torch.Tensor, d_featsT: torch.Tensor,
         (tile_idx.long(),), d_rows, accumulate=True)
 
 
-_GATHER_COUNT_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                          + [ctypes.c_void_p] * 2)
-_GATHER_REDUCE_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p] * 7)
-
-
 def packet_gather_bwd(d_geom: torch.Tensor, d_featsT: torch.Tensor,
                       tile_idx: torch.Tensor, tile_mask: torch.Tensor,
                       n: int) -> torch.Tensor:
@@ -172,30 +159,22 @@ def packet_gather_bwd(d_geom: torch.Tensor, d_featsT: torch.Tensor,
 
     CPU tensors go through :func:`packet_gather_bwd_plain`; CUDA tensors
     launch ``csrc/packet_gather.cu``'s three kernels with a cumsum between
-    (one count in ``GATHER_BWD_LAUNCHES``) or raise. While a profiler
+    (one count under "packet_gather_bwd") or raise. While a profiler
     records, counts ``packet_slots`` (T x K) and ``packet_slots_live``.
     """
-    global GATHER_BWD_LAUNCHES
     t_total, k = tile_idx.shape
     profiling.count("packet_slots", t_total * k)
     profiling.count("packet_slots_live", tile_mask)
     tensors = dict(d_geom=d_geom, d_featsT=d_featsT, tile_idx=tile_idx,
                    tile_mask=tile_mask)
-    if _on_cpu("packet_gather_bwd", tensors):
+    if launch.on_cpu("packet_gather_bwd", tensors):
         return packet_gather_bwd_plain(d_geom, d_featsT, tile_idx, tile_mask,
                                        n)
     f = d_featsT.shape[1] if d_featsT.dim() == 3 else -1
-    _check_shapes("packet_gather_bwd", dict(d_geom=d_geom, d_featsT=d_featsT),
-                  {"d_geom": (t_total, GEOM_ROWS, k),
-                   "d_featsT": (t_total, f, k)})
-    if tile_idx.dtype != torch.int32 or tile_mask.dtype != torch.bool \
-            or tuple(tile_mask.shape) != (t_total, k) \
-            or not (tile_idx.is_contiguous() and tile_mask.is_contiguous()):
-        raise ValueError(
-            f"packet_gather_bwd: tile_idx must be contiguous int32 and "
-            f"tile_mask contiguous bool of one shape (T, K), got "
-            f"{tile_idx.dtype} {tuple(tile_idx.shape)}, {tile_mask.dtype} "
-            f"{tuple(tile_mask.shape)}")
+    launch.check("packet_gather_bwd", tensors, dict(
+        d_geom=(t_total, GEOM_ROWS, k), d_featsT=(t_total, f, k),
+        tile_idx=(t_total, k), tile_mask=(t_total, k)),
+        dtypes=dict(tile_idx=torch.int32, tile_mask=torch.bool))
     if TABLE_GEOM + f > 32 or t_total * k >= 2**31 or not 0 < n < 2**31:
         raise ValueError(f"packet_gather_bwd: 11 + F = {TABLE_GEOM + f} "
                          f"columns (at most 32 for a warp's lanes), "
@@ -206,23 +185,15 @@ def packet_gather_bwd(d_geom: torch.Tensor, d_featsT: torch.Tensor,
     seg = torch.empty((t_total * k,), dtype=torch.int32, device=dev)
     d_table = torch.empty((n, TABLE_GEOM + f), dtype=torch.float32,
                           device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn("ptgs_packet_gather_count", _GATHER_COUNT_ARGTYPES)(
-            tile_idx.data_ptr(), tile_mask.data_ptr(), t_total * k, n,
-            cnt.data_ptr(), stream)
-        if err == 0:
-            ends = torch.cumsum(cnt, 0, dtype=torch.int32)
-            err = _kernel_fn("ptgs_packet_gather_reduce",
-                             _GATHER_REDUCE_ARGTYPES)(
-                tile_idx.data_ptr(), tile_mask.data_ptr(), t_total * k, n, k,
-                f, ends.data_ptr(), cnt.data_ptr(), seg.data_ptr(),
-                d_geom.data_ptr(), d_featsT.data_ptr(), d_table.data_ptr(),
-                stream)
-    if err != 0:
-        raise RuntimeError(f"packet_gather_bwd: kernel launch failed with "
-                           f"CUDA error {err}")
-    GATHER_BWD_LAUNCHES += 1
+    launch.launch("packet_gather_bwd", "ptgs_packet_gather_count",
+                  tile_idx.data_ptr(), tile_mask.data_ptr(), t_total * k, n,
+                  cnt.data_ptr(), device=dev, count=None)
+    ends = torch.cumsum(cnt, 0, dtype=torch.int32)
+    launch.launch("packet_gather_bwd", "ptgs_packet_gather_reduce",
+                  tile_idx.data_ptr(), tile_mask.data_ptr(), t_total * k, n,
+                  k, f, ends.data_ptr(), cnt.data_ptr(), seg.data_ptr(),
+                  d_geom.data_ptr(), d_featsT.data_ptr(), d_table.data_ptr(),
+                  device=dev, count="packet_gather_bwd")
     return d_table
 
 
@@ -257,12 +228,12 @@ class PacketGather(torch.autograd.Function):
         return d_table, None, None
 
 
-def _chunk_size(k: int) -> int:
+def chunk_size(k: int) -> int:
     """K-chunk size: 128 slots when K divides evenly, else one chunk."""
     return 128 if k % 128 == 0 else k
 
 
-def _cumprod_excl(x: torch.Tensor) -> torch.Tensor:
+def cumprod_excl(x: torch.Tensor) -> torch.Tensor:
     """Exclusive cumprod along the last axis by Hillis-Steele doubling (the
     reference's expansion, kept for identical rounding)."""
     k = x.shape[-1]
@@ -310,7 +281,7 @@ def _composite_from_ab(a: torch.Tensor, b: torch.Tensor, geom: torch.Tensor,
     from their quadratic forms (:func:`_quadratic_ab`)."""
     t, alpha = _t_alpha(a, b, geom, settings)
     om = 1.0 - alpha
-    excl = _cumprod_excl(om)
+    excl = cumprod_excl(om)
     w = excl * alpha
     out = torch.matmul(w, featsT.transpose(1, 2))               # (B, P, F)
     alpha_acc = 1.0 - excl[..., -1] * om[..., -1]
@@ -376,48 +347,8 @@ def tile_composite_bwd_plain(packets, dirs: torch.Tensor, cot,
     return d_geom, d_featsT, d_dirs if want_dirs else None
 
 
-_FWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-                 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
 _PATH_CODES = {"one_block": 0, "cluster": 1, "group_loop": 2}
 _CLUSTERS = {}  # (kernel, device, P, K, G) -> (max clusters, smem bytes)
-
-
-def _kernel_fn(name: str, argtypes):
-    from pathtracer_gaussiansplatting_tpu_torch.csrc import build
-
-    fn = getattr(build.load(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _on_cpu(name: str, tensors) -> bool:
-    """True for inputs all on the CPU, False for inputs all on one Hopper
-    CUDA device; raises on anything else."""
-    if all(x.device.type == "cpu" for x in tensors.values()):
-        return True
-    dev = next(iter(tensors.values())).device
-    if dev.type != "cuda" or any(x.device != dev for x in tensors.values()):
-        raise ValueError(f"{name}: inputs must all be on the CPU or all on "
-                         f"one CUDA device, got "
-                         f"{[str(x.device) for x in tensors.values()]}")
-    if torch.cuda.get_device_capability(dev) != (9, 0):
-        raise RuntimeError(f"{name}: the kernel is built for sm_90a "
-                           f"(Hopper); {torch.cuda.get_device_name(dev)} "
-                           "is not")
-    return False
-
-
-def _check_shapes(name: str, tensors, expect) -> None:
-    for key, x in tensors.items():
-        if tuple(x.shape) != expect[key] or x.dtype != torch.float32 \
-                or not x.is_contiguous():
-            raise ValueError(
-                f"{name}: {key} must be a contiguous float32 tensor of shape "
-                f"{expect[key]}, got {x.dtype} {tuple(x.shape)} "
-                f"contiguous={x.is_contiguous()}")
 
 
 def any_p_plan(p: int):
@@ -456,14 +387,12 @@ def cluster_occupancy(kernel: str, p: int, k: int, device, g: int = 0):
         n, smem = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(dev):
             if kernel == "fwd":
-                fn = _kernel_fn("ptgs_tile_composite_fwd_clusters",
-                                [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-                err = fn(p, g, ctypes.addressof(n))
+                err = launch.function("ptgs_tile_composite_fwd_clusters")(
+                    p, g, ctypes.addressof(n))
             else:
-                fn = _kernel_fn("ptgs_tile_composite_bwd_clusters",
-                                [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-                err = fn(p, k, int(kernel == "bwd_dirs"), g,
-                         ctypes.addressof(n), ctypes.addressof(smem))
+                err = launch.function("ptgs_tile_composite_bwd_clusters")(
+                    p, k, int(kernel == "bwd_dirs"), g, ctypes.addressof(n),
+                    ctypes.addressof(smem))
         if err != 0:
             raise RuntimeError(f"cluster_occupancy({kernel}, P={p}, K={k}, "
                                f"g={g}): CUDA error {err}")
@@ -502,7 +431,7 @@ def as_block_tiles(packets, dirs: torch.Tensor):
             dirs.reshape(t_total * s, q, 3).contiguous(), p)
 
 
-def _kernel_settings(settings: RenderSettings):
+def kernel_settings(settings: RenderSettings):
     cut = math.exp(-0.5 * settings.sigma_cut * settings.sigma_cut)
     return (settings.t_min, settings.t_max, settings.alpha_min,
             settings.alpha_max, cut, settings.transmittance_min)
@@ -511,16 +440,15 @@ def _kernel_settings(settings: RenderSettings):
 def _fwd(geom, featsT, dirs, count, settings: RenderSettings):
     """Forward dispatch: the plain version on the CPU, the kernel on the
     card."""
-    global LAUNCHES, ANY_LAUNCHES, ANY_GROUP_LAUNCHES
     tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count)
-    if _on_cpu("tile_composite", tensors):
+    if launch.on_cpu("tile_composite", tensors):
         return tile_composite_plain(dict(geom=geom, featsT=featsT), dirs,
                                     settings)
     t_total, p, _ = dirs.shape
     k = geom.shape[-1]
-    _check_shapes("tile_composite", tensors, {
-        "dirs": (t_total, p, 3), "geom": (t_total, GEOM_ROWS, k),
-        "featsT": (t_total, FEATURE_DIM, k), "count": (t_total,)})
+    launch.check("tile_composite", tensors, dict(
+        dirs=(t_total, p, 3), geom=(t_total, GEOM_ROWS, k),
+        featsT=(t_total, FEATURE_DIM, k), count=(t_total,)))
     dev = dirs.device
     out = torch.empty((t_total, p, FEATURE_DIM), dtype=torch.float32,
                       device=dev)
@@ -529,22 +457,13 @@ def _fwd(geom, featsT, dirs, count, settings: RenderSettings):
     if t_total == 0:
         return out, alpha_acc, depth
     path, plan = _plan_args("tile_composite", "fwd", p, k, dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn("ptgs_tile_composite_fwd", _FWD_ARGTYPES)(
-            count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
-            featsT.data_ptr(), out.data_ptr(), alpha_acc.data_ptr(),
-            depth.data_ptr(), t_total, p, k, FEATURE_DIM, _chunk_size(k),
-            *plan, *_kernel_settings(settings), stream)
-    if err != 0:
-        raise RuntimeError(f"tile_composite: kernel launch failed with CUDA "
-                           f"error {err}")
-    if path == "one_block":
-        LAUNCHES += 1
-    elif path == "cluster":
-        ANY_LAUNCHES += 1
-    else:
-        ANY_GROUP_LAUNCHES += 1
+    launch.launch("tile_composite", "ptgs_tile_composite_fwd",
+                  count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
+                  featsT.data_ptr(), out.data_ptr(), alpha_acc.data_ptr(),
+                  depth.data_ptr(), t_total, p, k, FEATURE_DIM,
+                  chunk_size(k), *plan, *kernel_settings(settings),
+                  device=dev, count="tile_fwd" if path == "one_block"
+                  else f"tile_fwd_{path}")
     return out, alpha_acc, depth
 
 
@@ -564,21 +483,20 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
     kernel, which follows the forward kernel's chunk schedule: slots of the
     chunks it skipped get exactly zero.
     """
-    global BWD_LAUNCHES, BWD_ANY_LAUNCHES, BWD_ANY_GROUP_LAUNCHES
     geom, featsT, count = packets["geom"], packets["featsT"], packets["count"]
     g_out, g_alpha, g_depth = cot
     tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count,
                    g_out=g_out, g_alpha=g_alpha, g_depth=g_depth)
-    if _on_cpu("tile_composite_bwd", tensors):
+    if launch.on_cpu("tile_composite_bwd", tensors):
         return tile_composite_bwd_plain(packets, dirs, cot, settings,
                                         want_dirs)
     t_total, p, _ = dirs.shape
     k = geom.shape[-1]
-    _check_shapes("tile_composite_bwd", tensors, {
-        "dirs": (t_total, p, 3), "geom": (t_total, GEOM_ROWS, k),
-        "featsT": (t_total, FEATURE_DIM, k), "count": (t_total,),
-        "g_out": (t_total, p, FEATURE_DIM), "g_alpha": (t_total, p),
-        "g_depth": (t_total, p)})
+    launch.check("tile_composite_bwd", tensors, dict(
+        dirs=(t_total, p, 3), geom=(t_total, GEOM_ROWS, k),
+        featsT=(t_total, FEATURE_DIM, k), count=(t_total,),
+        g_out=(t_total, p, FEATURE_DIM), g_alpha=(t_total, p),
+        g_depth=(t_total, p)))
     dev = dirs.device
     d_geom = torch.zeros_like(geom)
     d_featsT = torch.zeros_like(featsT)
@@ -591,25 +509,15 @@ def tile_composite_bwd(packets, dirs: torch.Tensor, cot,
     # and phases: T, depth sum and the two cotangent sums, in double.
     scratch = None if path != "group_loop" else torch.empty(
         (t_total, p, 4), dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel_fn("ptgs_tile_composite_bwd", _BWD_ARGTYPES)(
-            count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
-            featsT.data_ptr(), g_out.data_ptr(), g_alpha.data_ptr(),
-            g_depth.data_ptr(), None if d_dirs is None else d_dirs.data_ptr(),
-            d_geom.data_ptr(), d_featsT.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), t_total, p, k,
-            FEATURE_DIM, _chunk_size(k), int(want_dirs), *plan,
-            *_kernel_settings(settings), stream)
-    if err != 0:
-        raise RuntimeError(f"tile_composite_bwd: kernel launch failed with "
-                           f"CUDA error {err}")
-    if path == "one_block":
-        BWD_LAUNCHES += 1
-    elif path == "cluster":
-        BWD_ANY_LAUNCHES += 1
-    else:
-        BWD_ANY_GROUP_LAUNCHES += 1
+    launch.launch("tile_composite_bwd", "ptgs_tile_composite_bwd",
+                  count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
+                  featsT.data_ptr(), g_out.data_ptr(), g_alpha.data_ptr(),
+                  g_depth.data_ptr(), launch.ptr(d_dirs), d_geom.data_ptr(),
+                  d_featsT.data_ptr(), launch.ptr(scratch), t_total, p, k,
+                  FEATURE_DIM, chunk_size(k), int(want_dirs), *plan,
+                  *kernel_settings(settings), device=dev,
+                  count="tile_bwd" if path == "one_block"
+                  else f"tile_bwd_{path}")
     return d_geom, d_featsT, d_dirs
 
 

@@ -5,7 +5,8 @@ Counterpart of ``benchmarks/variant_kernel.py`` (``_variant_kernel``,
 ``run_variant``, ``main``): copies of the forward composite with single
 stages disabled or re-lowered, timed to find where a sample's composite time
 goes. ``MODES`` lists the 19 modes in the reference's docstring order; the
-CUDA kernel ``csrc/tile_composite_variants.cu`` (counted in ``LAUNCHES``)
+CUDA kernel ``csrc/tile_composite_variants.cu`` (counted in
+``launch.launches`` under "tile_variant")
 runs each on the forward kernel's pipeline (its ``full`` mode is the
 forward's own code, bit-equal to ``tile_composite_fwd``) and says what
 each does on the card. The tensor-core modes (mxu, mxu3, lowdot,
@@ -23,7 +24,6 @@ against ``full``.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 import os
 import sys
@@ -31,6 +31,7 @@ import sys
 import torch
 
 from pathtracer_gaussiansplatting_tpu_torch.core.types import RenderSettings
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.kernels import tile_composite as tc
 
 MODES = ("full", "noquad", "noexp", "nodiv", "noscan", "nodepth",
@@ -51,14 +52,9 @@ TENSOR_CORE = ("mxu", "mxu3", "lowdot", "dot3")
 SAME_MATH = ("hoist", "mxu", "mxu3", "onechunk", "lowdot", "dot3", "noif")
 FP = 16  # the 14 packet features padded to a multiple of 8
 
-LAUNCHES = 0  # variant kernel launches; read by chip_smoke.py
-
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-             + [ctypes.c_float] * 6 + [ctypes.c_void_p])
-
 
 def chunk_size(mode: str, k: int) -> int:
-    return k if mode == "onechunk" else tc._chunk_size(k)
+    return k if mode == "onechunk" else tc.chunk_size(k)
 
 
 def out_channels(mode: str) -> int:
@@ -125,7 +121,7 @@ def tile_composite_variant_plain(mode: str, geom: torch.Tensor,
             w = trans * alpha
             last = om[..., kc - 1:kc]
         else:
-            excl = tc._cumprod_excl(om)
+            excl = tc.cumprod_excl(om)
             w = trans * excl * alpha
             last = excl[..., kc - 1:kc] * om[..., kc - 1:kc]
         if mode in NO_DOT:
@@ -158,32 +154,27 @@ def tile_composite_variant(mode: str, geom: torch.Tensor,
     """One mode of the harness (see :func:`tile_composite_variant_plain`
     for the shapes). CPU tensors run the plain version; CUDA tensors launch
     ``csrc/tile_composite_variants.cu``."""
-    global LAUNCHES
     tensors = dict(dirs=dirs, geom=geom, featsT=featsT, count=count)
-    if tc._on_cpu("tile_composite_variant", tensors):
+    if launch.on_cpu("tile_composite_variant", tensors):
         return tile_composite_variant_plain(mode, geom, featsT, dirs, count,
                                             settings)
     if mode not in MODES:
         raise ValueError(f"unknown mode '{mode}'; modes: {MODES}")
     t_total, p, _ = dirs.shape
     k = geom.shape[-1]
-    tc._check_shapes("tile_composite_variant", tensors, {
-        "dirs": (t_total, p, 3), "geom": (t_total, tc.GEOM_ROWS, k),
-        "featsT": (t_total, tc.FEATURE_DIM, k), "count": (t_total,)})
+    launch.check("tile_composite_variant", tensors, dict(
+        dirs=(t_total, p, 3), geom=(t_total, tc.GEOM_ROWS, k),
+        featsT=(t_total, tc.FEATURE_DIM, k), count=(t_total,)))
     out = torch.empty((t_total, p, out_channels(mode)), dtype=torch.float32,
                       device=dirs.device)
     if t_total == 0:
         return out
-    with torch.cuda.device(dirs.device):
-        stream = torch.cuda.current_stream(dirs.device).cuda_stream
-        err = tc._kernel_fn("ptgs_tile_composite_variant", _ARGTYPES)(
-            MODES.index(mode), count.data_ptr(), dirs.data_ptr(),
-            geom.data_ptr(), featsT.data_ptr(), out.data_ptr(), t_total, p,
-            k, chunk_size(mode, k), *tc._kernel_settings(settings), stream)
-    if err != 0:
-        raise RuntimeError(f"tile_composite_variant({mode}): kernel launch "
-                           f"failed with CUDA error {err}")
-    LAUNCHES += 1
+    launch.launch(f"tile_composite_variant({mode})",
+                  "ptgs_tile_composite_variant", MODES.index(mode),
+                  count.data_ptr(), dirs.data_ptr(), geom.data_ptr(),
+                  featsT.data_ptr(), out.data_ptr(), t_total, p, k,
+                  chunk_size(mode, k), *tc.kernel_settings(settings),
+                  device=dirs.device, count="tile_variant")
     return out
 
 

@@ -51,10 +51,7 @@ from pathtracer_gaussiansplatting_tpu_torch.core import sh as sh_mod
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     GaussianScene, Rays, RenderSettings,
 )
-from pathtracer_gaussiansplatting_tpu_torch.kernels import grid_march
-from pathtracer_gaussiansplatting_tpu_torch.kernels.tile_composite import (
-    _on_cpu,
-)
+from pathtracer_gaussiansplatting_tpu_torch.kernels import grid_march, launch
 from pathtracer_gaussiansplatting_tpu_torch.ops.gaussians import surfel_normal
 from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import rotmat_cols
 from pathtracer_gaussiansplatting_tpu_torch.ops.safe_math import (
@@ -851,7 +848,7 @@ def march(accel: GridAccel, origins, dirs, settings: RenderSettings,
         tensors["t_end"] = t_end
     if active is not None:
         tensors["active"] = active
-    if _on_cpu("grid march", tensors):
+    if launch.on_cpu("grid march", tensors):
         return march_plain(accel, origins, dirs, settings, max_steps,
                            t_end=t_end, with_features=with_features,
                            active=active, schedule=schedule,

@@ -1,47 +1,75 @@
-"""Row order and group test of the dense kernels: each kernel timed on its
-shipped table against two other tables of the same Gaussians.
+"""The ray chunks that ``chip_smoke.py``, ``tools/turns.py`` and the tests
+feed the march and dense kernels, and the work the dense kernels' culls
+leave on them.
 
-``csrc/dense_topk.cu`` and ``csrc/dense_visibility.cu`` read a
-``kernels/dense_trace.DenseTable``: the rows in Morton order of the means,
-for each 32 rows a sphere that a warp tests before it tests the rows, and
-(the top-K kernel's first test) for each 32 groups a sphere around
-theirs. This script builds, from the same ``gaussian_table``, the tables
-
-  shipped        ``dense_table``: Morton order, the group and super-group
-                 spheres;
-  no group test  the same rows, every sphere of infinite radius (a warp
-                 reaches every group: the group tests never skip);
-  index order    the rows in index order, spheres of infinite radius;
-
-and times each kernel on each of :func:`dense_chunks`' five 65536-ray
-chunks (``surface_scene(50k, seed 13)`` and its point light at 800x800,
-``chip_smoke.py``'s phase 5a) in turns, shipped, no group test, index
-order, index order, no group test, shipped, 5 launches a turn (CUDA
-events), beside the exact path's turns that each table leaves
-(:func:`cull_counts`: a ray's for the top-K kernel, a warp's for the
-shadow kernel). Every table must give the shipped one's outputs
-bit for bit, but for a shadow product in index order, which the kernel
-multiplies in another order: within rtol 1e-5 / atol 1e-6.
-
-Run on a CUDA card from the repository root (about a minute):
-
-    python -m pathtracer_gaussiansplatting_tpu_torch.tools.dense_table_order
+:func:`march_chunks`: bounce rays and shadow segments from a camera's
+primary hit, for the grid march kernels (``chip_smoke.py``'s phase 6b).
+:func:`dense_chunks`: primary, bounce and thin-far rays and shadow
+segments of one pose, for the dense kernels (phase 5a).
+:func:`cull_counts`: what the dense kernels' group and pair culls leave of
+a chunk, counted in torch with the kernels' predicates.
 """
 from __future__ import annotations
 
-import argparse
-import dataclasses
-import math
-import subprocess
-import sys
-
+import numpy as np
 import torch
 
 CHUNK = 65536   # rays a chunk (render_pose's chunk in chip_smoke.py)
 # The path-trace bench's camera (bench.py:124-128): eye and target.
 EYE, TARGET = (0.0, 0.2, 1.7), (0.0, -0.4, -0.5)
-VIS_RTOL, VIS_ATOL = 1e-5, 1e-6
-TURN_LAUNCHES = 5
+
+
+def march_chunks(scene, cam, settings, cfg, n: int = CHUNK) -> list:
+    """Three chunks of n rays, strided over the camera's primary hit:
+    bounce rays (sampled as the bounce loop samples them), shadow segments
+    to the emissive panel, and the bounce rays under a 50% active mask.
+    Each is (name, origins, dirs, march keywords)."""
+    from pathtracer_gaussiansplatting_tpu_torch.core import rng
+    from pathtracer_gaussiansplatting_tpu_torch.ops import bsdf
+    from pathtracer_gaussiansplatting_tpu_torch.render import lights
+    from pathtracer_gaussiansplatting_tpu_torch.render.pathtrace import (
+        interaction_from_tile_arrays,
+    )
+    from pathtracer_gaussiansplatting_tpu_torch.render.tiled import (
+        prepare_tiles, render_prepared,
+    )
+
+    packets = prepare_tiles(scene, cam, settings, cfg)
+    out = render_prepared(packets, cam, settings, cfg, outputs=(
+        "tile_feats", "tile_alpha", "tile_depth", "tile_dirs"))
+    dirs = out["tile_dirs"].reshape(-1, 3)
+    origins = cam.c2w[:3, 3][None].expand(dirs.shape[0], 3)
+    inter = interaction_from_tile_arrays(out, origins, dirs, settings)
+    sel = torch.arange(0, dirs.shape[0], dirs.shape[0] // n,
+                       device=dirs.device)[:n]
+    inter = {k: v[sel] for k, v in inter.items()}
+    d = dirs[sel]
+    u = {dim: rng.ray_uniform(rng.fold_in(rng.prng_key(13), 1), n, dim, num,
+                              d.device)
+         for dim, num in ((7, 1), (8, 2), (12, 1), (13, 1), (14, 2))}
+    alpha = inter["alpha_acc"].clamp_min(1e-8)
+    normal = inter["normal"]
+    scat = bsdf.sample_clearcoated(
+        u[12][:, 0], u[13][:, 0], u[14], normal, -d,
+        inter["albedo"] / alpha[:, None], inter["metallic"],
+        inter["roughness"].clamp_min(1e-3), inter["clearcoat"],
+        inter["cc_roughness"])
+    eps = settings.shadow_eps
+    hit = inter["alpha_acc"] > 1e-4
+    bo = (inter["position"] + normal * eps).contiguous()
+    bd = scat["direction"].contiguous()
+    tables = lights.build_light_tables(scene, None)
+    em = lights.sample_emissive(u[7][:, 0], u[8], scene, tables)
+    to_l = em["position"] - inter["position"]
+    dist = torch.sqrt(torch.clamp_min((to_l * to_l).sum(-1), 1e-4))
+    l_dir = (to_l / dist[:, None]).contiguous()
+    half = torch.from_numpy(np.random.default_rng(21).uniform(size=n)
+                            < 0.5).to(d.device)
+    return [("bounce rays", bo, bd, dict(active=hit)),
+            ("shadow segments to the emissive panel", bo, l_dir,
+             dict(t_end=(dist - 2 * eps).contiguous(),
+                  active=hit & ((normal * l_dir).sum(-1) > 1e-3))),
+            ("bounce rays, 50% active", bo, bd, dict(active=hit & half))]
 
 
 def dense_chunks(dt, scene, light, cam, settings, n: int = CHUNK) -> dict:
@@ -179,119 +207,3 @@ def cull_counts(dt, o, d, table, settings, active=None, t_end=None,
                    group_tests=group_tests, exact_turns=exact_turns,
                    live=n_live)
     return res
-
-
-def table_variants(dt, table) -> dict:
-    """The shipped DenseTable and the two it is timed against (see the
-    module's docstring), in that order."""
-    def unbounded(tab):
-        groups, supers = tab.groups.clone(), tab.supers.clone()
-        groups[:, 3] = supers[:, 3] = math.inf   # the spheres' radii
-        return dataclasses.replace(tab, groups=groups, supers=supers)
-
-    index = torch.arange(table.rows.shape[0], device=table.rows.device)
-    return {"shipped": table, "no group test": unbounded(table),
-            "index order": unbounded(dt.table_in_order(table.rows, index))}
-
-
-def _cuda_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def compare_tables(dt, chunks: dict, settings) -> list:
-    """Each kernel on each chunk with each of :func:`table_variants`: the
-    outputs checked against the shipped table's (raises on a miss), the
-    times in turns, the exact path's turns per warp. One dict a chunk."""
-    tables = table_variants(dt, chunks["table"])
-    k, bo = chunks["k"], chunks["origins"]
-    runs = [(name, False, lambda tab, o=o, d=d: dt.dense_topk(
-                o, d, tab, k, settings), dict(o=o, d=d))
-            for name, o, d in chunks["topk"]]
-    runs += [(name, True, lambda tab, d=d, te=te, act=act: (
-                 dt.dense_visibility(bo, d, te, tab, settings, act),),
-              dict(o=bo, d=d, active=act, t_end=te))
-             for name, d, te, act in chunks["vis"]]
-    results = []
-    for name, product, fn, rays in runs:
-        want = fn(tables["shipped"])
-        for label, tab in tables.items():
-            for a, b in zip(fn(tab), want):
-                if product and label == "index order":
-                    torch.testing.assert_close(a, b, rtol=VIS_RTOL,
-                                               atol=VIS_ATOL)
-                elif not torch.equal(a, b):
-                    raise RuntimeError(f"{name}: the {label} table's "
-                                       f"outputs differ from the shipped")
-        ms = {label: [] for label in tables}
-        for label in list(tables) + list(tables)[::-1]:
-            ms[label].append(_cuda_ms(lambda: fn(tables[label]),
-                                      TURN_LAUNCHES))
-        counts = {label: cull_counts(dt, rays["o"], rays["d"], tab,
-                                     settings, rays.get("active"),
-                                     rays.get("t_end"), supers=not product)
-                  for label, tab in tables.items()}
-        # The top-K kernel's exact-path turns a ray (32 kept rows a turn);
-        # the shadow kernel's a (warp, row) pair.
-        results.append(dict(name=name, rays=rays["o"].shape[0], ms=ms,
-                            turns={label: c["exact_turns"] / c["live"]
-                                   if not product else c["turns"] / c["warps"]
-                                   for label, c in counts.items()}))
-    return results
-
-
-def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args(
-        argv)
-    if not torch.cuda.is_available():
-        print("dense_table_order: needs a CUDA card", file=sys.stderr)
-        return 2
-    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
-        Camera, look_at,
-    )
-    from pathtracer_gaussiansplatting_tpu_torch.core.types import (
-        RenderSettings, make_punctual_lights,
-    )
-    from pathtracer_gaussiansplatting_tpu_torch.csrc import build
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import dense_trace
-    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
-        surface_scene,
-    )
-
-    card = subprocess.run(["nvidia-smi", "-i", "0",
-                           "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
-    print(card, flush=True)
-    build.load()
-    scene = surface_scene(50_000, seed=13)
-    light = make_punctual_lights(position=[[0.6, 0.9, -0.4]],
-                                 intensity=[4.0], color=[[1.0, 0.95, 0.85]],
-                                 light_type=[0])
-    cam = Camera(c2w=look_at(EYE, TARGET), fov_y_deg=60.0, width=800,
-                 height=800)
-    settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
-    chunks = dense_chunks(dense_trace, scene, light, cam, settings)
-    for res in compare_tables(dense_trace, chunks, settings):
-        topk = "rays" in res["name"]
-        kernel = "dense_topk" if topk else "dense_visibility"
-        print(f"{kernel}, {res['name']}, R={res['rays']}: " + "; ".join(
-            f"{label} {', '.join(f'{t:.3f}' for t in ms)} ms, exact-path "
-            + (f"turns {res['turns'][label]:.2f} a ray" if topk else
-               f"turns {res['turns'][label]:.4%} of (warp, row) pairs")
-            for label, ms in res["ms"].items())
-            + f" (in turns, {TURN_LAUNCHES} launches a turn, CUDA events; "
-            f"outputs equal; {card})", flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())

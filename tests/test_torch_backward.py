@@ -26,6 +26,7 @@ from pathtracer_gaussiansplatting_tpu.utils import metrics as jmetrics
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     SCENE_FIELDS, RenderSettings, scene_from_numpy, scene_to_numpy,
 )
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.kernels import tile_composite as tc
 from pathtracer_gaussiansplatting_tpu_torch.models.scene import SceneParams
 from pathtracer_gaussiansplatting_tpu_torch.ops.binning import BinningConfig
@@ -136,12 +137,12 @@ def test_function_grads_match_pallas(multi_chunk, transmittance_min):
     ins = [mc["tpk"]["geom"].clone().requires_grad_(),
            mc["tpk"]["featsT"].clone().requires_grad_(),
            mc["tdirs"].clone().requires_grad_()]
-    before = tc.BWD_LAUNCHES
+    before = launch.launches["tile_bwd"]
     outs = tc.tile_composite(dict(geom=ins[0], featsT=ins[1],
                                   count=mc["tpk"]["count"]), ins[2], tset)
     got = torch.autograd.grad(outs, ins, tuple(torch.from_numpy(c)
                                                for c in mc["cot"]))
-    assert tc.BWD_LAUNCHES == before
+    assert launch.launches["tile_bwd"] == before
     keep = slice(None) if transmittance_min == 0.0 else ~mc["skipped"]
     assert mc["skipped"].any() and (~mc["skipped"]).any()
     want = (want_pk["geom"], want_pk["featsT"], want_dirs)
@@ -255,11 +256,11 @@ def test_bwd_dispatch_cpu_and_no_fallback(multi_chunk):
     mc = multi_chunk
     cot = tuple(torch.from_numpy(c) for c in mc["cot"])
     settings = RenderSettings()
-    before = tc.BWD_LAUNCHES
+    before = launch.launches["tile_bwd"]
     got = tc.tile_composite_bwd(mc["tpk"], mc["tdirs"], cot, settings)
     want = tc.tile_composite_bwd_plain(mc["tpk"], mc["tdirs"], cot, settings)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert tc.BWD_LAUNCHES == before
+    assert launch.launches["tile_bwd"] == before
     meta = {k: v.to("meta") for k, v in mc["tpk"].items()}
     meta_cot = tuple(c.to("meta") for c in cot)
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
@@ -271,7 +272,7 @@ def test_bwd_dispatch_cpu_and_no_fallback(multi_chunk):
         tc.TileComposite.apply(meta["geom"], meta["featsT"],
                                mc["tdirs"].to("meta"), meta["count"],
                                settings)
-    assert tc.BWD_LAUNCHES == before
+    assert launch.launches["tile_bwd"] == before
 
 
 def test_function_d_dirs_only_where_asked(multi_chunk):
@@ -312,10 +313,10 @@ def test_bwd_kernel_matches_plain_on_card(request):
     dirs = mc["tdirs"].to(dev)
     cot = tuple(torch.from_numpy(c).to(dev) for c in mc["cot"])
     settings = RenderSettings(transmittance_min=0.0)
-    before = tc.BWD_LAUNCHES
+    before = launch.launches["tile_bwd"]
     got = tc.tile_composite_bwd(packets, dirs, cot, settings)
     torch.cuda.synchronize()
-    assert tc.BWD_LAUNCHES == before + 1
+    assert launch.launches["tile_bwd"] == before + 1
     want = tc.tile_composite_bwd_plain(packets, dirs, cot, settings)
     for g, w, name in zip(got, want, GRAD_NAMES):
         assert_close(g, w, BWD_RTOL, BWD_ATOL, err_msg=name)
@@ -334,12 +335,12 @@ def test_bwd_kernel_without_dirs_on_card(request):
     dirs = mc["tdirs"].to(dev)
     cot = tuple(torch.from_numpy(c).to(dev) for c in mc["cot"])
     settings = RenderSettings()
-    before = tc.BWD_LAUNCHES
+    before = launch.launches["tile_bwd"]
     got = tc.tile_composite_bwd(packets, dirs, cot, settings,
                                 want_dirs=False)
     full = tc.tile_composite_bwd(packets, dirs, cot, settings)
     torch.cuda.synchronize()
-    assert tc.BWD_LAUNCHES == before + 2 and got[2] is None
+    assert launch.launches["tile_bwd"] == before + 2 and got[2] is None
     assert all(torch.equal(a, b) for a, b in zip(got[:2], full[:2]))
     want = tc.tile_composite_bwd_plain(packets, dirs, cot, settings)
     keep = torch.from_numpy(~mc["skipped"]).to(dev)

@@ -17,6 +17,7 @@ from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     SCENE_FIELDS, Rays, RenderSettings,
 )
 from pathtracer_gaussiansplatting_tpu_torch.kernels import dense_trace as dt
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
     random_cloud, surface_scene,
 )
@@ -175,7 +176,7 @@ def test_cpu_takes_the_plain_path():
     settings = RenderSettings(max_contribs=32)
     assert not rays.origins.is_cuda
     assert not tref.composite_on_card(scene, rays)
-    before = dt.COMPOSITE_LAUNCHES
+    before = launch.launches["dense_composite"]
     profiling.reset_counts()
     try:
         with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -185,7 +186,7 @@ def test_cpu_takes_the_plain_path():
         assert profiling.counts()["dense_rays"] == 48
     finally:
         profiling.reset_counts()
-    assert dt.COMPOSITE_LAUNCHES == before
+    assert launch.launches["dense_composite"] == before
     assert "ptgs.gather" in {e.name for e in prof.events()}
     want = tref.trace_dense(scene, rays, settings)
     assert all(torch.equal(got[k], want[k]) for k in want)
@@ -257,7 +258,7 @@ def capture_lists(dev, degree=0):
 def test_kernel_matches_plain_on_card(degree):
     """At the dense capture's shapes (N = 40k, R = 65536, K = 64): the
     kernel against the plain version on the card; two launches give the
-    same bits; one count in COMPOSITE_LAUNCHES a call."""
+    same bits; one count under "dense_composite" a call."""
     dev = card()
     scene, settings, chunks = capture_lists(dev, degree)
     table = dt.composite_table(scene, degree)
@@ -265,11 +266,11 @@ def test_kernel_matches_plain_on_card(degree):
         assert float((lists[2] > 0).float().mean()) > 0.01
         want = dt.dense_composite_plain(*lists, rays.directions, table,
                                         degree)
-        before = dt.COMPOSITE_LAUNCHES
+        before = launch.launches["dense_composite"]
         got = dt.dense_composite(*lists, rays.directions, table, degree)
         again = dt.dense_composite(*lists, rays.directions, table, degree)
         torch.cuda.synchronize()
-        assert dt.COMPOSITE_LAUNCHES == before + 2
+        assert launch.launches["dense_composite"] == before + 2
         assert torch.equal(got, again)
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
@@ -304,7 +305,7 @@ def test_trace_dense_on_card():
     scene, settings, chunks = capture_lists(dev)
     rays, _ = chunks[0]
     backend = tpipe.make_trace_backend(scene, settings, "dense")
-    misses, before = tpipe.TABLE_MISSES, dt.COMPOSITE_LAUNCHES
+    misses, before = tpipe.TABLE_MISSES, launch.launches["dense_composite"]
     profiling.reset_counts()
     try:
         with torch.no_grad(), profile(activities=[
@@ -314,7 +315,7 @@ def test_trace_dense_on_card():
         assert profiling.counts()["dense_composite_rays"] == rays.num_rays
     finally:
         profiling.reset_counts()
-    assert dt.COMPOSITE_LAUNCHES == before + 1
+    assert launch.launches["dense_composite"] == before + 1
     assert tpipe.TABLE_MISSES == misses
     names = [e.name for e in prof.events()]
     assert "ptgs.gather" in names
@@ -323,7 +324,7 @@ def test_trace_dense_on_card():
     sh = scene.sh_coeffs.clone().requires_grad_()
     wanting = scene.replace(sh_coeffs=sh)
     want = tref.trace_dense(wanting, rays, settings)
-    assert dt.COMPOSITE_LAUNCHES == before + 1
+    assert launch.launches["dense_composite"] == before + 1
     (g,) = torch.autograd.grad(want["albedo"].sum(), sh)
     assert float(g.abs().sum()) > 0
     want = {k: v.detach() for k, v in want.items()}

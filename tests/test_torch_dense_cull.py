@@ -8,8 +8,7 @@ in a cuda-marked test).
   opacities within an ulp of alpha_min and on short segments.
 - The 16-column table against a numpy formula; a prebuilt table (and the
   dense backend's, built once) gives the results of a table built per call.
-- The dense backend's table cache counts the calls it cannot serve; the
-  tables of tools/dense_table_order hold the shipped table's rows.
+- The dense backend's table cache counts the calls it cannot serve.
 - The top-K kernel's two-level group test: each super-group's sphere holds
   its groups' spheres, every (ray, group) the group test keeps lies in a
   super-group the super-group test keeps (primary, bounce and thin-far
@@ -46,6 +45,7 @@ from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     Rays, RenderSettings, make_scene,
 )
 from pathtracer_gaussiansplatting_tpu_torch.kernels import dense_trace as dt
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as tgauss
 from pathtracer_gaussiansplatting_tpu_torch.ops.quaternions import (
     quat_to_rotmat,
@@ -349,47 +349,6 @@ def test_table_cache_counts_misses(cloud):
     assert tpipe.TABLE_MISSES == before + 4
 
 
-def test_table_order_tool_variants():
-    """tools/dense_table_order's tables hold the shipped table's rows: the
-    same Morton order with spheres every ray reaches, and index order; the
-    cull's counts over them on the CPU (each kept pair of the shipped
-    table is kept by the others, which test more pairs)."""
-    from pathtracer_gaussiansplatting_tpu_torch.core.camera import (
-        Camera, generate_rays, look_at,
-    )
-    from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
-        surface_scene,
-    )
-    from pathtracer_gaussiansplatting_tpu_torch.tools import (
-        dense_table_order as dto,
-    )
-
-    n = 3000
-    scene = surface_scene(n, seed=13, device=CPU)
-    s = RenderSettings()
-    table = dt.dense_table(dt.gaussian_table(scene, s))
-    tabs = dto.table_variants(dt, table)
-    assert list(tabs) == ["shipped", "no group test", "index order"]
-    assert tabs["shipped"] is table
-    assert torch.equal(tabs["no group test"].sorted_rows, table.sorted_rows)
-    assert torch.equal(tabs["index order"].order.long(), torch.arange(n))
-    assert torch.equal(tabs["index order"].sorted_rows, table.rows)
-    rays = generate_rays(Camera(c2w=look_at(PHASE5_EYE, PHASE5_TARGET,
-                                            device=CPU),
-                                fov_y_deg=60.0, width=16, height=8))
-    o, d = rays.origins, rays.directions
-    counts = {label: dto.cull_counts(dt, o, d, tab, s, rays_per_pass=64)
-              for label, tab in tabs.items()}
-    for label in ("no group test", "index order"):
-        assert bool(dt.dense_group_keep(o, d, tabs[label], s).all())
-        assert bool(dt.dense_super_keep(o, d, tabs[label], s).all())
-        assert counts[label]["tested"] == 128 * 94 * 32 > \
-            counts["shipped"]["tested"]
-        assert counts[label]["kept"] >= counts["shipped"]["kept"] > 0
-        assert counts[label]["warp_group_share"] == 1.0
-    assert counts["shipped"]["warp_group_share"] < 1.0
-
-
 def test_dense_table_groups():
     """The kernels' view of the table: rows in Morton order with their
     indices (or in any order given to table_in_order), each 32-row
@@ -566,23 +525,21 @@ def test_super_keep_covers_group_keep(world, kind):
 
 
 def test_two_level_cull_counts():
-    """tools/dense_table_order.cull_counts on the top-K kernel's path
+    """tools/chunks.cull_counts on the top-K kernel's path
     (supers=True): a super-group test for each (live ray, super-group),
     group tests only in the super-groups reached (32 each, fewer in the
     short last one), the same rows tested and kept as the one-level count
     (the groups kept lie in the super-groups kept), and the exact path's
     turns, 32 kept rows a turn."""
-    from pathtracer_gaussiansplatting_tpu_torch.tools import (
-        dense_table_order as dto,
-    )
+    from pathtracer_gaussiansplatting_tpu_torch.tools import chunks as tch
 
     scene, dtab = _super_world("surface")
     o, d = _super_rays(scene, "primary")
     s = RenderSettings()
     active = torch.from_numpy(np.random.default_rng(32).uniform(
         size=o.shape[0]) < 0.75)
-    one = dto.cull_counts(dt, o, d, dtab, s, active, rays_per_pass=96)
-    two = dto.cull_counts(dt, o, d, dtab, s, active, rays_per_pass=96,
+    one = tch.cull_counts(dt, o, d, dtab, s, active, rays_per_pass=96)
+    two = tch.cull_counts(dt, o, d, dtab, s, active, rays_per_pass=96,
                           supers=True)
     n_live, n_groups = int(active.sum()), dtab.groups.shape[0]
     assert two["live"] == n_live
@@ -810,12 +767,12 @@ def test_dense_visibility_gradients_on_card_match_cpu(cloud):
     for dev in ("cuda", "cpu"):
         ts = _leaves(cloud["tscene"].to(dev))
         args = tuple(torch.from_numpy(x).to(dev) for x in (o, d, te)) + (s,)
-        before = dt.VIS_PAIR_LAUNCHES
+        before = launch.launches["dense_visibility_pairs"]
         vis = tref.visibility_dense(ts, *args)
         grads.append([g.cpu() for g in torch.autograd.grad(
             (w.to(dev) * vis).sum(), [getattr(ts, k) for k in GEOMETRY])])
         if dev == "cuda":
-            assert dt.VIS_PAIR_LAUNCHES == before + 2
+            assert launch.launches["dense_visibility_pairs"] == before + 2
             with torch.no_grad():
                 assert torch.equal(vis.detach(),
                                    tref.visibility_dense(ts, *args))
@@ -841,12 +798,12 @@ def test_dense_gradients_on_card_match_cpu(cloud):
         ts = _leaves(cloud["tscene"].to(dev))
         tr = Rays(cloud["trays"].origins.to(dev),
                   cloud["trays"].directions.to(dev))
-        before = dt.TOPK_LAUNCHES
+        before = launch.launches["dense_topk"]
         loss = (w.to(dev) * tref.render_radiance_dense(ts, tr, s)).sum()
         grads.append([g.cpu() for g in torch.autograd.grad(
             loss, [getattr(ts, k) for k in names])])
         if dev == "cuda":   # one launch of the top-K kernel
-            assert dt.TOPK_LAUNCHES == before + 1
+            assert launch.launches["dense_topk"] == before + 1
     for k, g, c in zip(names, *grads):
         scale = float(c.abs().max())
         assert scale > 0 and float(g.abs().max()) > 0, k

@@ -378,7 +378,7 @@ def test_grid_kernels_match_plain_on_card(max_per_cell):
     segment, one to eight), so each lane mapping is run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import grid_march
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
     from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
         surface_scene,
     )
@@ -392,10 +392,10 @@ def test_grid_kernels_match_plain_on_card(max_per_cell):
     settings = RenderSettings()
     for kw in (dict(with_features=True), dict(t_end=t_end,
                                               with_features=False)):
-        before = (grid_march.TRACE_LAUNCHES, grid_march.VIS_LAUNCHES)
+        before = (launch.launches["grid_trace"], launch.launches["grid_visibility"])
         got = tgt.march(accel, o, d, settings, 64, schedule=FULL_COV, **kw)
         torch.cuda.synchronize()
-        assert (grid_march.TRACE_LAUNCHES, grid_march.VIS_LAUNCHES) != before
+        assert (launch.launches["grid_trace"], launch.launches["grid_visibility"]) != before
         want = tgt.march_plain(accel, o, d, settings, 64, schedule=FULL_COV,
                                **kw)
         assert torch.equal(got[2], want[2])
@@ -416,7 +416,7 @@ def test_grid_wide_kernels_match_plain_on_card(max_per_cell):
     Kc=256 kernels give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel is built for sm_90a)")
-    from pathtracer_gaussiansplatting_tpu_torch.kernels import grid_march
+    from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
     from pathtracer_gaussiansplatting_tpu_torch.models.scene import (
         surface_scene,
     )
@@ -437,14 +437,14 @@ def test_grid_wide_kernels_match_plain_on_card(max_per_cell):
     settings = RenderSettings()
     for kw in (dict(with_features=True), dict(t_end=t_end,
                                               with_features=False)):
-        before = (grid_march.TRACE_WIDE_LAUNCHES,
-                  grid_march.VIS_WIDE_LAUNCHES, grid_march.TRACE_LAUNCHES,
-                  grid_march.VIS_LAUNCHES)
+        before = (launch.launches["grid_trace_wide"],
+                  launch.launches["grid_visibility_wide"], launch.launches["grid_trace"],
+                  launch.launches["grid_visibility"])
         got = tgt.march(accel, o, d, settings, 64, schedule=FULL_COV, **kw)
         torch.cuda.synchronize()
-        after = (grid_march.TRACE_WIDE_LAUNCHES,
-                 grid_march.VIS_WIDE_LAUNCHES, grid_march.TRACE_LAUNCHES,
-                 grid_march.VIS_LAUNCHES)
+        after = (launch.launches["grid_trace_wide"],
+                 launch.launches["grid_visibility_wide"], launch.launches["grid_trace"],
+                 launch.launches["grid_visibility"])
         assert sum(after[:2]) == sum(before[:2]) + 1
         assert after[2:] == before[2:]
         want = tgt.march_plain(accel, o, d, settings, 64, schedule=FULL_COV,
@@ -458,25 +458,6 @@ def test_grid_wide_kernels_match_plain_on_card(max_per_cell):
             assert (g is None) == (s is None)
             if g is not None:
                 assert torch.equal(g, s)
-
-
-def test_lanes_swap_applies_once():
-    """The lanes comparison's copy of csrc/grid_march.cu differs from it
-    in the two lanes constants alone; a source without them is refused."""
-    from pathlib import Path
-
-    from pathtracer_gaussiansplatting_tpu_torch.csrc import build
-    from pathtracer_gaussiansplatting_tpu_torch.tools import grid_march_lanes
-
-    text = (Path(build.CSRC_DIR) / "grid_march.cu").read_text()
-    swapped = grid_march_lanes.swapped_source(text)
-    diff = [(a, b) for a, b in zip(text.splitlines(), swapped.splitlines())
-            if a != b]
-    assert len(text.splitlines()) == len(swapped.splitlines())
-    assert [b.strip() for _, b in diff] == [
-        "constexpr int kTraceLanes = 16;", "constexpr int kVisLanes = 32;"]
-    with pytest.raises(ValueError, match="kTraceLanes"):
-        grid_march_lanes.swapped_source(text.replace("kTraceLanes", "kL"))
 
 
 def test_march_chunks_feed_the_march():
@@ -493,14 +474,13 @@ def test_march_chunks_feed_the_march():
     from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
         BinningConfig,
     )
-    from pathtracer_gaussiansplatting_tpu_torch.tools import grid_march_lanes
+    from pathtracer_gaussiansplatting_tpu_torch.tools import chunks as tch
 
     scene = surface_scene(2000, seed=13, device=CPU)
     cam = Camera(c2w=look_at((0.0, 0.2, 1.7), (0.0, -0.4, -0.5), device=CPU),
                  fov_y_deg=60.0, width=32, height=16)
     settings = RenderSettings(max_depth=4, ambient=(0.05, 0.05, 0.06, 1.0))
-    chunks = grid_march_lanes.march_chunks(scene, cam, settings,
-                                           BinningConfig(), n=128)
+    chunks = tch.march_chunks(scene, cam, settings, BinningConfig(), n=128)
     accel = tgt.build_grid_accel(scene, max_per_cell=32)
     assert [c[0] for c in chunks] == [
         "bounce rays", "shadow segments to the emissive panel",

@@ -12,6 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from pathtracer_gaussiansplatting_tpu_torch.core.camera import Camera, look_at
 from pathtracer_gaussiansplatting_tpu_torch.core.types import RenderSettings
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.kernels import tile_composite as tc
 from pathtracer_gaussiansplatting_tpu_torch.models.scene import random_cloud
 from pathtracer_gaussiansplatting_tpu_torch.ops.binning import (
@@ -186,9 +187,9 @@ def test_dispatch_cpu_and_no_fallback():
     d_geom = live_zeroed(torch.empty(idx.shape[0], 16, idx.shape[1]), mask, 3)
     d_featsT = live_zeroed(torch.empty(idx.shape[0], 14, idx.shape[1]),
                            mask, 4)
-    before = tc.GATHER_BWD_LAUNCHES
+    before = launch.launches["packet_gather_bwd"]
     tc.packet_gather_bwd(d_geom, d_featsT, idx, mask, len(table))
-    assert tc.GATHER_BWD_LAUNCHES == before
+    assert launch.launches["packet_gather_bwd"] == before
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         tc.packet_gather_bwd(d_geom.to("meta"), d_featsT.to("meta"),
                              idx.to("meta"), mask.to("meta"), len(table))
@@ -219,7 +220,7 @@ def test_kernel_bit_equal_on_card(k, tile):
     a ring view): the kernels' d_table equals the plain version's bit for
     bit, with cotangents from the tile backward and with random ones zero
     at masked slots; twice the same bits; zero rows for Gaussians in no
-    live slot; one count in GATHER_BWD_LAUNCHES a call."""
+    live slot; one count under "packet_gather_bwd" a call."""
     dev = card()
     table, idx, mask, dirs = binned(1_000_000, 1.5, k, tile, 800, 800,
                                     ring_eye(), device=dev, seed=1)
@@ -242,11 +243,11 @@ def test_kernel_bit_equal_on_card(k, tile):
     for seed, (dg, df) in enumerate([(d_geom, d_featsT), (
             live_zeroed(d_geom, mask, 7), live_zeroed(d_featsT, mask, 8))]):
         want = tc.packet_gather_bwd_plain(dg, df, idx, mask, n)
-        before = tc.GATHER_BWD_LAUNCHES
+        before = launch.launches["packet_gather_bwd"]
         got = tc.packet_gather_bwd(dg, df, idx, mask, n)
         again = tc.packet_gather_bwd(dg, df, idx, mask, n)
         torch.cuda.synchronize()
-        assert tc.GATHER_BWD_LAUNCHES == before + 2
+        assert launch.launches["packet_gather_bwd"] == before + 2
         assert torch.equal(got, want), f"cotangents {seed}"
         assert torch.equal(got, again)
         assert torch.equal(got, segment_sum(dg, df, idx, mask, n))
@@ -288,14 +289,14 @@ def test_kernel_raises_on_card():
            dict(d_geom=d_geom.double()), dict(d_geom=d_geom[:, :11]),
            dict(d_featsT=torch.zeros((t_total, 22, k), device=dev)),
            dict(mask=mask.cpu()), dict(d_featsT=d_featsT.cpu())]
-    before = tc.GATHER_BWD_LAUNCHES
+    before = launch.launches["packet_gather_bwd"]
     for change in bad:
         args = {**dict(d_geom=d_geom, d_featsT=d_featsT, idx=idx, mask=mask),
                 **change}
         with pytest.raises(ValueError):
             tc.packet_gather_bwd(args["d_geom"], args["d_featsT"],
                                  args["idx"], args["mask"], n)
-    assert tc.GATHER_BWD_LAUNCHES == before
+    assert launch.launches["packet_gather_bwd"] == before
 
 
 @pytest.mark.cuda
@@ -319,10 +320,10 @@ def test_train_step_on_card():
     state = opt(params.parameters())
     step = make_tiled_train_step(RenderSettings(), opt, BinningConfig())
     target = torch.full((128, 128, 3), 0.5, device=dev)
-    before = tc.GATHER_BWD_LAUNCHES
+    before = launch.launches["packet_gather_bwd"]
     step(params, state, cam, target)
     torch.cuda.synchronize()
-    assert tc.GATHER_BWD_LAUNCHES == before + 1
+    assert launch.launches["packet_gather_bwd"] == before + 1
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(params, state, cam, target)

@@ -22,6 +22,7 @@ from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     Rays, RenderSettings,
 )
 from pathtracer_gaussiansplatting_tpu_torch.kernels import dense_trace as dt
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.ops import composite as tcomp
 from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as tgauss
 from pathtracer_gaussiansplatting_tpu_torch.ops import safe_math as tsafe
@@ -272,7 +273,7 @@ def test_dispatch_cpu_and_no_fallback(scene_rays):
     ts, tr = scene_rays["tscene"], scene_rays["trays"]
     table = dt.gaussian_table(ts, RenderSettings())
     s = RenderSettings()
-    before = (dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES)
+    before = (launch.launches["dense_topk"], launch.launches["dense_visibility"])
     got = dt.dense_topk(tr.origins, tr.directions, table, 64, s)
     want = dt.dense_topk_plain(tr.origins, tr.directions, table, 64, s)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -281,7 +282,7 @@ def test_dispatch_cpu_and_no_fallback(scene_rays):
         dt.dense_visibility(tr.origins, tr.directions, t_end, table, s),
         dt.dense_visibility_plain(tr.origins, tr.directions, t_end, table,
                                   s))
-    assert (dt.TOPK_LAUNCHES, dt.VIS_LAUNCHES) == before
+    assert (launch.launches["dense_topk"], launch.launches["dense_visibility"]) == before
     meta = [x.to("meta") for x in (tr.origins, tr.directions, table)]
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         dt.dense_topk(*meta, 64, s)
@@ -335,10 +336,10 @@ def test_dense_topk_kernel_matches_plain_on_card(case):
     if case == "tied_depths":   # quarter-unit steps: many equal keys
         sd = torch.round(scene.means[:, 2] * 4.0) / 4.0
     s = RenderSettings()
-    before = dt.TOPK_LAUNCHES
+    before = launch.launches["dense_topk"]
     got = dt.dense_topk(o, d, table, k, s, sort_depths=sd, active=active)
     torch.cuda.synchronize()
-    assert dt.TOPK_LAUNCHES == before + 1
+    assert launch.launches["dense_topk"] == before + 1
     want = dt.dense_topk_plain(o, d, table, k, s, sort_depths=sd,
                                active=active)
     assert int((want[2] > 0).sum()) > 0
@@ -389,10 +390,10 @@ def test_dense_topk_list_kernel_matches_plain_on_card(case):
     if case == "k256_tied":   # quarter-unit steps: many equal keys
         sd = torch.round(scene.means[:, 2] * 4.0) / 4.0
     s = RenderSettings()
-    before = dt.TOPK_LAUNCHES
+    before = launch.launches["dense_topk"]
     got = dt.dense_topk(o, d, table, k, s, sort_depths=sd, active=active)
     torch.cuda.synchronize()
-    assert dt.TOPK_LAUNCHES == before + 1
+    assert launch.launches["dense_topk"] == before + 1
     want = dt.dense_topk_plain(o, d, table, k, s, sort_depths=sd,
                                active=active)
     assert int((want[2] > 0).sum()) > 0
@@ -409,10 +410,10 @@ def test_dense_visibility_kernel_matches_plain_on_card(case):
     if case == "thin_far":
         t_end = t_end * 20.0
     s = RenderSettings()
-    before = dt.VIS_LAUNCHES
+    before = launch.launches["dense_visibility"]
     got = dt.dense_visibility(o, d, t_end, table, s, active)
     torch.cuda.synchronize()
-    assert dt.VIS_LAUNCHES == before + 1
+    assert launch.launches["dense_visibility"] == before + 1
     want = dt.dense_visibility_plain(o, d, t_end, table, s, active)
     # The product runs in another order than torch.prod's reduction.
     assert_close(got, want, 1e-5, 1e-6)

@@ -13,6 +13,7 @@ import torch
 
 from pathtracer_gaussiansplatting_tpu.core import rng as jrng
 from pathtracer_gaussiansplatting_tpu_torch.core import rng as trng
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.kernels import threefry as k5
 
 from torch_parity import CPU, TORCH_THREADS, np_of
@@ -49,9 +50,9 @@ def _bits(x) -> np.ndarray:
 @pytest.mark.parametrize("dims", list(DIM_SETS))
 def test_bounce_uniforms_match_jax(dims, r):
     jkey, tkey = _keys(2)
-    before = k5.LAUNCHES
+    before = launch.launches["threefry"]
     got = trng.bounce_uniforms(tkey, r, DIM_SETS[dims], device=CPU)
-    assert k5.LAUNCHES == before
+    assert launch.launches["threefry"] == before
     assert list(got) == list(DIM_SETS[dims])
     for name, (dim, num) in DIM_SETS[dims].items():
         want = jrng.ray_uniform(jkey, r, dim, num)
@@ -82,13 +83,13 @@ def test_cpu_draws_launch_nothing_and_need_no_nvcc():
         "from pathtracer_gaussiansplatting_tpu_torch.core import rng\n"
         "from pathtracer_gaussiansplatting_tpu_torch.csrc import build\n"
         "from pathtracer_gaussiansplatting_tpu_torch.kernels import "
-        "threefry\n"
+        "launch\n"
         "key = rng.prng_key(3)\n"
         "rng.bounce_uniforms(key, 5, dict(a=(10, 1), b=(8, 2)), 'cpu')\n"
         "rng.ray_uniform(key, 5, 7, device='cpu')\n"
         "rng.uniform(key, (2, 3), device='cpu')\n"
         "rng.subpixel_jitter(key, 4, 6, 1, device='cpu')\n"
-        "assert threefry.LAUNCHES == 0 and build._LIB is None\n"
+        "assert launch.launches['threefry'] == 0 and build._LIB is None\n"
         "assert 'jax' not in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items()
@@ -113,7 +114,7 @@ def test_kernel_refuses_bad_tables():
     # A CPU device goes to the plain version, never to the kernel.
     with pytest.raises(ValueError, match="plain version"):
         k5.threefry_uniforms([(1, 2)], [1], 8, "cpu")
-    assert k5.LAUNCHES == 0
+    assert launch.launches["threefry"] == 0
 
 
 @pytest.mark.cuda
@@ -140,10 +141,10 @@ def test_kernel_matches_plain_on_card():
     _, key = _keys(1)
     for dims in DIM_SETS.values():
         for r in (1, 7, 1023, 1025, 300_001):
-            before = k5.LAUNCHES
+            before = launch.launches["threefry"]
             got = trng.bounce_uniforms(key, r, dims, device=dev)
             torch.cuda.synchronize()
-            assert k5.LAUNCHES == before + 1
+            assert launch.launches["threefry"] == before + 1
             want = trng.uniforms_plain(
                 [(trng.dim_key(key, d), n) for d, n in dims.values()], r, dev)
             for (name, g), w in zip(got.items(), want):
@@ -161,8 +162,8 @@ def test_kernel_matches_plain_on_card():
                                             device=dev),
                                 fov_y_deg=60.0, width=32, height=24))
     settings = RenderSettings(max_depth=3)
-    before = k5.LAUNCHES
+    before = launch.launches["threefry"]
     out = pathtrace(scene, rays, settings, trng.frame_key(key, 0))
     torch.cuda.synchronize()
-    assert k5.LAUNCHES == before + settings.max_depth
+    assert launch.launches["threefry"] == before + settings.max_depth
     assert bool(torch.isfinite(out).all())

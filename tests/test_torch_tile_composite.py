@@ -19,6 +19,7 @@ from pathtracer_gaussiansplatting_tpu.models.scene import (
 from pathtracer_gaussiansplatting_tpu.ops import gaussians as jgauss
 from pathtracer_gaussiansplatting_tpu.render import tiled as jtiled
 from pathtracer_gaussiansplatting_tpu_torch.core.types import RenderSettings
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.kernels import tile_composite as tc
 from pathtracer_gaussiansplatting_tpu_torch.ops import gaussians as tgauss
 from pathtracer_gaussiansplatting_tpu_torch.render import tiled
@@ -151,11 +152,11 @@ def test_dispatch_cpu_and_no_fallback():
     kernel or raise, never fall back."""
     _, _, tpk, tdirs = pose_packets(120, 1.0, 64)
     settings = RenderSettings()
-    before = tc.LAUNCHES
+    before = launch.launches["tile_fwd"]
     got = tc.tile_composite(tpk, tdirs, settings)
     want = tc.tile_composite_plain(tpk, tdirs, settings)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert tc.LAUNCHES == before
+    assert launch.launches["tile_fwd"] == before
     meta = {k: v.to("meta") for k, v in tpk.items()}
     with pytest.raises(ValueError, match="CPU or all on one CUDA device"):
         tc.tile_composite(meta, tdirs.to("meta"), settings)
@@ -171,10 +172,10 @@ def test_kernel_matches_plain_on_card():
     dev = torch.device("cuda", 0)
     packets = {k: v.to(dev) for k, v in tpk.items()}
     settings = RenderSettings()
-    before = tc.LAUNCHES
+    before = launch.launches["tile_fwd"]
     got = tc.tile_composite(packets, tdirs.to(dev), settings)
     torch.cuda.synchronize()
-    assert tc.LAUNCHES == before + 1
+    assert launch.launches["tile_fwd"] == before + 1
     want = tc.tile_composite_plain(packets, tdirs.to(dev), settings)
     for g, w, name in zip(got, want, ("out", "alpha_acc", "depth")):
         assert_close(g, w, 1e-3, 3e-4, err_msg=name)
@@ -304,10 +305,10 @@ def test_kernel_chunk_shapes_on_card(k, p):
 
 def _launches(bwd: bool) -> dict:
     """The tile kernels' launch counts by path (any_p_plan's names)."""
-    names = ("BWD_LAUNCHES", "BWD_ANY_LAUNCHES", "BWD_ANY_GROUP_LAUNCHES") \
-        if bwd else ("LAUNCHES", "ANY_LAUNCHES", "ANY_GROUP_LAUNCHES")
-    return dict(zip(("one_block", "cluster", "group_loop"),
-                    (getattr(tc, n) for n in names)))
+    d = "bwd" if bwd else "fwd"
+    return {path: launch.launches[f"tile_{d}" if path == "one_block"
+                                  else f"tile_{d}_{path}"]
+            for path in ("one_block", "cluster", "group_loop")}
 
 
 @pytest.mark.parametrize("p, plan", [

@@ -20,6 +20,7 @@ from pathtracer_gaussiansplatting_tpu.render.tiled import (
 from pathtracer_gaussiansplatting_tpu_torch.core.types import (
     RenderSettings as TRenderSettings,
 )
+from pathtracer_gaussiansplatting_tpu_torch.kernels import launch
 from pathtracer_gaussiansplatting_tpu_torch.kernels import (
     tile_composite_variants as tv,
 )
@@ -97,9 +98,9 @@ def test_variant_plain_matches_reference(monkeypatch, vk, inputs, mode):
 def test_variant_dispatch_on_cpu(inputs):
     """On CPU tensors the wrapper runs the plain version and launches
     nothing; an unknown mode raises."""
-    before = tv.LAUNCHES
+    before = launch.launches["tile_variant"]
     got = tv.tile_composite_variant("floor", *inputs["torch"])
-    assert tv.LAUNCHES == before
+    assert launch.launches["tile_variant"] == before
     assert torch.equal(got, tv.tile_composite_variant_plain(
         "floor", *inputs["torch"]))
     with pytest.raises(ValueError, match="unknown mode"):
